@@ -1,0 +1,172 @@
+"""Paged KV cache: device tensors + host-side block pool with prefix cache,
+the port's copy of ``dynamo_tpu/engine/cache.py``.
+
+Device side: two tensors [L, num_slots, KV, hd] (num_slots = num_blocks *
+block_size), flat slot addressing; block 0 is the reserved NULL block —
+padding slot-maps and block tables point at it and its contents are
+garbage by design (attention masks it out). This is the JAX package's
+interchange format, so pages move between the two engines unchanged.
+
+Host side: ``BlockPool`` refcounts blocks while sequences use them; on
+release, hash-identified full blocks park in an LRU prefix cache for
+reuse, and eviction emits the KV-removed events the router relies on.
+"""
+
+from __future__ import annotations
+
+import logging
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from dynamo_tpu_torch.tokens import SequenceHash
+
+logger = logging.getLogger("dynamo_torch.engine.cache")
+
+NULL_BLOCK = 0
+
+
+@dataclass
+class BlockMeta:
+    block_id: int
+    ref_count: int = 0
+    #: chained sequence hash once the block is full + registered
+    seq_hash: Optional[SequenceHash] = None
+
+
+class BlockPool:
+    """Refcounted block allocator with an inactive LRU prefix cache.
+
+    ``on_removed(seq_hashes)`` fires when cached blocks are evicted (reused
+    for new data); ``on_freed()`` fires whenever release() returns
+    capacity to the pool.
+    """
+
+    def __init__(self, num_blocks: int, enable_prefix_caching: bool = True,
+                 on_removed: Optional[Callable[[list[int]], None]] = None):
+        self.num_blocks = num_blocks
+        self.enable_prefix_caching = enable_prefix_caching
+        self.on_removed = on_removed
+        self.on_freed: Optional[Callable[[], None]] = None
+        # block 0 reserved as NULL
+        self._free: list[int] = list(range(num_blocks - 1, 0, -1))
+        self._meta: dict[int, BlockMeta] = {}
+        #: seq_hash -> block_id for all registered full blocks
+        self._by_hash: dict[SequenceHash, int] = {}
+        #: inactive (refcount 0) cached blocks, LRU order (oldest first)
+        self._lru: "OrderedDict[SequenceHash, int]" = OrderedDict()
+
+    @property
+    def num_free_blocks(self) -> int:
+        """Blocks allocatable right now (free list + evictable LRU)."""
+        return len(self._free) + len(self._lru)
+
+    @property
+    def num_active_blocks(self) -> int:
+        return len(self._meta) - len(self._lru)
+
+    def usage(self) -> float:
+        usable = self.num_blocks - 1
+        return (usable - self.num_free_blocks) / max(1, usable)
+
+    def allocate(self, n: int) -> Optional[list[int]]:
+        """Allocate n blocks, evicting LRU-cached blocks if needed; None
+        (allocating nothing) if capacity is insufficient."""
+        if self.num_free_blocks < n:
+            return None
+        out = []
+        evicted: list[int] = []
+        for _ in range(n):
+            if self._free:
+                bid = self._free.pop()
+            else:
+                h, bid = self._lru.popitem(last=False)
+                meta = self._meta.pop(bid)
+                self._by_hash.pop(h, None)
+                evicted.append(meta.seq_hash)
+            self._meta[bid] = BlockMeta(block_id=bid, ref_count=1)
+            out.append(bid)
+        if evicted and self.on_removed:
+            self.on_removed(evicted)
+        return out
+
+    def match_prefix(self, seq_hashes: list[SequenceHash]) -> list[int]:
+        """Longest cached prefix: block ids for leading seq hashes, increffed."""
+        if not self.enable_prefix_caching:
+            return []
+        out = []
+        for h in seq_hashes:
+            bid = self._by_hash.get(h)
+            if bid is None:
+                break
+            meta = self._meta[bid]
+            if meta.ref_count == 0:
+                self._lru.pop(h, None)
+            meta.ref_count += 1
+            out.append(bid)
+        return out
+
+    def register(self, block_id: int, seq_hash: SequenceHash) -> bool:
+        """Mark a full block as identified by its sequence hash (→
+        reusable). False if an identical block is already registered
+        elsewhere."""
+        meta = self._meta[block_id]
+        meta.seq_hash = seq_hash
+        if not self.enable_prefix_caching:
+            return True
+        if seq_hash in self._by_hash and self._by_hash[seq_hash] != block_id:
+            return False
+        self._by_hash[seq_hash] = block_id
+        return True
+
+    def release(self, block_ids: list[int]) -> None:
+        """Decref; refcount-0 blocks go to the LRU cache (if hashed) or free."""
+        freed = False
+        for bid in block_ids:
+            if bid == NULL_BLOCK:
+                continue
+            meta = self._meta.get(bid)
+            if meta is None:
+                continue
+            meta.ref_count -= 1
+            if meta.ref_count > 0:
+                continue
+            freed = True
+            if (meta.seq_hash is not None and self.enable_prefix_caching
+                    and self._by_hash.get(meta.seq_hash) == bid):
+                self._lru[meta.seq_hash] = bid
+                self._lru.move_to_end(meta.seq_hash)
+            else:
+                self._meta.pop(bid)
+                self._free.append(bid)
+        if freed and self.on_freed:
+            self.on_freed()
+
+
+def kv_block_bytes(cfg, block_size: int, dtype: torch.dtype) -> int:
+    """Bytes of one block across both caches and every layer."""
+    per_slot = 2 * cfg.num_kv_heads * cfg.head_dim * dtype.itemsize
+    return cfg.num_layers * block_size * per_slot
+
+
+def memory_sized_num_blocks(cfg, block_size: int, fraction: float,
+                            device: torch.device, dtype: torch.dtype) -> int:
+    """Block count from the card's free memory, read after the weights are
+    resident: ``fraction`` of what is free goes to the KV pool."""
+    if device.type != "cuda":
+        raise ValueError("sizing the KV pool from free memory needs a CUDA "
+                         "device; pass EngineArgs.num_blocks on the CPU")
+    free, _total = torch.cuda.mem_get_info(device)
+    n = int(free * fraction) // kv_block_bytes(cfg, block_size, dtype)
+    return max(16, n)
+
+
+def allocate_device_cache(cfg, num_blocks: int, block_size: int,
+                          device: torch.device, dtype: torch.dtype):
+    """Zeroed k/v caches, each [L, num_blocks * block_size, KV, hd]."""
+    shape = (cfg.num_layers, num_blocks * block_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

@@ -1,0 +1,230 @@
+"""Engine configuration: model architecture + engine runtime knobs, the
+port's copy of ``dynamo_tpu/engine/config.py``.
+
+``ModelConfig`` keeps every field of the JAX package's so the two packages
+describe a model the same way; the forward (engine/model.py) refuses the
+switches it does not implement yet. ``EngineArgs`` keeps the knobs the
+port serves with, and names the JAX package's other knobs so that setting
+one of them fails loudly instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import dataclass
+from typing import Optional
+
+#: static cap on prefill chunks co-scheduled into one ragged step; extra
+#: chunks wait a step
+RAGGED_MAX_CHUNKS = 4
+
+
+@dataclass
+class ModelConfig:
+    """Llama-family decoder architecture (same fields as the JAX package)."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: Optional[int] = None  # defaults to hidden_size // num_heads
+    rope_theta: float = 10000.0
+    #: HF rope_scaling dict (linear / yarn / llama3 / longrope)
+    rope_scaling: Optional[dict] = None
+    rms_norm_eps: float = 1e-5
+    max_position_embeddings: int = 8192
+    tie_word_embeddings: bool = False
+    dtype: str = "bfloat16"
+    # MoE (0 experts = dense MLP)
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_intermediate_size: Optional[int] = None
+    n_shared_experts: int = 0
+    first_k_dense_replace: int = 0
+    scoring_func: str = "softmax"
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    n_group: int = 1
+    topk_group: int = 1
+    # attention extras
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    o_bias: bool = False
+    sliding_window: Optional[int] = None
+    layer_windows: Optional[tuple] = None
+    attention_sinks: bool = False
+    moe_activation: str = "swiglu"
+    router_logit_bias: bool = False
+    # Gemma family
+    embed_scale: bool = False
+    norm_plus_one: bool = False
+    hidden_activation: str = "silu"
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    sandwich_norms: bool = False
+    query_pre_attn_scalar: Optional[float] = None
+    # MLA (DeepSeek V2/V3)
+    kv_lora_rank: int = 0
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            self.head_dim = self.hidden_size // self.num_heads
+        if self.layer_windows is not None:
+            self.layer_windows = tuple(int(w or 0) for w in self.layer_windows)
+            if len(self.layer_windows) != self.num_layers:
+                raise ValueError(
+                    f"layer_windows has {len(self.layer_windows)} entries "
+                    f"for {self.num_layers} layers")
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank > 0
+
+    @staticmethod
+    def tiny(vocab_size: int = 256) -> "ModelConfig":
+        return ModelConfig(
+            vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=4, num_kv_heads=2, rope_theta=10000.0,
+            max_position_embeddings=512, dtype="float32",
+        )
+
+    @staticmethod
+    def llama3_8b() -> "ModelConfig":
+        return ModelConfig(
+            vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=500000.0,
+            max_position_embeddings=8192,
+        )
+
+    @staticmethod
+    def llama3_1b() -> "ModelConfig":
+        """Llama-3.2-1B shape."""
+        return ModelConfig(
+            vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+            num_layers=16, num_heads=32, num_kv_heads=8, head_dim=64,
+            rope_theta=500000.0, max_position_embeddings=8192,
+            tie_word_embeddings=True,
+        )
+
+
+#: the JAX package's engine knobs this port does not implement yet: name →
+#: (the value that means "off", the ROADMAP item that ports it). Setting
+#: one to anything else raises at construction.
+UNPORTED_KNOBS = {
+    "tp_size": (1, "A11"),
+    "dp_size": (1, "A11"),
+    "pp_size": (1, "A11"),
+    "use_pallas_attention": (False, "B1: the port's kernel is always on"),
+    "multi_step_decode": (1, "A7"),
+    "pipeline_decode": (False, "A3"),
+    "warmup_buckets": (False, "A7"),
+    "speculative_tokens": (0, "A7"),
+    "kvbm_host_bytes": (0, "A8"),
+    "kvbm_disk_dir": (None, "A8"),
+    "kvbm_disk_bytes": (0, "A8"),
+    "preempt_swap": (False, "A8"),
+    "swap_host_bytes": (None, "A8"),
+    "quantization": (None, "A5"),
+    "kv_cache_dtype": (None, "A4"),
+    "kv_transfer_direct": (False, "A8"),
+    "structured_device": (False, "A7"),
+}
+
+
+@dataclass
+class EngineArgs:
+    """Engine runtime knobs (the JAX package's names and defaults)."""
+
+    block_size: int = 16
+    num_blocks: Optional[int] = None  # None = size from free device memory
+    max_num_seqs: int = 64
+    max_num_batched_tokens: int = 2048
+    max_model_len: int = 4096
+    enable_prefix_caching: bool = True
+    enable_chunked_prefill: bool = True
+    watermark: float = 0.01
+    #: share of the device memory left free after the weights that the KV
+    #: pool takes, when num_blocks is None
+    kv_cache_memory_fraction: float = 0.6
+    #: () = powers of two up to max_num_seqs (caps the rows of one step)
+    decode_batch_buckets: tuple = ()
+    #: packed-token buckets for the ragged step; () = powers of two from 8
+    #: up to max_num_batched_tokens
+    ragged_token_buckets: tuple = ()
+    #: publish one KV stored event per prefill chunk instead of one per
+    #: request; None = read DYN_KV_EVENT_PER_CHUNK
+    kv_event_per_chunk: Optional[bool] = None
+    #: multi-tenant QoS scheduling; False = flat FIFO
+    qos_scheduling: bool = True
+    #: QoS policy override (dynamo_tpu_torch.qos.QosConfig); None = env
+    qos: Optional[object] = None
+    seed: int = 0
+    # knobs of the JAX package not ported yet (UNPORTED_KNOBS)
+    tp_size: int = 1
+    dp_size: int = 1
+    pp_size: int = 1
+    use_pallas_attention: bool = False
+    multi_step_decode: int = 1
+    pipeline_decode: bool = False
+    warmup_buckets: bool = False
+    speculative_tokens: int = 0
+    kvbm_host_bytes: int = 0
+    kvbm_disk_dir: Optional[str] = None
+    kvbm_disk_bytes: int = 0
+    preempt_swap: bool = False
+    swap_host_bytes: Optional[int] = None
+    quantization: Optional[str] = None
+    kv_cache_dtype: Optional[str] = None
+    kv_transfer_direct: bool = False
+    structured_device: bool = False
+
+    def __post_init__(self):
+        for name, (off, item) in UNPORTED_KNOBS.items():
+            if getattr(self, name) != off:
+                raise ValueError(
+                    f"EngineArgs.{name}={getattr(self, name)!r} is not "
+                    f"supported by the torch port yet (ROADMAP {item}); "
+                    f"leave it at {off!r}")
+        if self.kv_event_per_chunk is None:
+            self.kv_event_per_chunk = os.environ.get(
+                "DYN_KV_EVENT_PER_CHUNK", "").lower() not in ("", "0", "false")
+        if not self.decode_batch_buckets:
+            b = [2**i for i in range(0, max(1, self.max_num_seqs).bit_length())
+                 if 2**i <= self.max_num_seqs] or [1]
+            if b[-1] < self.max_num_seqs:
+                b.append(self.max_num_seqs)
+            self.decode_batch_buckets = tuple(b)
+        if not self.ragged_token_buckets:
+            cap = max(8, self.max_num_batched_tokens)
+            b = [2**i for i in range(3, cap.bit_length()) if 2**i <= cap]
+            if b[-1] < cap:
+                b.append(cap)
+            self.ragged_token_buckets = tuple(b)
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return math.ceil(self.max_model_len / self.block_size)
+
+    def bucket_ragged_tokens(self, n: int) -> int:
+        """Packed-token bucket for a ragged step of ``n`` real tokens."""
+        for b in self.ragged_token_buckets:
+            if n <= b:
+                return b
+        return self.ragged_token_buckets[-1]
+
+    def ragged_rows(self, t_bucket: int) -> int:
+        """Row count of the ragged step's metadata arrays, derived from the
+        token bucket (each row holds at least one token)."""
+        return max(1, min(self.max_num_seqs, t_bucket))

@@ -1,0 +1,342 @@
+"""AsyncTorchEngine: the token-generation engine of the torch port.
+
+The port of ``AsyncJaxEngine``'s main path: the engine loop executes
+scheduler plans as packed ragged steps,
+
+    plan() → one packed ragged launch (prefill chunks + decode rows) →
+    commit → greedy sample → emit LLMEngineOutput per sequence → KV events
+
+with the same ``generate(req, ctx)`` contract, the same packing and the same
+KV stored/removed events, so a torch worker and a JAX worker produce the
+same greedy streams and block hashes. Every plan goes through the one
+packed launch. The depth-2 pipelined decode loop and the multi-step and
+speculative fast paths are not ported yet (ROADMAP A3, A7), and requests
+that need anything but greedy sampling are refused at ``generate()``.
+
+The engine runs on the card: ``device=None`` means "cuda" and raises when
+CUDA is missing. Only an explicit ``device="cpu"`` runs on the CPU, where
+attention takes its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import itertools
+import logging
+from typing import AsyncIterator, Callable, Optional
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.engine import sampling
+from dynamo_tpu_torch.engine.cache import (
+    NULL_BLOCK, BlockPool, allocate_device_cache, memory_sized_num_blocks,
+)
+from dynamo_tpu_torch.engine.config import (
+    RAGGED_MAX_CHUNKS, EngineArgs, ModelConfig,
+)
+from dynamo_tpu_torch.engine.model import (
+    check_supported, init_params, make_ragged_step_fn, torch_dtype,
+)
+from dynamo_tpu_torch.engine.scheduler import Scheduler, SeqState, StepPlan
+from dynamo_tpu_torch.protocols import (
+    FinishReason, LLMEngineOutput, PreprocessedRequest,
+)
+from dynamo_tpu_torch.router.protocols import (
+    ForwardPassMetrics, KvCacheEvent, KvStats, StoredBlock, WorkerStats,
+)
+
+logger = logging.getLogger("dynamo_torch.engine")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the card. A CUDA device without CUDA raises: the port
+    never carries on on the CPU unless asked to."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "the port on the CPU")
+    return dev
+
+
+def refusal(req: PreprocessedRequest) -> Optional[str]:
+    """Why the port cannot serve ``req`` yet, or None. Only greedy decoding
+    of token prompts is ported."""
+    so = req.sampling_options
+    if so.temperature:
+        return "temperature > 0 (seeded sampling, ROADMAP A6)"
+    if so.top_k:
+        return "top_k (ROADMAP A6)"
+    if so.top_p is not None and so.top_p < 1.0:
+        return "top_p (ROADMAP A6)"
+    if so.seed is not None:
+        return "seed (ROADMAP A6)"
+    if req.output_options.logprobs is not None:
+        return "logprobs (ROADMAP A6)"
+    if (so.presence_penalty or so.frequency_penalty
+            or so.repetition_penalty not in (None, 1.0)):
+        return "sampling penalties (ROADMAP A6)"
+    if so.logit_bias:
+        return "logit_bias (ROADMAP A6)"
+    if so.guided:
+        return "guided decoding (ROADMAP A7)"
+    if req.mm_embeds or req.mm_refs:
+        return "multimodal input (ROADMAP A9)"
+    return None
+
+
+class AsyncTorchEngine:
+    """Continuously-batched paged-KV inference engine on PyTorch.
+
+    Args:
+      cfg/args: model + engine config.
+      params: the port's params dict (None → random init from args.seed).
+      device: None = "cuda"; "cpu" only when asked for explicitly.
+      event_cb: fn(KvCacheEvent) — KV events toward the router.
+      metrics_cb: fn(ForwardPassMetrics) — per-step load metrics.
+    """
+
+    def __init__(self, cfg: ModelConfig, args: EngineArgs, params=None,
+                 device=None, event_cb: Optional[Callable] = None,
+                 metrics_cb: Optional[Callable] = None):
+        check_supported(cfg)
+        self.cfg, self.args = cfg, args
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(cfg)
+        self.event_cb = event_cb
+        self.metrics_cb = metrics_cb
+        self._event_id = itertools.count()
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(args.seed)
+            params = init_params(cfg, gen, self.device)
+        self.params = params
+        # the pool takes its share of what is free once the weights are
+        # resident
+        nb = args.num_blocks or memory_sized_num_blocks(
+            cfg, args.block_size, args.kv_cache_memory_fraction,
+            self.device, self.dtype)
+        self.num_blocks = nb
+        self.k_cache, self.v_cache = allocate_device_cache(
+            cfg, nb, args.block_size, self.device, self.dtype)
+        self.pool = BlockPool(nb, args.enable_prefix_caching,
+                              on_removed=self._on_removed)
+        self.scheduler = Scheduler(args, self.pool, on_stored=self._on_stored)
+        self.step_fn = make_ragged_step_fn(cfg, args.block_size)
+        self._seq_counter = itertools.count()
+        self._wake = asyncio.Event()
+        # memory-starved plan(): park on _wake until a release frees blocks
+        self.pool.on_freed = self._wake.set
+        self._task: Optional[asyncio.Task] = None
+        self._closed = False
+        #: packed ragged steps executed (one forward each)
+        self.steps = 0
+
+    # ------------------------------------------------------------------ api
+
+    async def generate(self, req: PreprocessedRequest, ctx=None
+                       ) -> AsyncIterator[LLMEngineOutput]:
+        """EngineFn-compatible async stream of per-token outputs."""
+        why = refusal(req)
+        if why is not None:
+            raise ValueError(f"the torch port serves greedy requests only; "
+                             f"this request needs {why}")
+        self._ensure_loop()
+        sink: asyncio.Queue = asyncio.Queue()
+        seq = SeqState(request_id=f"seq-{next(self._seq_counter)}", req=req,
+                       ctx=ctx or _NullCtx(), sink=sink)
+        self.scheduler.add(seq)
+        self._wake.set()
+        while True:
+            out = await sink.get()
+            if out is None:
+                return
+            yield out
+            if out.finish_reason is not None:
+                return
+
+    def _ensure_loop(self) -> None:
+        if self._task is None or self._task.done():
+            self._task = asyncio.get_running_loop().create_task(self._run())
+
+    async def close(self) -> None:
+        self._closed = True
+        self._wake.set()
+        if self._task:
+            try:
+                await self._task
+            except asyncio.CancelledError:
+                pass
+
+    # ------------------------------------------------------------ main loop
+
+    async def _run(self) -> None:
+        logger.info("engine loop starting: %d blocks × %d tokens on %s",
+                    self.num_blocks, self.args.block_size, self.device)
+        while not self._closed:
+            if not self.scheduler.has_work:
+                self._wake.clear()
+                await self._wake.wait()
+                continue
+            plan = self.scheduler.plan()
+            if plan.empty:
+                # memory-starved and nothing runnable: park until a release
+                # or a finishing sequence sets _wake (timeout: safety net)
+                self._wake.clear()
+                try:
+                    await asyncio.wait_for(self._wake.wait(), timeout=0.05)
+                except asyncio.TimeoutError:
+                    pass
+                continue
+            try:
+                await self._run_ragged(plan)
+            except Exception:
+                logger.exception("engine step failed; failing in-flight seqs")
+                for s in list(self.scheduler.running):
+                    self.scheduler.finish(s, FinishReason.ERROR)
+                    s.sink.put_nowait(LLMEngineOutput(
+                        finish_reason=FinishReason.ERROR,
+                        text="engine step failed"))
+            self.steps += 1
+            if self.metrics_cb:
+                self.metrics_cb(self._metrics())
+            await asyncio.sleep(0)  # let ingress / cancellation run
+
+    def pack(self, plan: StepPlan):
+        """The plan's packed operands (numpy), with the JAX engine's layout:
+        decode rows first, then prefill chunks, each row's tokens
+        consecutive. Returns (operands, rows) where rows lists
+        (seq, samples?, work) in row order."""
+        args = self.args
+        bs = args.block_size
+        works = plan.prefill
+        total = len(plan.decode) + sum(w.chunk for w in works)
+        T = args.bucket_ragged_tokens(total)
+        R = args.ragged_rows(T)
+        W = args.max_blocks_per_seq
+        C, S_C = ragged_grid_shape(T)
+
+        ints5 = np.zeros((5, T), np.int32)
+        ints5[3] = C
+        rows3 = np.zeros((R, 3), np.int32)  # q_start/q_len/kv_len; 0 = pad
+        grid_rows = np.zeros((C,), np.int32)
+        bt = np.full((R, W), NULL_BLOCK, np.int32)
+        rows = [(s, True, None) for s in plan.decode]
+        rows += [(w.seq, w.sample, w) for w in works]
+        t = 0
+        tile = 0
+        for i, (seq, _sample, w) in enumerate(rows):
+            if w is None:  # decode row: one token, the sequence's newest
+                start, chunk = len(seq.tokens) - 1, 1
+            else:
+                start, chunk = w.start, w.chunk
+            end = start + chunk
+            ints5[0, t:t + chunk] = seq.tokens[start:end]
+            ints5[1, t:t + chunk] = np.arange(start, end)
+            for j, pos in enumerate(range(start, end)):
+                ints5[2, t + j] = seq.block_table[pos // bs] * bs + pos % bs
+            if chunk > 1:
+                # chunk grid tiling, kept for layout parity with the JAX
+                # engine (the port's step does not read it)
+                for off in range(0, chunk, S_C):
+                    width = min(S_C, chunk - off)
+                    grid_rows[tile] = i
+                    ints5[3, t + off:t + off + width] = tile
+                    ints5[4, t + off:t + off + width] = np.arange(width)
+                    tile += 1
+            rows3[i] = (t, chunk, end)
+            n = min(len(seq.block_table), W)
+            bt[i, :n] = seq.block_table[:n]
+            t += chunk
+        return (ints5, rows3, grid_rows, bt), rows
+
+    async def _run_ragged(self, plan: StepPlan) -> None:
+        """Execute the whole plan — decode rows and prefill chunks — as one
+        packed ragged launch."""
+        operands, rows = self.pack(plan)
+        dev = self.device
+
+        def forward():
+            tensors = [torch.from_numpy(a).to(dev) for a in operands]
+            logits, _, _ = self.step_fn(self.params, *tensors, self.k_cache,
+                                        self.v_cache)
+            return logits
+
+        # off the event loop: on the CPU the step computes here, on the
+        # card the launches take host time
+        logits = await asyncio.to_thread(forward)
+
+        # commit BEFORE sampling, as the JAX engine does
+        for w in plan.prefill:
+            self.scheduler.commit_computed(w.seq, w.start + w.chunk)
+        for s in plan.decode:
+            self.scheduler.commit_computed(s, len(s.tokens))
+
+        sample_rows = [(i, seq) for i, (seq, smp, _w) in enumerate(rows)
+                       if smp]
+        idx = [i for i, _ in sample_rows]
+
+        def sample():
+            sel = logits[torch.tensor(idx, device=dev)] if idx else logits
+            toks, logps = sampling.greedy(sel)
+            return toks.tolist(), logps.tolist()  # waits for the step
+
+        toks, logps = await asyncio.to_thread(sample)
+        for j, (_i, seq) in enumerate(sample_rows):
+            self._deliver(seq, toks[j], logps[j])
+
+    def _deliver(self, seq: SeqState, token: int, logp: float) -> None:
+        self.scheduler.append_token(seq, token)
+        reason = self.scheduler.check_finish(seq, token)
+        out = LLMEngineOutput(token_ids=[token], log_probs=[logp],
+                              finish_reason=reason)
+        if reason is not None:
+            self.scheduler.finish(seq, reason)
+        seq.sink.put_nowait(out)
+        if reason is not None:
+            seq.sink.put_nowait(None)
+
+    # ------------------------------------------------------------- events
+
+    def _on_stored(self, parent_hash, blocks: list[StoredBlock],
+                   block_ids: Optional[list[int]] = None) -> None:
+        if self.event_cb:
+            self.event_cb(KvCacheEvent.stored(next(self._event_id),
+                                              parent_hash, blocks))
+
+    def _on_removed(self, seq_hashes) -> None:
+        if self.event_cb is not None:
+            self.event_cb(KvCacheEvent.removed(next(self._event_id),
+                                               list(seq_hashes)))
+
+    def _metrics(self) -> ForwardPassMetrics:
+        sched = self.scheduler
+        return ForwardPassMetrics(
+            worker_stats=WorkerStats(
+                request_active_slots=len(sched.running),
+                request_total_slots=self.args.max_num_seqs,
+                num_requests_waiting=sched.num_waiting()),
+            kv_stats=KvStats(
+                kv_active_blocks=self.pool.num_active_blocks,
+                kv_total_blocks=self.num_blocks - 1,
+                gpu_cache_usage_perc=self.pool.usage(),
+                gpu_prefix_cache_hit_rate=(
+                    sched.prefix_hit_tokens / sched.prefix_query_tokens
+                    if sched.prefix_query_tokens else 0.0)))
+
+
+#: chunk-grid tile width of the JAX engine's XLA path; kept so the packed
+#: operands match the reference's layout operand for operand
+RAGGED_TILE = 32
+
+
+def ragged_grid_shape(t_bucket: int) -> tuple[int, int]:
+    """(tiles, tile_width) of the chunk grid for ``t_bucket`` packed
+    tokens, as in the JAX package."""
+    width = min(RAGGED_TILE, t_bucket)
+    return t_bucket // width + RAGGED_MAX_CHUNKS, width
+
+
+class _NullCtx:
+    cancelled = False
+    expired = False
+    id = "local"

@@ -1,0 +1,415 @@
+"""Continuous batching scheduler: admission, chunked prefill, decode batching.
+
+The port's copy of ``dynamo_tpu/engine/scheduler.py``. Pure host logic: it
+must make the same plans as the JAX package's scheduler, or the two
+engines' streams diverge. The parts the port does not serve yet are left
+out: preempt-to-swap and KVBM onboarding (ROADMAP A8), disagg attach, and
+guided decoding. Preemption is therefore always release-and-recompute,
+which is what the JAX scheduler does when it has no swap budget.
+
+- A sequence's lifecycle: waiting → running (prefill chunks → decode
+  steps) → finished.
+- ``num_computed`` counts tokens whose KV is in the paged cache;
+  ``remaining == 1`` means the next step is a decode, ``remaining > 1`` a
+  prefill chunk (which also samples iff it reaches the end).
+- Prefix-cache admission matches full prompt blocks against the BlockPool
+  by chained sequence hash (dynamo_tpu_torch/tokens.py).
+- KV events: filled blocks are registered and reported stored; pool
+  eviction reports removed.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+from dynamo_tpu_torch.engine.cache import BlockPool
+from dynamo_tpu_torch.engine.config import RAGGED_MAX_CHUNKS, EngineArgs
+from dynamo_tpu_torch.protocols import (
+    FinishReason, LLMEngineOutput, PreprocessedRequest,
+)
+from dynamo_tpu_torch.qos import CLASS_RANK, DEFAULT_TENANT, normalize_priority
+from dynamo_tpu_torch.qos.fair import ClassQueues, QosBook
+from dynamo_tpu_torch.router.protocols import StoredBlock
+from dynamo_tpu_torch.tokens import KV_HASH_SEED, TokenBlockSequence
+
+logger = logging.getLogger("dynamo_torch.engine.scheduler")
+
+
+@dataclass
+class SeqState:
+    request_id: str
+    req: PreprocessedRequest
+    ctx: object  # runtime Context (has .cancelled)
+    sink: object  # asyncio.Queue for outputs (owned by engine)
+    tokens: list[int] = field(default_factory=list)  # prompt + generated
+    prompt_len: int = 0
+    hashes: TokenBlockSequence = None
+    block_table: list[int] = field(default_factory=list)
+    num_computed: int = 0  # tokens whose KV is resident
+    num_registered_blocks: int = 0  # blocks already registered/evented
+    generated: int = 0
+    finished: Optional[str] = None
+    #: per-request KV-event batching: stored blocks accumulated across
+    #: prefill chunks, flushed as ONE chained event when the prompt
+    #: completes (or at finish/preemption)
+    pending_stored: list = field(default_factory=list)
+    pending_stored_ids: list = field(default_factory=list)
+    pending_parent: object = None
+    #: QoS: tenant id + class copied off the Context at add() time
+    tenant: str = DEFAULT_TENANT
+    priority: str = "standard"
+    qos_enqueue_t: float = 0.0
+    qos_arrival: Optional[int] = None
+
+    @property
+    def remaining(self) -> int:
+        return len(self.tokens) - self.num_computed
+
+
+@dataclass
+class PrefillWork:
+    seq: SeqState
+    start: int
+    chunk: int  # number of tokens to compute this step
+    sample: bool  # True when the chunk reaches the end of tokens
+
+
+@dataclass
+class StepPlan:
+    prefill: list[PrefillWork] = field(default_factory=list)
+    decode: list[SeqState] = field(default_factory=list)
+
+    @property
+    def empty(self) -> bool:
+        return not self.prefill and not self.decode
+
+
+class Scheduler:
+    """Plans one engine iteration; owns admission/preemption/bookkeeping."""
+
+    def __init__(self, args: EngineArgs, pool: BlockPool,
+                 on_stored: Optional[Callable] = None):
+        self.args = args
+        self.pool = pool
+        self.on_stored = on_stored  # fn(parent_hash, [StoredBlock], [block_id])
+        self.qos = QosBook(args.qos)
+        self.waiting: ClassQueues = ClassQueues(
+            self.qos, fifo=not args.qos_scheduling)
+        self.running: list[SeqState] = []
+        self.prefix_hit_tokens = 0
+        self.prefix_query_tokens = 0
+        #: one KV stored event per REQUEST unless per-chunk publishing
+        #: was explicitly requested
+        self._batch_events = not args.kv_event_per_chunk
+
+    # -- api ----------------------------------------------------------------
+
+    def _stamp_qos(self, seq: SeqState) -> None:
+        seq.tenant = str(getattr(seq.ctx, "tenant", None) or DEFAULT_TENANT)
+        seq.priority = normalize_priority(
+            getattr(seq.ctx, "priority", None), warn=False)
+        self.qos.enter(seq)
+
+    def _new_hashes(self) -> TokenBlockSequence:
+        return TokenBlockSequence(block_size=self.args.block_size,
+                                  salt_hash=KV_HASH_SEED)
+
+    def add(self, seq: SeqState) -> None:
+        seq.tokens = list(seq.req.token_ids)
+        seq.prompt_len = len(seq.tokens)
+        seq.hashes = self._new_hashes()
+        self._stamp_qos(seq)
+        seq.qos_enqueue_t = time.monotonic()
+        self.waiting.append(seq)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def num_waiting(self) -> int:
+        return len(self.waiting)
+
+    def plan(self) -> StepPlan:
+        """Admission + prefill chunks + the decode batch, under one token
+        budget (the step is ONE packed launch)."""
+        self._reap_cancelled()
+        self._admit()
+        plan = StepPlan()
+
+        budget = self.args.max_num_batched_tokens
+        max_b = min(self.args.max_num_seqs, self.args.decode_batch_buckets[-1])
+        decode_seqs = [s for s in self.running if s.remaining == 1]
+        if self.args.qos_scheduling:
+            # class-ordered work within the step; stable within a class
+            order = {id(s): i for i, s in enumerate(self.running)}
+            by_class = lambda s: (CLASS_RANK.get(s.priority, 1),  # noqa: E731
+                                  order[id(s)])
+            decode_seqs.sort(key=by_class)
+
+        # each decode seq needs a block for its last position; preempt on
+        # allocation failure. _preempt_for may evict a seq already planned,
+        # so membership in self.running is re-checked.
+        ready_decode = []
+        for s in decode_seqs:
+            if s not in self.running:
+                continue
+            if self._ensure_blocks(s, s.num_computed + 1):
+                ready_decode.append(s)
+            else:
+                if not self._preempt_for(s):
+                    self._preempt(s)
+        row_cap = min(max_b, budget)
+        still_ready = [s for s in ready_decode if s in self.running]
+        plan.decode = still_ready[:row_cap]
+        budget -= len(plan.decode)
+
+        if self.args.enable_chunked_prefill or not plan.decode:
+            prefill_seqs = [s for s in self.running if s.remaining > 1]
+            if self.args.qos_scheduling:
+                prefill_seqs.sort(key=by_class)
+            cap = self.args.max_num_batched_tokens
+            for s in prefill_seqs:
+                if s not in self.running:
+                    continue
+                chunk = min(s.remaining, max(0, budget), cap)
+                if not self.args.enable_chunked_prefill and chunk < s.remaining:
+                    if s.remaining > cap:
+                        # can never fit in one unchunked step: fail it
+                        self.finish(s, FinishReason.ERROR)
+                        s.sink.put_nowait(LLMEngineOutput(
+                            finish_reason=FinishReason.ERROR,
+                            text="prompt exceeds max_num_batched_tokens "
+                                 "and chunked prefill is disabled"))
+                        s.sink.put_nowait(None)
+                    continue
+                prefill_cap = min(max_b, RAGGED_MAX_CHUNKS)
+                if chunk <= 0 or len(plan.prefill) >= prefill_cap:
+                    break
+                protected = plan.decode + [w.seq for w in plan.prefill]
+                if not self._ensure_blocks(s, s.num_computed + chunk):
+                    # preempt, but never a seq this step is about to index
+                    if not self._preempt_for(s, exclude=protected):
+                        break
+                    if not self._ensure_blocks(s, s.num_computed + chunk):
+                        break
+                plan.prefill.append(PrefillWork(
+                    seq=s, start=s.num_computed, chunk=chunk,
+                    sample=(s.num_computed + chunk == len(s.tokens)),
+                ))
+                budget -= chunk
+        return plan
+
+    # -- post-step bookkeeping ----------------------------------------------
+
+    def commit_computed(self, seq: SeqState, new_num_computed: int) -> None:
+        """Advance num_computed; hash/register/event newly-filled blocks.
+        Stored events batch per request: chunks of a long prompt publish
+        as one chained event when the prompt completes."""
+        old = seq.num_computed
+        seq.num_computed = new_num_computed
+        self.qos.charge(seq.tenant, seq.priority, new_num_computed - old)
+        seq.hashes.extend(seq.tokens[len(seq.hashes): new_num_computed])
+        bs = self.args.block_size
+        full = new_num_computed // bs
+        stored: list[StoredBlock] = []
+        stored_ids: list[int] = []
+        parent = None
+        for i in range(seq.num_registered_blocks, full):
+            blk = seq.hashes.blocks[i]
+            bid = seq.block_table[i]
+            fresh = self.pool.register(bid, blk.sequence_hash)
+            if fresh:
+                if not stored:
+                    parent = blk.parent_sequence_hash
+                stored.append(StoredBlock(block_hash=blk.sequence_hash,
+                                          tokens_hash=blk.block_hash))
+                stored_ids.append(bid)
+        seq.num_registered_blocks = full
+        if not self.on_stored:
+            return
+        if self._batch_events and new_num_computed < seq.prompt_len:
+            # mid-prompt chunk: park the delta until the prompt completes
+            if stored:
+                if not seq.pending_stored:
+                    seq.pending_parent = parent
+                seq.pending_stored.extend(stored)
+                seq.pending_stored_ids.extend(stored_ids)
+            return
+        if seq.pending_stored:
+            stored = seq.pending_stored + stored
+            stored_ids = seq.pending_stored_ids + stored_ids
+            parent = seq.pending_parent
+            seq.pending_stored, seq.pending_stored_ids = [], []
+            seq.pending_parent = None
+        if stored:
+            self.on_stored(parent, stored, stored_ids)
+
+    def _flush_stored(self, seq: SeqState) -> None:
+        """Publish batched-but-unflushed stored blocks (before release)."""
+        if seq.pending_stored and self.on_stored:
+            self.on_stored(seq.pending_parent, seq.pending_stored,
+                           seq.pending_stored_ids)
+        seq.pending_stored, seq.pending_stored_ids = [], []
+        seq.pending_parent = None
+
+    def append_token(self, seq: SeqState, token: int) -> None:
+        seq.tokens.append(token)
+        seq.generated += 1
+
+    def check_finish(self, seq: SeqState, token: int) -> Optional[str]:
+        sc = seq.req.stop_conditions
+        if not sc.ignore_eos and token in (seq.req.eos_token_ids or []):
+            if (sc.min_tokens or 0) < seq.generated:
+                return FinishReason.EOS
+        if sc.max_tokens is not None and seq.generated >= sc.max_tokens:
+            return FinishReason.LENGTH
+        if seq.num_computed + 1 >= self.args.max_model_len:
+            return FinishReason.LENGTH
+        return None
+
+    def finish(self, seq: SeqState, reason: str) -> None:
+        seq.finished = reason
+        self.qos.leave(seq)
+        self._flush_stored(seq)
+        if seq in self.running:
+            self.running.remove(seq)
+        self.pool.release(seq.block_table)
+        seq.block_table = []
+
+    # -- internals -----------------------------------------------------------
+
+    def _reap_cancelled(self) -> None:
+        def dead(s):
+            return getattr(s.ctx, "cancelled", False)
+
+        def expired(s):
+            return getattr(s.ctx, "expired", False)
+
+        for s in list(self.running):
+            if dead(s):
+                self.finish(s, FinishReason.CANCELLED)
+                s.sink.put_nowait(None)
+            elif expired(s):
+                self.finish(s, FinishReason.DEADLINE)
+                s.sink.put_nowait(LLMEngineOutput(
+                    finish_reason=FinishReason.DEADLINE))
+        for s in list(self.waiting):
+            if dead(s) or expired(s):
+                self.waiting.remove(s)
+                self.qos.leave(s)
+                if dead(s):
+                    s.finished = FinishReason.CANCELLED
+                    s.sink.put_nowait(None)
+                else:
+                    s.finished = FinishReason.DEADLINE
+                    s.sink.put_nowait(LLMEngineOutput(
+                        finish_reason=FinishReason.DEADLINE))
+
+    def _make_room_for(self, seq: SeqState) -> bool:
+        """Admission-time priority preemption: evict one running sequence
+        of a strictly worse class; False = no eligible victim."""
+        if not self.args.qos_scheduling:
+            return False
+        rank = CLASS_RANK.get(seq.priority, 1)
+        for victim in self._victim_order(seq):
+            if CLASS_RANK.get(victim.priority, 1) <= rank:
+                continue
+            self._preempt(victim)
+            return True
+        return False
+
+    def _admit(self) -> None:
+        bs = self.args.block_size
+        now = time.monotonic()
+        while self.waiting:
+            seq = self.waiting.pick(now)
+            while len(self.running) >= self.args.max_num_seqs:
+                if not self._make_room_for(seq):
+                    return
+            # watermark: keep a fraction of blocks free
+            needed_first = max(1, min(len(seq.tokens), bs) // bs + 1)
+            while (self.pool.num_free_blocks < needed_first
+                   or (self.running and self.pool.num_free_blocks
+                       < self.args.watermark * self.pool.num_blocks)):
+                if not self._make_room_for(seq):
+                    return
+            self.waiting.remove(seq)
+            if seq.num_computed == 0 and not seq.block_table:
+                self._prefix_match(seq)
+            self.running.append(seq)
+
+    def _prefix_match(self, seq: SeqState) -> None:
+        self.prefix_query_tokens += seq.prompt_len
+        if not self.args.enable_prefix_caching:
+            return
+        bs = self.args.block_size
+        # match only full prompt blocks, and never the whole prompt — at
+        # least one token must be computed to produce logits
+        matchable = (seq.prompt_len - 1) // bs
+        if matchable <= 0:
+            return
+        probe = TokenBlockSequence.from_tokens(
+            seq.tokens[: matchable * bs], bs, KV_HASH_SEED)
+        hit_blocks = self.pool.match_prefix(probe.sequence_hashes())
+        if not hit_blocks:
+            return
+        n = len(hit_blocks)
+        seq.block_table = list(hit_blocks)
+        seq.num_computed = n * bs
+        seq.num_registered_blocks = n
+        seq.hashes.extend(seq.tokens[: n * bs])
+        self.prefix_hit_tokens += n * bs
+
+    def _ensure_blocks(self, seq: SeqState, target_tokens: int) -> bool:
+        bs = self.args.block_size
+        need = (target_tokens + bs - 1) // bs - len(seq.block_table)
+        if need <= 0:
+            return True
+        got = self.pool.allocate(need)
+        if got is None:
+            return False
+        seq.block_table.extend(got)
+        return True
+
+    def _preempt_for(self, needy: SeqState, exclude=()) -> bool:
+        """Preempt another running seq to free memory; True if any. A
+        victim of a better class than ``needy`` is never taken; ``exclude``
+        protects sequences already planned into this step."""
+        for victim in self._victim_order(needy):
+            if victim is needy or any(victim is e for e in exclude):
+                continue
+            self._preempt(victim)
+            return True
+        return False
+
+    def _victim_order(self, needy: SeqState) -> list[SeqState]:
+        if not self.args.qos_scheduling:
+            return list(reversed(self.running))
+        needy_rank = CLASS_RANK.get(needy.priority, 1)
+        idx = {id(s): i for i, s in enumerate(self.running)}
+        candidates = [s for s in self.running
+                      if CLASS_RANK.get(s.priority, 1) >= needy_rank]
+        return sorted(
+            candidates,
+            key=lambda s: (CLASS_RANK.get(s.priority, 1),
+                           self.qos.vt_of(s.tenant), idx[id(s)]),
+            reverse=True)
+
+    def _preempt(self, seq: SeqState) -> None:
+        """Evict a victim: release its blocks and requeue it for recompute."""
+        self._flush_stored(seq)  # blocks are still resident
+        if seq.num_computed > 0:
+            logger.warning("preempting request %s (recompute)",
+                           seq.request_id)
+        self.pool.release(seq.block_table)
+        seq.block_table = []
+        seq.num_computed = 0
+        seq.num_registered_blocks = 0
+        seq.hashes = self._new_hashes()
+        if seq in self.running:
+            self.running.remove(seq)
+        seq.qos_enqueue_t = time.monotonic()
+        self.waiting.appendleft(seq)
