@@ -2,7 +2,8 @@
 the port's copy of ``dynamo_tpu/engine/cache.py``.
 
 Device side: two tensors [L, num_slots, KV, hd] (num_slots = num_blocks *
-block_size), flat slot addressing; block 0 is the reserved NULL block —
+block_size), or two int8 ``{"q", "s"}`` pairs (see the int8 notes below),
+flat slot addressing; block 0 is the reserved NULL block —
 padding slot-maps and block tables point at it and its contents are
 garbage by design (attention masks it out). This is the JAX package's
 interchange format, so pages move between the two engines unchanged.
@@ -15,6 +16,7 @@ reuse, and eviction emits the KV-removed events the router relies on.
 from __future__ import annotations
 
 import logging
+import math
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -145,28 +147,113 @@ class BlockPool:
             self.on_freed()
 
 
-def kv_block_bytes(cfg, block_size: int, dtype: torch.dtype) -> int:
-    """Bytes of one block across both caches and every layer."""
-    per_slot = 2 * cfg.num_kv_heads * cfg.head_dim * dtype.itemsize
+def kv_block_bytes(cfg, block_size: int, dtype: torch.dtype,
+                   kv_cache_dtype: Optional[str] = None) -> int:
+    """Bytes of one block across both caches and every layer. An int8
+    cache costs one byte per element plus a 4-byte f32 scale per (slot,
+    head)."""
+    if kv_cache_dtype == "int8":
+        per_slot = 2 * cfg.num_kv_heads * (cfg.head_dim + 4)
+    else:
+        per_slot = 2 * cfg.num_kv_heads * cfg.head_dim * dtype.itemsize
     return cfg.num_layers * block_size * per_slot
 
 
 def memory_sized_num_blocks(cfg, block_size: int, fraction: float,
-                            device: torch.device, dtype: torch.dtype) -> int:
+                            device: torch.device, dtype: torch.dtype,
+                            kv_cache_dtype: Optional[str] = None) -> int:
     """Block count from the card's free memory, read after the weights are
     resident: ``fraction`` of what is free goes to the KV pool."""
     if device.type != "cuda":
         raise ValueError("sizing the KV pool from free memory needs a CUDA "
                          "device; pass EngineArgs.num_blocks on the CPU")
     free, _total = torch.cuda.mem_get_info(device)
-    n = int(free * fraction) // kv_block_bytes(cfg, block_size, dtype)
+    n = int(free * fraction) // kv_block_bytes(cfg, block_size, dtype,
+                                               kv_cache_dtype)
     return max(16, n)
 
 
 def allocate_device_cache(cfg, num_blocks: int, block_size: int,
-                          device: torch.device, dtype: torch.dtype):
-    """Zeroed k/v caches, each [L, num_blocks * block_size, KV, hd]."""
+                          device: torch.device, dtype: torch.dtype,
+                          kv_cache_dtype: Optional[str] = None):
+    """Zeroed k/v caches, each [L, num_blocks * block_size, KV, hd]; with
+    ``kv_cache_dtype="int8"`` each is ``{"q": int8 [L, slots, KV, hd],
+    "s": f32 [L, slots, KV]}``."""
     shape = (cfg.num_layers, num_blocks * block_size, cfg.num_kv_heads,
              cfg.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+
+    def one():
+        if kv_cache_dtype == "int8":
+            return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "s": torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=device)}
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return one(), one()
+
+
+# ---------------------------------------------------------------- int8 cache
+#
+# A quantized cache is {"q": int8 [L, slots, KV, hd], "s": f32 [L, slots,
+# KV]}: symmetric scales per (slot, kv-head), the JAX package's layout.
+# Requantizing a dequantized block gives the same bytes back: the scale
+# keeps 8 mantissa bits, so 127·s is exact and the amax of a dequantized
+# block recovers s.
+
+
+def is_quant_cache(cache) -> bool:
+    return isinstance(cache, dict) and "q" in cache and "s" in cache
+
+
+def cache_shape(cache) -> tuple:
+    """[L, slots, KV, hd] of a plain or an int8 cache."""
+    return tuple(cache["q"].shape if is_quant_cache(cache) else cache.shape)
+
+
+def quantize_kv(x):
+    """[..., KV, hd] → (int8 [..., KV, hd], f32 scales [..., KV]), bit for
+    bit the JAX package's: s = max(amax, 1e-8) / 127 rounded to bf16
+    (nearest even) and kept in f32, q = clip(round_half_even(x / s))."""
+    xf = x.float()
+    amax = torch.linalg.vector_norm(xf, ord=math.inf, dim=-1)  # max |x|
+    s = (torch.clamp_min(amax, 1e-8) / 127.0).to(torch.bfloat16).float()
+    q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def dequantize_kv(q, s, dtype=None):
+    """The exact inverse in f32, with an optional final cast."""
+    out = q.float() * s[..., None]
+    return out if dtype is None else out.to(dtype)
+
+
+def gather_pages(cache, lidx: int, slot_idx):
+    """Pages [*slot_idx.shape, KV, hd] of layer ``lidx`` from a plain or an
+    int8 cache; int8 pages come back dequantized in f32."""
+    if is_quant_cache(cache):
+        return dequantize_kv(cache["q"][lidx][slot_idx],
+                             cache["s"][lidx][slot_idx])
+    return cache[lidx][slot_idx]
+
+
+def write_kv(k_cache, v_cache, lidx: int, slots, k, v) -> None:
+    """Write ``k`` and ``v`` [N, KV, hd] in place at the flat ``slots`` [N]
+    of layer ``lidx``. Int8 caches store ``quantize_kv`` of both, computed
+    in one pass over the pair (each (token, head) row is quantized on its
+    own, so the bytes are those of two calls, in half the launches)."""
+    if is_quant_cache(k_cache):
+        q, s = quantize_kv(torch.stack((k, v)))
+        for i, cache in enumerate((k_cache, v_cache)):
+            cache["q"][lidx].index_copy_(0, slots, q[i])
+            cache["s"][lidx].index_copy_(0, slots, s[i])
+    else:
+        k_cache[lidx].index_copy_(0, slots, k)
+        v_cache[lidx].index_copy_(0, slots, v)
+
+
+def layer_pages(cache, lidx: int):
+    """(pages [slots, KV, hd], scales [slots, KV] or None) of one layer:
+    views, no copy."""
+    if is_quant_cache(cache):
+        return cache["q"][lidx], cache["s"][lidx]
+    return cache[lidx], None

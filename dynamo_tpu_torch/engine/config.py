@@ -137,7 +137,6 @@ UNPORTED_KNOBS = {
     "preempt_swap": (False, "A8"),
     "swap_host_bytes": (None, "A8"),
     "quantization": (None, "A5"),
-    "kv_cache_dtype": (None, "A4"),
     "kv_transfer_direct": (False, "A8"),
     "structured_device": (False, "A7"),
 }
@@ -171,6 +170,9 @@ class EngineArgs:
     #: QoS policy override (dynamo_tpu_torch.qos.QosConfig); None = env
     qos: Optional[object] = None
     seed: int = 0
+    #: None / "auto" = the model dtype; "int8" = int8 pages with f32 scales
+    #: per (slot, kv-head), about half the bytes (engine/cache.py)
+    kv_cache_dtype: Optional[str] = None
     # knobs of the JAX package not ported yet (UNPORTED_KNOBS)
     tp_size: int = 1
     dp_size: int = 1
@@ -186,7 +188,6 @@ class EngineArgs:
     preempt_swap: bool = False
     swap_host_bytes: Optional[int] = None
     quantization: Optional[str] = None
-    kv_cache_dtype: Optional[str] = None
     kv_transfer_direct: bool = False
     structured_device: bool = False
 
@@ -197,6 +198,10 @@ class EngineArgs:
                     f"EngineArgs.{name}={getattr(self, name)!r} is not "
                     f"supported by the torch port yet (ROADMAP {item}); "
                     f"leave it at {off!r}")
+        if self.kv_cache_dtype not in (None, "auto", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype={self.kv_cache_dtype!r} not supported "
+                "(None/'auto' = model dtype, or 'int8')")
         if self.kv_event_per_chunk is None:
             self.kv_event_per_chunk = os.environ.get(
                 "DYN_KV_EVENT_PER_CHUNK", "").lower() not in ("", "0", "false")

@@ -13,6 +13,11 @@ packed launch. The depth-2 pipelined decode loop and the multi-step and
 speculative fast paths are not ported yet (ROADMAP A3, A7), and requests
 that need anything but greedy sampling are refused at ``generate()``.
 
+``embed`` is the port of ``AsyncJaxEngine.embed``: mean-pooled sequence
+embeddings through the dense forward and the flash prefill kernel, over a
+scratch cache of its own. ``EngineArgs.kv_cache_dtype="int8"`` serves from
+an int8 KV pool through the ragged kernel's int8 pages.
+
 The engine runs on the card: ``device=None`` means "cuda" and raises when
 CUDA is missing. Only an explicit ``device="cpu"`` runs on the CPU, where
 attention takes its plain PyTorch version.
@@ -23,6 +28,7 @@ from __future__ import annotations
 import asyncio
 import itertools
 import logging
+import threading
 from typing import AsyncIterator, Callable, Optional
 
 import numpy as np
@@ -36,7 +42,8 @@ from dynamo_tpu_torch.engine.config import (
     RAGGED_MAX_CHUNKS, EngineArgs, ModelConfig,
 )
 from dynamo_tpu_torch.engine.model import (
-    check_supported, init_params, make_ragged_step_fn, torch_dtype,
+    check_kernel_geometry, check_supported, init_params, make_embed_fn,
+    make_ragged_step_fn, torch_dtype,
 )
 from dynamo_tpu_torch.engine.scheduler import Scheduler, SeqState, StepPlan
 from dynamo_tpu_torch.protocols import (
@@ -102,6 +109,8 @@ class AsyncTorchEngine:
         check_supported(cfg)
         self.cfg, self.args = cfg, args
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            check_kernel_geometry(cfg)
         self.dtype = torch_dtype(cfg)
         self.event_cb = event_cb
         self.metrics_cb = metrics_cb
@@ -112,12 +121,13 @@ class AsyncTorchEngine:
         self.params = params
         # the pool takes its share of what is free once the weights are
         # resident
+        kv_dtype = "int8" if args.kv_cache_dtype == "int8" else None
         nb = args.num_blocks or memory_sized_num_blocks(
             cfg, args.block_size, args.kv_cache_memory_fraction,
-            self.device, self.dtype)
+            self.device, self.dtype, kv_dtype)
         self.num_blocks = nb
         self.k_cache, self.v_cache = allocate_device_cache(
-            cfg, nb, args.block_size, self.device, self.dtype)
+            cfg, nb, args.block_size, self.device, self.dtype, kv_dtype)
         self.pool = BlockPool(nb, args.enable_prefix_caching,
                               on_removed=self._on_removed)
         self.scheduler = Scheduler(args, self.pool, on_stored=self._on_stored)
@@ -130,6 +140,11 @@ class AsyncTorchEngine:
         self._closed = False
         #: packed ragged steps executed (one forward each)
         self.steps = 0
+        # embeddings: one forward fn and ONE scratch cache, replaced when
+        # the (B, S) bucket changes, apart from the serving pool
+        self._embed_fn = make_embed_fn(cfg, args.block_size)
+        self._embed_cache: Optional[tuple] = None
+        self._embed_lock = threading.Lock()
 
     # ------------------------------------------------------------------ api
 
@@ -153,6 +168,69 @@ class AsyncTorchEngine:
             yield out
             if out.finish_reason is not None:
                 return
+
+    async def embed(self, token_id_lists: list[list[int]]
+                    ) -> list[list[float]]:
+        """Mean-pooled L2-normalised embeddings for a batch of token lists,
+        through the dense forward (flash prefill kernel) over a scratch
+        cache. B and S bucket to powers of two, S at least one block."""
+        if not token_id_lists:
+            return []
+        # bound inputs by the serving context the same way generate does
+        limit = self.args.max_model_len
+        too_long = max(len(t) for t in token_id_lists)
+        if too_long > limit:
+            raise ValueError(
+                f"embedding input of {too_long} tokens exceeds "
+                f"max_model_len {limit}")
+        total = len(token_id_lists) * too_long  # padded batch footprint
+        budget = max(4096, 8 * limit)
+        if total > budget:
+            raise ValueError(
+                f"embedding batch of {len(token_id_lists)}×{too_long} tokens "
+                f"exceeds the per-request budget {budget}; split the batch")
+        bs = self.args.block_size
+        B = 1 << (len(token_id_lists) - 1).bit_length()
+        S = max(bs, 1 << (too_long - 1).bit_length())
+        tokens = np.zeros((B, S), np.int32)
+        lengths = np.zeros((B,), np.int32)
+        for i, ids in enumerate(token_id_lists):
+            tokens[i, :len(ids)] = ids
+            lengths[i] = len(ids)
+
+        def run():  # the forward and the host copy off the event loop
+            return self._embed_forward(tokens, lengths).cpu().numpy()
+
+        host = await asyncio.to_thread(run)
+        return [host[i].tolist() for i in range(len(token_id_lists))]
+
+    def _embed_forward(self, tokens: np.ndarray, lengths: np.ndarray):
+        """One embed forward on the scratch cache: [B, D] f32 on the
+        engine's device."""
+        bs = self.args.block_size
+        B, S = tokens.shape
+        with self._embed_lock:
+            if self._embed_cache is None or self._embed_cache[0] != (B, S):
+                # keep ONE scratch cache: mixed-shape embed traffic must not
+                # accumulate memory the serving pool never budgeted for
+                self._embed_cache = None
+                self._embed_cache = ((B, S), allocate_device_cache(
+                    self.cfg, B * (S // bs) + 1, bs, self.device,
+                    self.dtype))
+            kc, vc = self._embed_cache[1]
+            dev = self.device
+            return self._embed_fn(self.params,
+                                  torch.from_numpy(tokens).to(dev),
+                                  torch.from_numpy(lengths).to(dev), kc, vc)
+
+    async def embed_handler(self, request: dict, ctx=None):
+        """Endpoint handler: {"token_ids": [[...]]} → one embeddings frame."""
+        try:
+            vecs = await self.embed(request.get("token_ids") or [])
+        except ValueError as e:  # input too long: client error, not a crash
+            yield {"error": str(e)}
+            return
+        yield {"embeddings": vecs}
 
     def _ensure_loop(self) -> None:
         if self._task is None or self._task.done():

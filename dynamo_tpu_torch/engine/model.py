@@ -1,10 +1,18 @@
 """Llama-family forward pass over a paged KV cache, in PyTorch.
 
-The port of the dense ragged path of ``dynamo_tpu/engine/model.py``
-(``forward(ragged=...)`` behind ``make_ragged_step_fn``). One call is one
-engine step: every prefill chunk and decode row of a scheduler plan rides
-one packed token batch, and attention runs through the ragged paged
-kernel (ops/ragged_attention.py).
+The port of the dense paths of ``dynamo_tpu/engine/model.py``:
+
+- ``make_ragged_step_fn`` (``forward(ragged=...)``): one call is one engine
+  step; every prefill chunk and decode row of a scheduler plan rides one
+  packed token batch, and attention runs through the ragged paged kernel
+  (ops/ragged_attention.py).
+- ``make_forward_fn`` (``forward(ragged=None)``) for [B, S] prefill
+  batches, attention through the flash prefill kernel
+  (ops/flash_prefill.py), and ``make_embed_fn`` on top of it: mean-pooled
+  sequence embeddings.
+
+Both write K/V into a plain or an int8 cache (engine/cache.py) and share
+one layer stack.
 
 Differences from the JAX package, each deliberate:
 
@@ -12,8 +20,9 @@ Differences from the JAX package, each deliberate:
   place of ``lax.scan``; PyTorch runs eagerly, so no program is compiled
   per token bucket.
 - The KV write is an in-place ``index_copy_`` into the caller's cache at
-  ``slot_map`` (padding tokens write into the null block, as in JAX). It
-  replaces buffer donation: the returned caches are the tensors passed in.
+  ``slot_map`` (padding tokens write into the null block, as in JAX); an
+  int8 cache stores ``quantize_kv`` of k and v. It replaces buffer
+  donation: the returned caches are the tensors passed in.
 - The chunk-grid operands exist only for the JAX package's XLA
   decomposition; the step accepts them and does not read them.
 - Plain Llama GQA only. Every other ``ModelConfig`` switch raises
@@ -31,8 +40,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dynamo_tpu_torch.engine.cache import layer_pages, write_kv
 from dynamo_tpu_torch.engine.config import ModelConfig
-from dynamo_tpu_torch.ops.ragged_attention import ragged_paged_attention
+from dynamo_tpu_torch.ops.flash_prefill import flash_prefill_paged
+from dynamo_tpu_torch.ops.ragged_attention import (
+    HEAD_DIMS, MAX_GROUP, ragged_paged_attention,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -67,6 +80,19 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "the torch port serves plain Llama GQA only; not yet ported: "
             + ", ".join(bad) + " (ROADMAP A2, A9, A10)")
+
+
+def check_kernel_geometry(cfg: ModelConfig) -> None:
+    """Raise unless the port's CUDA attention kernels take this model's
+    heads: head_dim in HEAD_DIMS and a GQA group of at most MAX_GROUP. An
+    engine on the card checks this when it is built, so no step routes
+    around a kernel at run time."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if hd not in HEAD_DIMS or H % KV or H // KV > MAX_GROUP:
+        raise ValueError(
+            f"the CUDA attention kernels take head_dim in {HEAD_DIMS} and "
+            f"H / KV <= {MAX_GROUP}; this model has head_dim {hd}, H {H}, "
+            f"KV {KV}")
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +265,53 @@ def _mlp(h, w_gate, w_up, w_down):
 
 
 # ---------------------------------------------------------------------------
+# The layer stack
+# ---------------------------------------------------------------------------
+
+
+class _Rope:
+    """inv_freq of ``cfg`` per device, built once."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.inv_np, self.attn_scale = rope_params(
+            cfg.rope_theta, cfg.head_dim, cfg.rope_scaling)
+        self._inv: dict = {}
+
+    def tables(self, positions):
+        dev = positions.device
+        inv = self._inv.get(dev)
+        if inv is None:
+            inv = self._inv[dev] = torch.from_numpy(self.inv_np).to(dev)
+        return rope_tables(positions, inv, self.attn_scale)
+
+
+def _layers(cfg: ModelConfig, params, x, cos, sin, slot_map, k_cache,
+            v_cache, attend):
+    """The decoder stack over N flat tokens: x [N, D] embeddings, cos/sin
+    their RoPE tables, K/V written at ``slot_map`` [N] (int64) of a plain
+    or int8 cache in place; ``attend(li, q [N, H, hd]) -> [N, H, hd]`` is
+    the layer's attention. Returns the final-normed hidden states [N, D]."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    N = x.shape[0]
+    lw = params["layers"]
+    for li in range(cfg.num_layers):
+        h = rms_norm(x, lw["attn_norm"][li], eps)
+        q = apply_rope((h @ lw["wq"][li]).view(N, H, hd), cos, sin)
+        k = apply_rope((h @ lw["wk"][li]).view(N, KV, hd), cos, sin)
+        v = (h @ lw["wv"][li]).view(N, KV, hd)
+        write_kv(k_cache, v_cache, li, slot_map, k, v)
+        x = x + attend(li, q).reshape(N, H * hd) @ lw["wo"][li]
+        h = rms_norm(x, lw["mlp_norm"][li], eps)
+        x = x + _mlp(h, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])
+    return rms_norm(x, params["final_norm"], eps)
+
+
+def _lm_head(cfg: ModelConfig, params):
+    return params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
 # The ragged step
 # ---------------------------------------------------------------------------
 
@@ -251,47 +324,119 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
     block_tables [R, W], k_cache, v_cache) -> (logits [R, V] f32, k_cache,
     v_cache)``: ``ints5`` stacks tokens / positions / slot_map / grid_row /
     grid_col, ``rows3`` holds (q_start, q_len, kv_len) per row (q_len 0 =
-    padding row), caches are [L, slots, KV, hd] and are updated in place.
-    Logits are taken at each row's last token.
+    padding row), caches are [L, slots, KV, hd] (or int8 ``{"q", "s"}``)
+    and are updated in place. Logits are taken at each row's last token.
 
     ``attention`` is the per-layer attention call: the kernel wrapper, or
-    ``ragged_attention_ref`` to run the same step on the plain version.
+    ``ragged_attention_ref`` to run the same step on the plain version. An
+    int8 cache passes each layer's pages with that layer's scales (scale
+    slot base 0).
     """
     check_supported(cfg)
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    eps = cfg.rms_norm_eps
-    inv_np, attn_scale = rope_params(cfg.rope_theta, hd, cfg.rope_scaling)
-    inv_cache: dict = {}
+    rope_ = _Rope(cfg)
 
     def fn(params, ints5, rows3, grid_rows, block_tables, k_cache, v_cache):
         del grid_rows  # XLA chunk-grid operand; not used by the kernel path
-        dev = ints5.device
-        inv = inv_cache.get(dev)
-        if inv is None:
-            inv = inv_cache[dev] = torch.from_numpy(inv_np).to(dev)
         T = ints5.shape[1]
-        cos, sin = rope_tables(ints5[1], inv, attn_scale)
-        slot_map = ints5[2].long()
-        lw = params["layers"]
-        x = params["embed"][ints5[0]]  # [T, D]
-        for li in range(cfg.num_layers):
-            h = rms_norm(x, lw["attn_norm"][li], eps)
-            q = apply_rope((h @ lw["wq"][li]).view(T, H, hd), cos, sin)
-            k = apply_rope((h @ lw["wk"][li]).view(T, KV, hd), cos, sin)
-            v = (h @ lw["wv"][li]).view(T, KV, hd)
-            kc, vc = k_cache[li], v_cache[li]
-            kc.index_copy_(0, slot_map, k)
-            vc.index_copy_(0, slot_map, v)
-            attn = attention(q, kc, vc, block_tables, rows3,
-                             block_size=block_size)
-            x = x + attn.view(T, H * hd) @ lw["wo"][li]
-            h = rms_norm(x, lw["mlp_norm"][li], eps)
-            x = x + _mlp(h, lw["w_gate"][li], lw["w_up"][li],
-                         lw["w_down"][li])
-        x = rms_norm(x, params["final_norm"], eps)
+        cos, sin = rope_.tables(ints5[1])
+
+        def attend(li, q):
+            kc, ks = layer_pages(k_cache, li)
+            vc, vs = layer_pages(v_cache, li)
+            return attention(q, kc, vc, block_tables, rows3,
+                             block_size=block_size, k_scales=ks, v_scales=vs)
+
+        x = _layers(cfg, params, params["embed"][ints5[0]], cos, sin,
+                    ints5[2].long(), k_cache, v_cache, attend)
         last = (rows3[:, 0] + rows3[:, 1] - 1).clamp(0, T - 1).long()
-        head = (params["embed"].T if cfg.tie_word_embeddings
-                else params["lm_head"])
-        return (x[last] @ head).float(), k_cache, v_cache
+        return (x[last] @ _lm_head(cfg, params)).float(), k_cache, v_cache
 
     return fn
+
+
+# ---------------------------------------------------------------------------
+# The dense forward and embeddings
+# ---------------------------------------------------------------------------
+
+
+def make_forward_fn(cfg: ModelConfig, block_size: int,
+                    attention: Callable = flash_prefill_paged):
+    """The non-ragged forward of [B, S] prefill batches.
+
+    ``fn(params, tokens [B, S], positions [B, S], slot_map [B, S],
+    block_tables [B, W], kv_lens [B], last_idx [B], k_cache, v_cache,
+    return_hidden=False)`` → ``(logits [B, V] f32 at last_idx, k_cache,
+    v_cache)``, or with ``return_hidden`` the final-normed hidden states
+    ``[B, S, D]`` f32 in place of the logits. Each row's tokens are
+    consecutive positions from ``positions[b, 0]``; K/V is written at
+    ``slot_map`` (padding → the null block) and attention runs through
+    ``attention`` (``flash_prefill_paged``, whose dense call is the kernel
+    wrapper) over the row's pages below ``kv_lens``.
+
+    S == 1 is the JAX package's paged decode kernel branch, which is not
+    ported (ROADMAP B4).
+    """
+    check_supported(cfg)
+    H, hd = cfg.num_heads, cfg.head_dim
+    rope_ = _Rope(cfg)
+
+    def fn(params, tokens, positions, slot_map, block_tables, kv_lens,
+           last_idx, k_cache, v_cache, return_hidden: bool = False):
+        B, S = tokens.shape
+        if S == 1:
+            raise NotImplementedError(
+                "S == 1 takes the paged decode kernel, not ported yet "
+                "(ROADMAP B4); decode through make_ragged_step_fn")
+        cos, sin = rope_.tables(positions.reshape(B * S))
+
+        def attend(li, q):
+            return attention(q.view(B, S, H, hd), k_cache, v_cache, li,
+                             block_tables, positions, kv_lens,
+                             block_size=block_size)
+
+        x = _layers(cfg, params, params["embed"][tokens.reshape(B * S)], cos,
+                    sin, slot_map.reshape(B * S).long(), k_cache, v_cache,
+                    attend).view(B, S, -1)
+        if return_hidden:  # embeddings: pooled downstream, no lm head
+            return x.float(), k_cache, v_cache
+        x_last = x[torch.arange(B, device=x.device), last_idx.long()]
+        return (x_last @ _lm_head(cfg, params)).float(), k_cache, v_cache
+
+    return fn
+
+
+def make_embed_fn(cfg: ModelConfig, block_size: int,
+                  attention: Callable = flash_prefill_paged):
+    """Mean-pooled, L2-normalised sequence embeddings over the dense
+    forward: ``f(params, tokens [B, S], lengths [B], k_cache, v_cache) →
+    [B, D] f32``. S must be a multiple of ``block_size``; the scratch
+    caches need B·S/block_size + 1 blocks (block 0 is the null block), laid
+    out contiguously as row b's block w = 1 + b·W + w, and their contents
+    are irrelevant between calls. Padding rows (length 0) see no key and
+    pool to zeros."""
+    forward = make_forward_fn(cfg, block_size, attention)
+
+    def f(params, tokens, lengths, k_cache, v_cache):
+        B, S = tokens.shape
+        W = S // block_size
+        dev = tokens.device
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=dev).expand(B, S)
+        bt = (1 + torch.arange(B, device=dev)[:, None] * W
+              + torch.arange(W, device=dev)[None, :])
+        slot_map = (bt[:, :, None] * block_size
+                    + torch.arange(block_size, device=dev)).reshape(B, S)
+        lengths = lengths.to(torch.int32)
+        # a padded row attends only keys below its length, so junk past it
+        # never reaches a valid position; pooling masks it anyway
+        x, _, _ = forward(params, tokens, positions, slot_map,
+                          bt.to(torch.int32), lengths,
+                          torch.zeros((B,), dtype=torch.int32, device=dev),
+                          k_cache, v_cache, return_hidden=True)
+        valid = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+        pooled = (x * valid[..., None]).sum(1) / torch.clamp_min(
+            lengths[:, None].float(), 1.0)
+        return pooled / torch.clamp_min(
+            torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), 1e-12)
+
+    return f

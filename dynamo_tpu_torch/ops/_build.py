@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/lib<name>-<digest>.so`` beside this
-file; the digest covers the source and the flags, so an edited source is
-never served by a stale library. Several sources build in parallel, one
+file; the digest covers the source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source is never served by a stale library. Several sources build in parallel, one
 ``nvcc`` each. Only sources in this repository are compiled, and nothing
 links against PyTorch, so a build takes seconds.
 """
@@ -41,6 +41,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

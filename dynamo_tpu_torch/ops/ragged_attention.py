@@ -1,13 +1,17 @@
 """Ragged paged attention: mixed prefill + decode rows in one launch.
 
 Port of ``dynamo_tpu/ops/ragged_attention.py`` (the Pallas kernel
-``_ragged_kernel``, bf16/f32 pages). Contract, per layer:
+``_ragged_kernel``: bf16/f32 pages and its int8 branch). Contract, per
+layer:
 
   q            [T, H, hd]       packed queries; row r's tokens are
                                 q_start .. q_start+q_len-1, token j of the
                                 row at position kv_len - q_len + j
   k/v cache    [slots, KV, hd]  flat paged layout (slot = block*bs + off),
-                                e.g. one layer's view of [L, slots, KV, hd]
+                                e.g. one layer's view of [L, slots, KV, hd];
+                                the q dtype, or int8 with scales
+  k/v scales   [sc_slots, KV]   f32, int8 pages only: slot s dequantizes
+                                with scales[s - scale_slot_base]
   block_tables [R, W] int32     per row (block 0 = the null block)
   rows3        [R, 3] int32     (q_start, q_len, kv_len); q_len 0 = padding
   window       int              0 = full attention, else keys > pos - window
@@ -38,10 +42,13 @@ HEAD_DIMS = (64, 128)
 
 
 def ragged_attention_ref(q, k_cache, v_cache, block_tables, rows3, *,
-                         block_size: int, window: int = 0, sinks=None):
+                         block_size: int, window: int = 0, sinks=None,
+                         k_scales=None, v_scales=None,
+                         scale_slot_base: int = 0):
     """Plain PyTorch version: a dense gather of each row's keys with the
-    masking of the JAX package's ``ragged_attention_xla``. Tokens outside
-    every row come back as zeros. Reads ``rows3`` on the host."""
+    masking of the JAX package's ``ragged_attention_xla``; int8 pages
+    dequantize in the gather. Tokens outside every row come back as zeros.
+    Reads ``rows3`` on the host."""
     T, H, hd = q.shape
     KV = k_cache.shape[1]
     G = H // KV
@@ -56,6 +63,10 @@ def ragged_attention_ref(q, k_cache, v_cache, block_tables, rows3, *,
         slots = block_tables[r, keys // bs].long() * bs + keys % bs
         k = k_cache[slots].float()  # [S, KV, hd]
         v = v_cache[slots].float()
+        if k_scales is not None:
+            sidx = slots - scale_slot_base
+            k = k * k_scales[sidx].float()[..., None]
+            v = v * v_scales[sidx].float()[..., None]
         qg = q[q_start:q_start + q_len].float().reshape(q_len, KV, G, hd)
         s = torch.einsum("tkgd,skd->tkgs", qg, k) / math.sqrt(hd)
         mask = keys[None, :] <= pos[:, None]
@@ -79,8 +90,9 @@ def _kernel():
     undeclared, ctypes would pass each pointer as a 32-bit int and cut it."""
     lib = _build.load("ragged_attention")
     fn = lib.dtt_ragged_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     size = lib.dtt_ragged_scratch_floats
     size.argtypes = [ctypes.c_int] * 7
@@ -88,11 +100,16 @@ def _kernel():
     return fn, size
 
 
-def _check(q, k_cache, v_cache, block_tables, rows3, sinks, window) -> None:
+def _check(q, k_cache, v_cache, block_tables, rows3, sinks, window,
+           k_scales, v_scales) -> None:
     dev = q.device
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
-                    ("block_tables", block_tables), ("rows3", rows3)) + (
-                        (("sinks", sinks),) if sinks is not None else ()):
+    named = [("k_cache", k_cache), ("v_cache", v_cache),
+             ("block_tables", block_tables), ("rows3", rows3),
+             ("sinks", sinks), ("k_scales", k_scales),
+             ("v_scales", v_scales)]
+    for name, t in named:
+        if t is None:
+            continue
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
@@ -101,8 +118,19 @@ def _check(q, k_cache, v_cache, block_tables, rows3, sinks, window) -> None:
         raise ValueError("q must be contiguous")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q dtype {q.dtype}: the kernel takes bf16 or f32")
-    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise ValueError("k/v cache dtype must equal q's")
+    if k_cache.dtype == torch.int8:
+        if (v_cache.dtype != torch.int8 or k_scales is None
+                or v_scales is None):
+            raise ValueError("int8 k/v caches need both k_scales and "
+                             "v_scales")
+        if (k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32
+                or k_scales.dim() != 2 or k_scales.shape != v_scales.shape
+                or k_scales.shape[1] != k_cache.shape[1]):
+            raise ValueError("k/v scales must be f32 [sc_slots, KV]")
+    elif k_scales is not None or v_scales is not None:
+        raise ValueError("scales are for int8 caches only")
+    elif k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError("k/v cache dtype must equal q's, or be int8")
     if q.dim() != 3 or k_cache.dim() != 3 or k_cache.shape != v_cache.shape:
         raise ValueError("q must be [T, H, hd] and k/v cache [slots, KV, hd]")
     T, H, hd = q.shape
@@ -126,17 +154,21 @@ def _check(q, k_cache, v_cache, block_tables, rows3, sinks, window) -> None:
 
 
 def ragged_paged_attention(q, k_cache, v_cache, block_tables, rows3, *,
-                           block_size: int, window: int = 0, sinks=None):
+                           block_size: int, window: int = 0, sinks=None,
+                           k_scales=None, v_scales=None,
+                           scale_slot_base: int = 0):
     """Ragged paged attention (see the module docstring for the contract).
     CUDA tensors launch the Hopper kernel on the current stream; CPU
     tensors take :func:`ragged_attention_ref`."""
     if q.device.type == "cpu":
-        return ragged_attention_ref(q, k_cache, v_cache, block_tables, rows3,
-                                    block_size=block_size, window=window,
-                                    sinks=sinks)
+        return ragged_attention_ref(
+            q, k_cache, v_cache, block_tables, rows3, block_size=block_size,
+            window=window, sinks=sinks, k_scales=k_scales, v_scales=v_scales,
+            scale_slot_base=scale_slot_base)
     if q.device.type != "cuda":
         raise ValueError(f"no ragged attention kernel for {q.device}")
-    _check(q, k_cache, v_cache, block_tables, rows3, sinks, window)
+    _check(q, k_cache, v_cache, block_tables, rows3, sinks, window,
+           k_scales, v_scales)
     T, H, hd = q.shape
     R, W = block_tables.shape
     out = torch.empty_like(q)
@@ -150,13 +182,16 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, rows3, *,
     n = scratch_floats(T, H, KV, hd, R, W, block_size)
     scratch = (torch.empty(n, dtype=torch.float32, device=q.device)
                if n else None)
+    quant = k_cache.dtype == torch.int8
     err = launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scales.data_ptr() if quant else None,
+        v_scales.data_ptr() if quant else None, int(scale_slot_base),
         block_tables.data_ptr(), rows3.data_ptr(),
         sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
         scratch.data_ptr() if scratch is not None else None,
         T, H, KV, hd, R, W, block_size, window,
-        int(q.dtype == torch.bfloat16),
+        int(q.dtype == torch.bfloat16), int(quant),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ragged attention kernel launch failed (code "
@@ -165,5 +200,5 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, rows3, *,
     return out
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, both page dtypes
 ragged_paged_attention.launches = 0

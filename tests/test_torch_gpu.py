@@ -1,4 +1,4 @@
-"""The torch port's CUDA kernel against its plain version, on the card.
+"""The torch port's CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``: each test skips without a CUDA device. The module imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from dynamo_tpu_torch.engine.cache import quantize_kv
+from dynamo_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_ref
 from dynamo_tpu_torch.ops.ragged_attention import (
     ragged_attention_ref, ragged_paged_attention,
 )
@@ -68,3 +70,63 @@ def test_kernel_matches_plain_on_card(dtype, tol, case_name):
                                     sinks=sk)
         torch.testing.assert_close(got[:t].float(), want[:t].float(),
                                    atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case_name", sorted(CASES))
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_int8_pages_match_plain_on_card(dtype, tol, case_name):
+    """int8 pages with per-(slot, head) scales, behind a junk layer that the
+    block tables and ``scale_slot_base`` step over. bf16 adds the rounding
+    of p * v_scale to bf16 before P.V to the tolerance's two steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rows, W = CASES[case_name]
+    case, t = make_case(4, rows, H=8, KV=2, hd=128, bs=16, W=W)
+    kq, ks = quantize_kv(torch.from_numpy(case["kc"]).cuda())
+    vq, vs = quantize_kv(torch.from_numpy(case["vc"]).cuda())
+    slots = kq.shape[0]
+    kq2 = torch.cat([torch.full_like(kq, 7), kq])
+    vq2 = torch.cat([torch.full_like(vq, 7), vq])
+    q = torch.from_numpy(case["q"]).cuda().to(dtype)
+    bt = torch.from_numpy(case["bt"] + slots // 16).cuda()
+    rows3 = torch.from_numpy(case["rows3"]).cuda()
+    sinks = torch.from_numpy(case["sinks"]).cuda()
+    for window, sk in ((0, None), (7, sinks), (300, sinks)):
+        kw = dict(block_size=16, window=window, sinks=sk, k_scales=ks,
+                  v_scales=vs, scale_slot_base=slots)
+        got = ragged_paged_attention(q, kq2, vq2, bt, rows3, **kw)
+        want = ragged_attention_ref(q, kq2, vq2, bt, rows3, **kw)
+        torch.testing.assert_close(got[:t].float(), want[:t].float(),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_prefill_matches_plain_on_card(dtype, tol, hd):
+    """Causal rows from pos_base > 0 with S < T, a kv_len 0 row, a window
+    with sinks; one geometry splits its keys (few query tiles), one does
+    not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(5)
+    for B, S, H, KV, T, pos_base, kv_lens in (
+            (3, 40, 8, 2, 700, (600, 0, 5), (640, 0, 700)),
+            (2, 300, 32, 8, 300, (0, 0), (300, 123))):
+        def t(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).cuda().to(dtype)
+
+        q, k, v = t(B, S, H, hd), t(B, T, KV, hd), t(B, T, KV, hd)
+        pb = torch.tensor(pos_base, dtype=torch.int32).cuda()
+        kl = torch.tensor(kv_lens, dtype=torch.int32).cuda()
+        sinks = torch.from_numpy(rng.standard_normal(H).astype(
+            np.float32)).cuda()
+        for kw in ({}, {"sliding_window": 33, "sinks": sinks}):
+            got = flash_prefill(q, k, v, pb, kl, **kw)
+            want = flash_prefill_ref(q, k, v, pb, kl, **kw)
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
