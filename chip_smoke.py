@@ -19,7 +19,15 @@ prints any result:
      window + sinks, and a layer-rebased scale table (scale_slot_base);
    - flash prefill: f32 and bf16, hd 64 and 128, window, sinks, pos_base
      > 0 with S < T, a kv_len 0 row, and the Llama-3-8B embeddings
-     geometry (B 8, S = T = 2048).
+     geometry (B 8, S = T = 2048);
+   - paged decode (the ragged kernel under the one-query-per-row
+     contract): the Llama-3-8B decode geometry (8 rows at kv 900-1100),
+     window + sinks, int8 pages (also with a rebased scale table), f32,
+     and a kv_len 0 row;
+   - MLA latent decode: f32 and bf16 with a kv_len 0 row, a one-page row
+     and a long split-K row, and the DeepSeek-V2-Lite geometry (8 decode
+     rows at kv 65-3000, H = 16, R = 512, PR = 128); bf16 is held row by
+     row, and three planted wrong outputs must fail that check.
 3. Serving: ``AsyncTorchEngine`` with the llama3_8b preset at full width
    and depth on random weights from a seeded generator, eight concurrent
    greedy requests after one warm-up request. The kernels' launch counts
@@ -29,6 +37,9 @@ prints any result:
    same step through the plain attention; logits must agree.
 5. Step profile: a decode-only and a prefill step at full width, timed on
    the host and traced with torch.profiler (device busy time by kernel).
+   Then one full-width S == 1 dense decode step (``make_forward_fn``, 8
+   rows at kv 900-1100) through the paged decode kernel (32 launches)
+   against the same step through its plain version.
 6. Embeddings: ``AsyncTorchEngine.embed`` of 8 inputs of 100-2048 tokens
    at full width through the flash prefill kernel (32 launches a call):
    unit norm, padding invariance, and agreement with the same embeddings
@@ -37,6 +48,14 @@ prints any result:
    ``kv_cache_dtype="int8"`` (the ragged kernel's int8 pages must launch),
    its pool beside the bf16 one's, one full-width int8 step against the
    plain version, and the step profile of phase 5 on int8 pages.
+8. DeepSeek-V2-Lite serving (the Llama engines released first: the two
+   models never share the card): ``AsyncTorchEngine`` with the
+   deepseek_v2_lite preset at full width and depth (MLA + MoE, random
+   seeded weights), the eight requests of phase 3 (79-881 prompt tokens
+   from the same seed); the MLA decode kernel must launch 27 times a step and no other
+   attention kernel at all. Then one full-width MLA ragged step through
+   the kernel against the same step through its plain version, and the
+   step profile.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -50,6 +69,7 @@ import asyncio
 import functools
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -64,18 +84,28 @@ from dynamo_tpu_torch.engine.cache import (
 )
 from dynamo_tpu_torch.engine.config import EngineArgs
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
-from dynamo_tpu_torch.engine.model import make_embed_fn, make_ragged_step_fn
+from dynamo_tpu_torch.engine.model import (
+    make_embed_fn, make_forward_fn, make_ragged_step_fn,
+)
 from dynamo_tpu_torch.engine.scheduler import PrefillWork, SeqState, StepPlan
 from dynamo_tpu_torch.models import get_model_config
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.flash_prefill import (
     flash_prefill, flash_prefill_paged, flash_prefill_ref,
 )
+from dynamo_tpu_torch.ops.mla_decode import (
+    BF16_ROW_RTOL, mla_paged_decode, mla_paged_decode_ref,
+)
+from dynamo_tpu_torch.ops.paged_attention import (
+    paged_attention_decode, paged_attention_decode_ref,
+)
 from dynamo_tpu_torch.ops.ragged_attention import (
     ragged_attention_ref, ragged_paged_attention,
 )
 from dynamo_tpu_torch.protocols import PreprocessedRequest, StopConditions
 
+#: DeepSeek-V2-Lite's softmax scale, qk_head_dim 192 to the -1/2
+MLA_SCALE = 1.0 / float(np.sqrt(192))
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and dense
 #: operations/s by input type (bf16 on tensor cores, f32 without them)
 HBM_BYTES_PER_S = 3.35e12
@@ -98,7 +128,8 @@ EMBED_COS = 0.999
 PAD_COS = 0.9999
 
 #: every kernel of the main paths: the ragged kernel once for each page
-#: dtype (its launches are those of the bf16 and the int8 serving run)
+#: dtype (its launches are those of the bf16 and the int8 serving run) and
+#: once under the paged decode contract (the S == 1 dense step)
 KERNELS = [{
     "name": "ragged_paged_attention",
     "route": "cuda",
@@ -120,6 +151,20 @@ KERNELS = [{
     "replaces": "dynamo_tpu/ops/flash_prefill.py:46",
     "build": "flash_prefill",
     "wrapper": flash_prefill,
+}, {
+    "name": "paged_attention_decode",
+    "route": "cuda",
+    "source": "dynamo_tpu_torch/ops/csrc/ragged_attention.cu",
+    "replaces": "dynamo_tpu/ops/paged_attention.py:48",
+    "build": "ragged_attention",
+    "wrapper": paged_attention_decode,
+}, {
+    "name": "mla_paged_decode",
+    "route": "cuda",
+    "source": "dynamo_tpu_torch/ops/csrc/mla_decode.cu",
+    "replaces": "dynamo_tpu/ops/paged_attention.py:389",
+    "build": "mla_decode",
+    "wrapper": mla_paged_decode,
 }]
 
 
@@ -179,20 +224,41 @@ def time_ms(fn, iters: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in times)
 
 
+def row_close(got, want, rtol: float, label: str) -> float:
+    """Each row's largest |got - want| within ``rtol`` of the row's largest
+    |want| (a row of zeros must come out zeros); returns the worst row's
+    share."""
+    err = (got - want).abs().flatten(1).amax(1)
+    scale = want.abs().flatten(1).amax(1)
+    share = torch.where(scale > 0, err / scale.clamp_min(1e-30),
+                        torch.where(err > 0, float("inf"), 0.0))
+    worst = float(share.max())
+    if not bool((err <= rtol * scale).all()):
+        raise AssertionError(f"{label}: row errors {err.tolist()} against "
+                             f"row scales {scale.tolist()} (rtol {rtol})")
+    return worst
+
+
 def measure(label, kernel, plain, library, bound, tol, pick=lambda o: o,
-            iters=20):
+            iters=20, row_rtol=None):
     """The kernel against its plain version on the same inputs (outputs
     cut by ``pick`` to their defined part), then the times of kernel,
     plain version and library yardstick (None: none). ``bound`` is
-    (ms, "bytes" or "operations")."""
+    (ms, "bytes" or "operations"). The outputs must agree elementwise
+    within ``tol`` (absolute and relative), or with ``row_rtol`` by
+    :func:`row_close`."""
     got = pick(kernel()).float()
     want = pick(plain()).float()
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{label}: non-finite kernel output")
     err = float((got - want).abs().max())
-    torch.testing.assert_close(got, want, atol=tol, rtol=tol,
-                               msg=lambda m: f"{label}: {m}")
+    if row_rtol is None:
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol,
+                                   msg=lambda m: f"{label}: {m}")
+    else:
+        tol = (f"row rtol {row_rtol}; worst row "
+               f"{row_close(got, want, row_rtol, label):.3e}")
     res = dict(max_abs_err=err, tol=tol, ms=time_ms(kernel, iters),
                plain_ms=time_ms(plain, max(3, iters // 5)),
                library_ms=None if library is None else time_ms(library,
@@ -398,6 +464,145 @@ def check_flash(label, case, window=0, sinks=False, iters=20):
                    iters=iters)
 
 
+# paged decode ------------------------------------------------------------------
+
+
+def check_decode(label, case, window=0, sinks=False, iters=20):
+    """The paged decode contract (one query per row, rows of q_len 1) on a
+    ragged case: the kernel vs its plain version, SDPA per row as the
+    library yardstick, and the ragged case's bound."""
+    kv_lens = case["rows3"][:, 2].contiguous()
+    args = (case["q"], case["kc"], case["vc"], case["bt"], kv_lens)
+    kw = dict(block_size=case["bs"], window=window or None,
+              sinks=case["sinks"] if sinks else None)
+    if "ks" in case:
+        kw.update(k_scales=case["ks"], v_scales=case["vs"],
+                  scale_slot_base=case["base"])
+    library = None
+    if not sinks and all(kv for _, kv in case["rows"]):
+        library = sdpa_ragged(case, window)
+    return measure(label, lambda: paged_attention_decode(*args, **kw),
+                   lambda: paged_attention_decode_ref(*args, **kw), library,
+                   ragged_bound(case, window), TOL[case["dtype"]],
+                   iters=iters)
+
+
+# MLA latent decode -------------------------------------------------------------
+
+
+def make_mla(kv_lens, *, H, R, PR, rope_dim, bs, dtype, seed):
+    """MLA decode operands on the card: one row per kv_len on its own random
+    blocks; the rope parts zero past ``rope_dim``, as the engine pads
+    them."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    need = [-(-kv // bs) for kv in kv_lens]
+    num_blocks = sum(need) + 8
+    W = max(max(need), 1)
+    perm = rng.permutation(np.arange(1, num_blocks))
+    bt = np.zeros((len(kv_lens), W), np.int32)
+    used = 0
+    for i, n in enumerate(need):
+        bt[i, :n] = perm[used:used + n]
+        used += n
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q_rot, rope = randn(len(kv_lens), H, PR), randn(num_blocks * bs, PR)
+    q_rot[..., rope_dim:] = 0
+    rope[:, rope_dim:] = 0
+    return dict(q_eff=randn(len(kv_lens), H, R), q_rot=q_rot,
+                lat=randn(num_blocks * bs, R).to(dtype), rope=rope.to(dtype),
+                bt=torch.from_numpy(bt).cuda(),
+                kv_lens=torch.tensor(kv_lens, dtype=torch.int32,
+                                     device="cuda"),
+                kvs=list(kv_lens), bs=bs, dtype=dtype, scale=MLA_SCALE)
+
+
+def mla_bound(case) -> tuple[float, str]:
+    """q_eff and q_rot read and the output written (f32), every key's
+    latent and rope part read once, the tables; 2·(R + PR) operations per
+    (head, key) for the score and 2·R for P·V."""
+    B, H, R = case["q_eff"].shape
+    PR = case["q_rot"].shape[2]
+    esz = case["lat"].element_size()
+    keys = sum(case["kvs"])
+    nbytes = (B * H * (2 * R + PR) * 4 + keys * (R + PR) * esz
+              + case["bt"].numel() * 4 + B * 4)
+    return bound_of(nbytes, keys * H * 2 * (2 * R + PR), case["dtype"])
+
+
+def sdpa_mla(case):
+    """PyTorch's scaled_dot_product_attention per row over the row's
+    gathered keys (gather done up front): q = [q_eff | q_rot], K =
+    [c | k_rot] as one KV head, V = c. The library yardstick."""
+    bs = case["bs"]
+    dt = case["dtype"]
+    calls = []
+    for r, kv in enumerate(case["kvs"]):
+        keys = torch.arange(kv, device="cuda")
+        slots = case["bt"][r, keys // bs].long() * bs + keys % bs
+        c = case["lat"][slots]
+        k = torch.cat([c, case["rope"][slots]], -1)[None, None]
+        q = torch.cat([case["q_eff"][r], case["q_rot"][r]], -1)
+        calls.append((q.to(dt)[None, :, None], k, c[None, None]))
+
+    def run():
+        for q, k, v in calls:
+            F.scaled_dot_product_attention(q, k, v, scale=case["scale"],
+                                           enable_gqa=True)
+    return run
+
+
+def check_mla(label, case, iters=20):
+    """The MLA kernel vs its plain version: f32 pages within TOL, bf16
+    pages (q·scale and P rounded to bf16 for the tensor cores) row by row
+    within BF16_ROW_RTOL of each row's scale."""
+    args = (case["q_eff"], case["q_rot"], case["lat"], case["rope"],
+            case["bt"], case["kv_lens"])
+    kw = dict(block_size=case["bs"], scale=case["scale"])
+    library = sdpa_mla(case) if all(case["kvs"]) else None
+    bf16 = case["dtype"] == torch.bfloat16
+    return measure(label, lambda: mla_paged_decode(*args, **kw),
+                   lambda: mla_paged_decode_ref(*args, **kw), library,
+                   mla_bound(case), TOL[torch.float32], iters=iters,
+                   row_rtol=BF16_ROW_RTOL if bf16 else None)
+
+
+def mla_controls(case) -> None:
+    """The bf16 rule must tell a kernel that is wrong in a small way: the
+    kernel's output with the rope term dropped, with the last 32 keys (one
+    tile) of every row longer than 256 dropped, and with the softmax scale
+    2% off, each against the plain version of the true inputs, must fail
+    it."""
+    args = (case["q_eff"], case["q_rot"], case["lat"], case["rope"],
+            case["bt"], case["kv_lens"])
+    kw = dict(block_size=case["bs"], scale=case["scale"])
+    want = mla_paged_decode_ref(*args, **kw).float()
+    lens = case["kv_lens"]
+    wrong = {
+        "rope term dropped": (args[:1] + (torch.zeros_like(args[1]),)
+                              + args[2:], kw),
+        "last tile dropped": (args[:5] + (torch.where(lens > 256, lens - 32,
+                                                      lens),), kw),
+        "scale 2% off": (args, dict(kw, scale=case["scale"] * 1.02)),
+    }
+    for name, (a, k) in wrong.items():
+        got = mla_paged_decode(*a, **k).float()
+        try:
+            row_close(got, want, BF16_ROW_RTOL, name)
+        except AssertionError:
+            err = (got - want).abs().flatten(1).amax(1)
+            share = float((err / want.abs().flatten(1).amax(1)
+                           .clamp_min(1e-30)).max())
+            log(f"  control, {name}: rejected (worst row share "
+                f"{share:.3e} against rtol {BF16_ROW_RTOL})")
+            continue
+        raise AssertionError(f"the MLA bf16 check passed a wrong kernel "
+                             f"output ({name})")
+
+
 def kernel_phase(seed: int) -> dict:
     """Every kernel case; returns the main case of each kernel by name."""
     main = {}
@@ -464,19 +669,55 @@ def kernel_phase(seed: int) -> dict:
                      lens, seed + 5)
     main["flash_prefill"] = check_flash(f"llama3_8b embed bf16 lengths "
                                         f"{lens}", emb, iters=10)
+
+    log("kernel phase: paged_attention_decode vs paged_attention_decode_ref")
+    # the Llama-3-8B S == 1 step's geometry: 8 rows at kv 900-1100
+    kvs = [int(k) for k in rng.integers(900, 1101, 8)]
+    dec = make_case([(1, k) for k in kvs], H=32, KV=8, hd=128, bs=16,
+                    dtype=torch.bfloat16, pad_rows=0, pad_tokens=0,
+                    seed=seed + 6)
+    main["paged_attention_decode"] = check_decode(
+        f"llama3_8b 8 decode rows bf16 kv {kvs}", dec)
+    check_decode("llama3_8b 8 decode rows bf16 window=512 sinks=True", dec,
+                 512, True, iters=5)
+    check_decode("llama3_8b 8 decode rows int8 pages", int8_case(dec),
+                 iters=5)
+    check_decode("llama3_8b 8 decode rows int8 pages window=512 sinks=True, "
+                 "rebased scales", int8_case(dec, rebase=True), 512, True,
+                 iters=5)
+    small = make_case([(1, 0), (1, 16), (1, 700), (1, 9)], H=8, KV=2,
+                      hd=64, bs=16, dtype=torch.float32, pad_rows=0,
+                      pad_tokens=0, seed=seed + 7)
+    check_decode("small float32 kv_len 0 row window=7 sinks=True", small, 7,
+                 True, iters=5)
+
+    log("kernel phase: mla_paged_decode vs mla_paged_decode_ref")
+    v2 = dict(H=16, R=512, PR=128, rope_dim=64, bs=16)
+    for dtype in (torch.float32, torch.bfloat16):
+        # a kv_len 0 row, a one-page row, a long row split over CTAs
+        check_mla(f"{str(dtype)[6:]} kv 0, 16, 3000, 9", make_mla(
+            [0, 16, 3000, 9], dtype=dtype, seed=seed + 8, **v2), iters=5)
+    check_mla("bf16 H=32 R=128 PR=64 kv 0, 16, 3000, 9", make_mla(
+        [0, 16, 3000, 9], H=32, R=128, PR=64, rope_dim=64, bs=16,
+        dtype=torch.bfloat16, seed=seed + 9), iters=5)
+    kvs = [int(k) for k in rng.integers(65, 3001, 8)]
+    v2_case = make_mla(kvs, dtype=torch.bfloat16, seed=seed + 10, **v2)
+    main["mla_paged_decode"] = check_mla(
+        f"deepseek_v2_lite 8 decode rows bf16 kv {kvs}", v2_case)
+    mla_controls(v2_case)
     return main
 
 
 # ------------------------------------------------------------------ phase 3
 
 
-async def serve(engine, prompts, max_tokens):
+async def serve(engine, model, prompts, max_tokens):
     """One short warm-up request (cuBLAS handles, allocator growth), then
     the kernels' counts set to 0 and the prompts served concurrently;
     returns the streams, the wall time and the steps of the measured run."""
     async def one(p, n):
         req = PreprocessedRequest(
-            model="llama3_8b", token_ids=p,
+            model=model, token_ids=p,
             stop_conditions=StopConditions(max_tokens=n, ignore_eos=True))
         t0 = time.perf_counter()
         stamps, toks, reason = [], [], None
@@ -497,14 +738,18 @@ async def serve(engine, prompts, max_tokens):
         await engine.close()
 
 
-def serving_phase(seed: int, smi: str, kv_cache_dtype=None):
+def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
+                  model: str = "llama3_8b"):
     """Eight concurrent greedy requests at full width; returns the engine,
-    the ragged kernel's launches in the run and the streams."""
-    cfg = get_model_config("llama3_8b")
+    its attention kernel's launches in the run and the streams. The kernel
+    (the ragged kernel, or the MLA decode kernel for an MLA model) must
+    launch once a layer every step, and no other kernel at all."""
+    cfg = get_model_config(model)
     args = EngineArgs(block_size=16, max_num_seqs=8,
                       max_num_batched_tokens=2048, max_model_len=4096,
                       seed=seed, kv_cache_dtype=kv_cache_dtype)
-    label = f"{kv_cache_dtype or cfg.dtype} KV"
+    label = f"{model}, {kv_cache_dtype or cfg.dtype} KV"
+    wrapper = mla_paged_decode if cfg.is_mla else ragged_paged_attention
     t0 = time.perf_counter()
     events = []
     engine = AsyncTorchEngine(cfg, args, event_cb=events.append)
@@ -512,22 +757,30 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None):
     n_params = sum(t.numel() for t in _leaves(engine.params))
     block_bytes = kv_block_bytes(cfg, args.block_size, engine.dtype,
                                  kv_cache_dtype)
-    log(f"serving phase ({label}): llama3_8b V{cfg.vocab_size} "
-        f"D{cfg.hidden_size} F{cfg.intermediate_size} L{cfg.num_layers} "
-        f"H{cfg.num_heads} KV{cfg.num_kv_heads} hd{cfg.head_dim} "
-        f"{cfg.dtype}: {n_params * 2 / 1e9:.2f} GB of random weights, "
+    (kh, kd), (vh, vd) = cfg.kv_cache_spec
+    shape = (f"MLA r{cfg.kv_lora_rank} rope{cfg.qk_rope_head_dim} "
+             f"E{cfg.num_experts} top{cfg.num_experts_per_tok} "
+             f"Fm{cfg.moe_ffn_size} shared{cfg.n_shared_experts} "
+             f"dense prefix {cfg.num_dense_prefix_layers}"
+             if cfg.is_mla else f"KV{cfg.num_kv_heads} hd{cfg.head_dim}")
+    log(f"serving phase ({label}): V{cfg.vocab_size} D{cfg.hidden_size} "
+        f"F{cfg.intermediate_size} L{cfg.num_layers} H{cfg.num_heads} "
+        f"{shape} {cfg.dtype}: {n_params * 2 / 1e9:.2f} GB of random "
+        f"weights ({n_params / 1e9:.2f} B parameters), "
         f"{engine.num_blocks} KV blocks of {block_bytes} bytes "
-        f"({engine.num_blocks * block_bytes / 1e9:.2f} GB, "
+        f"([{kh}, {kd}] + [{vh}, {vd}] a slot a layer; "
+        f"{engine.num_blocks * block_bytes / 1e9:.2f} GB, "
         f"{engine.num_blocks * args.block_size} tokens), set up in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
     prompts = [list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
                for n in rng.integers(64, 1025, 8)]
     max_tokens = 32
-    res, wall, steps = asyncio.run(serve(engine, prompts, max_tokens))
-    launches = ragged_paged_attention.launches
+    res, wall, steps = asyncio.run(serve(engine, model, prompts,
+                                         max_tokens))
+    launches = wrapper.launches
     other = {k["name"]: k["wrapper"].launches for k in KERNELS
-             if k["wrapper"] is not ragged_paged_attention}
+             if k["wrapper"] is not wrapper}
 
     for i, (_t0, _st, toks, reason) in enumerate(res):
         if reason != "length" or len(toks) != max_tokens:
@@ -536,8 +789,8 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None):
                                  f"{max_tokens}")
     want = cfg.num_layers * steps
     if launches == 0 or launches != want:
-        raise AssertionError(f"ragged kernel launched {launches} times in "
-                             f"{steps} steps, want {want}")
+        raise AssertionError(f"{wrapper.__name__} launched {launches} times "
+                             f"in {steps} steps, want {want}")
     if any(other.values()):
         raise AssertionError(f"serving launched other kernels: {other}")
     stored = sum(len(e.stored_blocks) for e in events)
@@ -549,7 +802,7 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None):
     log(f"  [{smi}] {label}: 8 streams x {max_tokens} tokens, prompts "
         f"{sorted(len(p) for p in prompts)} (after a warm-up request): "
         f"{steps} ragged steps, "
-        f"{launches} kernel launches, {stored} KV blocks stored")
+        f"{launches} {wrapper.__name__} launches, {stored} KV blocks stored")
     log(f"  [{smi}] {label}: TTFT mean {statistics.mean(ttft) * 1e3:.2f} ms "
         f"max {max(ttft) * 1e3:.2f} ms; ITL mean "
         f"{statistics.mean(itl) * 1e3:.2f} ms p50 "
@@ -569,7 +822,7 @@ def _leaves(tree):
 # ------------------------------------------------------------------ phase 4
 
 
-def full_width_step(engine, seed: int) -> float:
+def full_width_step(engine, model: str, seed: int) -> float:
     """One mixed ragged step at full width, kernel vs plain attention, on
     the serving engine's weights and cache (fresh blocks)."""
     cfg, bs = engine.cfg, engine.args.block_size
@@ -591,7 +844,9 @@ def full_width_step(engine, seed: int) -> float:
         return logits
 
     kernel_fn = engine.step_fn
-    plain_fn = make_ragged_step_fn(cfg, bs, attention=ragged_attention_ref)
+    plain_fn = make_ragged_step_fn(
+        cfg, bs, attention=(mla_paged_decode_ref if cfg.is_mla
+                            else ragged_attention_ref))
     # context for the step under test
     run(StepPlan(prefill=[PrefillWork(a, 0, 700, False),
                           PrefillWork(b, 0, 200, False)]), kernel_fn)
@@ -602,24 +857,44 @@ def full_width_step(engine, seed: int) -> float:
     want = run(plan, plain_fn)[:3]
     got = run(plan, kernel_fn)[:3]
     torch.cuda.synchronize()
-    if got.shape != (3, cfg.vocab_size) or not bool(
-            torch.isfinite(got).all()):
-        raise AssertionError("full-width step: bad logits")
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    same = (got.argmax(-1) == want.argmax(-1)).tolist()
     kind = ("int8" if engine.args.kv_cache_dtype == "int8"
             else str(engine.dtype)[6:])
-    log(f"full-width step, {kind} KV (decode kv 701, chunk 128 at kv 328, "
-        f"prefill 64): max |logit diff| {err:.4e}, logit scale {scale:.3f} "
-        f"(tolerance {STEP_RTOL} of it), argmax agree {same}")
-    if err > STEP_RTOL * scale or not all(same):
-        raise AssertionError(f"full-width step logits differ by {err}, "
-                             f"argmax agree {same}")
+    return check_logits(f"full-width step, {model}, {kind} KV (decode kv "
+                        f"701, chunk 128 at kv 328, prefill 64)", got, want)
+
+
+def check_logits(label: str, got, want, ties: bool = False) -> float:
+    """A full-width step's logits through the kernels against the same
+    step through the plain versions: finite, within STEP_RTOL of the logit
+    scale, and the same greedy token in every row. With ``ties``, a row
+    whose plain logits of the two picks are equal in bf16 (within one bf16
+    step at the logit scale: the plain argmax of a tie is only its first
+    index) is excused and printed. Returns the max |Δlogit|."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{label}: bad logits")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    pick = got.argmax(-1)
+    same = (pick == want.argmax(-1)).tolist()
+    gap = (want.max(-1).values
+           - want.gather(1, pick[:, None])[:, 0]).tolist()
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)  # bf16: 8-bit mantissa
+    tied = [i for i, ok in enumerate(same)
+            if ties and not ok and gap[i] <= ulp]
+    log(f"{label}: max |logit diff| {err:.4e}, logit scale {scale:.3f} "
+        f"(tolerance {STEP_RTOL} of it), argmax agree {same}"
+        + (f"; bf16 ties (plain logit gap of the kernel's pick "
+           f"{[gap[i] for i in tied]} <= one bf16 step {ulp}) in rows "
+           f"{tied}" if tied else ""))
+    if err > STEP_RTOL * scale or not all(ok or i in tied
+                                          for i, ok in enumerate(same)):
+        raise AssertionError(f"{label}: logits differ by {err}, argmax "
+                             f"agree {same}, gaps {gap}")
     return err
 
 
-def step_profile(engine, seed: int) -> None:
+def step_profile(engine, model: str, seed: int) -> None:
     """Where a step's time goes: a decode-only step (8 rows near kv 1000)
     and a full prefill step (2048 tokens), each timed on the host around a
     synchronised run and traced once with torch.profiler. Prints each
@@ -646,6 +921,8 @@ def step_profile(engine, seed: int) -> None:
 
         def run():
             tensors = [torch.from_numpy(x).to(engine.device) for x in ops]
+            if not plan.prefill:
+                tensors[2] = None  # no chunk grid, as the engine runs it
             logits, _, _ = engine.step_fn(engine.params, *tensors,
                                           engine.k_cache, engine.v_cache)
             return logits.argmax(-1).tolist()
@@ -669,12 +946,84 @@ def step_profile(engine, seed: int) -> None:
                 n, us = by_name.get(e.name, (0, 0.0))
                 by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
         busy_ms = sum(us for _, us in by_name.values()) / 1e3
-        log(f"step profile, {name}: wall {statistics.median(walls):.3f} ms "
+        log(f"step profile, {model} {name}: wall "
+            f"{statistics.median(walls):.3f} ms "
             f"(traced {traced_ms:.3f} ms), device busy {busy_ms:.3f} ms, "
             f"idle share {max(0.0, 1 - busy_ms / traced_ms):.3f}")
         top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)
         for kname, (n, us) in top[:6]:
             log(f"    {us / 1e3:9.3f} ms  x{n:<4d} {kname[:70]}")
+
+
+def dense_decode_step(engine, seed: int, smi: str) -> int:
+    """One S == 1 step of the dense forward (``make_forward_fn``) at full
+    width: 8 rows at kv 900-1100 whose context the engine's ragged step
+    wrote first, through the paged decode kernel against the same step
+    through its plain version. Returns the kernel's launches in the kernel
+    run (one a layer)."""
+    cfg, bs = engine.cfg, engine.args.block_size
+    dev = engine.device
+    rng = np.random.default_rng(seed + 17)
+    seqs = []
+    for n in rng.integers(900, 1101, 8):
+        s = SeqState(request_id="dense", req=None, ctx=None, sink=None)
+        s.tokens = list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
+        s.block_table = engine.pool.allocate(-(-int(n) // bs))
+        seqs.append(s)
+        # the context: every token but the last, one sequence a step
+        ops, _ = engine.pack(StepPlan(prefill=[
+            PrefillWork(s, 0, int(n) - 1, False)]))
+        engine.step_fn(engine.params, *(torch.from_numpy(x).to(dev)
+                                        for x in ops),
+                       engine.k_cache, engine.v_cache)
+    W = max(len(s.block_table) for s in seqs)
+    bt = np.zeros((8, W), np.int32)
+    for i, s in enumerate(seqs):
+        bt[i, :len(s.block_table)] = s.block_table
+    kv = np.asarray([len(s.tokens) for s in seqs], np.int32)
+    pos = kv - 1
+    step = [np.asarray([[s.tokens[-1]] for s in seqs], np.int32),
+            pos[:, None], (bt[np.arange(8), pos // bs] * bs
+                           + pos % bs)[:, None].astype(np.int32),
+            bt, kv, np.zeros((8,), np.int32)]
+    step = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in step]
+
+    def run(fn):
+        logits, _, _ = fn(engine.params, *step, engine.k_cache,
+                          engine.v_cache)
+        return logits
+
+    kernel_fn = make_forward_fn(cfg, bs)
+    plain_fn = make_forward_fn(cfg, bs,
+                               decode_attention=paged_attention_decode_ref)
+    run(kernel_fn)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    got = run(kernel_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_attention_decode.launches
+    other = {k["name"]: k["wrapper"].launches for k in KERNELS
+             if k["wrapper"] is not paged_attention_decode}
+    t0 = time.perf_counter()
+    want = run(plain_fn)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    if launches != cfg.num_layers:
+        raise AssertionError(f"paged decode launched {launches} times in "
+                             f"one S == 1 step, want {cfg.num_layers}")
+    if any(other.values()):
+        raise AssertionError(f"the S == 1 step launched other kernels: "
+                             f"{other}")
+    log(f"  [{smi}] S == 1 dense decode step, llama3_8b, 8 rows at kv "
+        f"{sorted(kv.tolist())}: {launches} paged decode launches; wall "
+        f"{wall * 1e3:.3f} ms (plain attention {plain_wall * 1e3:.3f} ms)")
+    check_logits("S == 1 dense decode step, llama3_8b", got, want,
+                 ties=True)
+    for s in seqs:
+        engine.pool.release(s.block_table)
+    return launches
 
 
 # ------------------------------------------------------------------ phase 6
@@ -765,8 +1114,23 @@ def int8_phase(seed: int, smi: str, bf16_blocks: int, bf16_streams):
     log(f"  int8 KV pool {engine.num_blocks} blocks vs bf16 pool "
         f"{bf16_blocks} blocks ({engine.num_blocks / bf16_blocks:.3f}x); "
         f"{same} of 8 greedy streams equal to the bf16 run's")
-    full_width_step(engine, seed)
-    step_profile(engine, seed)
+    full_width_step(engine, "llama3_8b", seed)
+    step_profile(engine, "llama3_8b", seed)
+    _release(engine)
+    return launches
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def mla_phase(seed: int, smi: str) -> int:
+    """DeepSeek-V2-Lite at full width: serving, one full-width MLA step
+    against its plain version, the step profile. Returns the MLA decode
+    kernel's launches in the serving run."""
+    engine, launches, _ = serving_phase(seed, smi, model="deepseek_v2_lite")
+    full_width_step(engine, "deepseek_v2_lite", seed)
+    step_profile(engine, "deepseek_v2_lite", seed)
+    _release(engine)
     return launches
 
 
@@ -788,14 +1152,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     engine, ragged_launches, streams = serving_phase(a.seed, smi)
     launches = {"ragged_paged_attention": ragged_launches}
-    full_width_step(engine, a.seed)
-    step_profile(engine, a.seed)
+    full_width_step(engine, "llama3_8b", a.seed)
+    step_profile(engine, "llama3_8b", a.seed)
+    launches["paged_attention_decode"] = dense_decode_step(engine, a.seed,
+                                                           smi)
     launches["flash_prefill"] = embedding_phase(engine, a.seed, smi)
     bf16_blocks = engine.num_blocks
     _release(engine)
     del engine
     launches["ragged_paged_attention_int8"] = int8_phase(
         a.seed, smi, bf16_blocks, streams)
+    # the Llama engines are gone: DeepSeek-V2-Lite has the card to itself
+    launches["mla_paged_decode"] = mla_phase(a.seed, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for k in KERNELS:

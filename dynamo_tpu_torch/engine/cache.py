@@ -2,7 +2,9 @@
 the port's copy of ``dynamo_tpu/engine/cache.py``.
 
 Device side: two tensors [L, num_slots, KV, hd] (num_slots = num_blocks *
-block_size), or two int8 ``{"q", "s"}`` pairs (see the int8 notes below),
+block_size; MLA: the latent [L, num_slots, 1, kv_lora_rank] and the padded
+rope part [L, num_slots, 1, rope_cache_dim], ``ModelConfig.kv_cache_spec``),
+or two int8 ``{"q", "s"}`` pairs (see the int8 notes below),
 flat slot addressing; block 0 is the reserved NULL block —
 padding slot-maps and block tables point at it and its contents are
 garbage by design (attention masks it out). This is the JAX package's
@@ -149,13 +151,14 @@ class BlockPool:
 
 def kv_block_bytes(cfg, block_size: int, dtype: torch.dtype,
                    kv_cache_dtype: Optional[str] = None) -> int:
-    """Bytes of one block across both caches and every layer. An int8
-    cache costs one byte per element plus a 4-byte f32 scale per (slot,
-    head)."""
-    if kv_cache_dtype == "int8":
-        per_slot = 2 * cfg.num_kv_heads * (cfg.head_dim + 4)
-    else:
-        per_slot = 2 * cfg.num_kv_heads * cfg.head_dim * dtype.itemsize
+    """Bytes of one block across both caches and every layer, from
+    ``cfg.kv_cache_spec`` (an MLA block holds the latent and the padded
+    rope part). An int8 cache costs one byte per element plus a 4-byte f32
+    scale per (slot, head)."""
+    per_slot = 0
+    for heads, dim in cfg.kv_cache_spec:
+        per_slot += heads * ((dim + 4) if kv_cache_dtype == "int8"
+                             else dim * dtype.itemsize)
     return cfg.num_layers * block_size * per_slot
 
 
@@ -176,20 +179,21 @@ def memory_sized_num_blocks(cfg, block_size: int, fraction: float,
 def allocate_device_cache(cfg, num_blocks: int, block_size: int,
                           device: torch.device, dtype: torch.dtype,
                           kv_cache_dtype: Optional[str] = None):
-    """Zeroed k/v caches, each [L, num_blocks * block_size, KV, hd]; with
-    ``kv_cache_dtype="int8"`` each is ``{"q": int8 [L, slots, KV, hd],
-    "s": f32 [L, slots, KV]}``."""
-    shape = (cfg.num_layers, num_blocks * block_size, cfg.num_kv_heads,
-             cfg.head_dim)
-
-    def one():
+    """Zeroed k/v caches of ``cfg.kv_cache_spec``: each [L, num_blocks *
+    block_size, KV, hd] for GQA; for MLA k is the latent [L, slots, 1,
+    kv_lora_rank] and v the rope part [L, slots, 1, rope_cache_dim]. With
+    ``kv_cache_dtype="int8"`` each is ``{"q": int8 [L, slots, heads, dim],
+    "s": f32 [L, slots, heads]}``."""
+    def one(heads, dim):
+        shape = (cfg.num_layers, num_blocks * block_size, heads, dim)
         if kv_cache_dtype == "int8":
             return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
                     "s": torch.zeros(shape[:-1], dtype=torch.float32,
                                      device=device)}
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    return one(), one()
+    (kh, kd), (vh, vd) = cfg.kv_cache_spec
+    return one(kh, kd), one(vh, vd)
 
 
 # ---------------------------------------------------------------- int8 cache

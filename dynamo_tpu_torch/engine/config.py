@@ -22,7 +22,8 @@ RAGGED_MAX_CHUNKS = 4
 
 @dataclass
 class ModelConfig:
-    """Llama-family decoder architecture (same fields as the JAX package)."""
+    """Decoder architecture: Llama-family GQA or DeepSeek MLA, dense or MoE
+    (the same fields as the JAX package's)."""
 
     vocab_size: int = 32000
     hidden_size: int = 4096
@@ -91,6 +92,37 @@ class ModelConfig:
     @property
     def is_mla(self) -> bool:
         return self.kv_lora_rank > 0
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def rope_cache_dim(self) -> int:
+        """MLA rope-part cache width: qk_rope_head_dim rounded up to a
+        multiple of 128, the JAX package's cache layout."""
+        return -(-self.qk_rope_head_dim // 128) * 128
+
+    @property
+    def moe_ffn_size(self) -> int:
+        return self.moe_intermediate_size or self.intermediate_size
+
+    @property
+    def num_dense_prefix_layers(self) -> int:
+        """Layers in the separate ``dense_layers`` param stack (the MoE
+        models' dense prefix); they are cache layers 0 .. k-1."""
+        return self.first_k_dense_replace if self.is_moe else 0
+
+    @property
+    def kv_cache_spec(self) -> tuple[tuple[int, int], tuple[int, int]]:
+        """((heads, dim) of k_cache, (heads, dim) of v_cache) per slot:
+        [KV, head_dim] both for GQA; for MLA the normalised latent c
+        [1, kv_lora_rank] in k_cache and the post-RoPE k_rot zero-padded to
+        [1, rope_cache_dim] in v_cache."""
+        if self.is_mla:
+            return ((1, self.kv_lora_rank), (1, self.rope_cache_dim))
+        return ((self.num_kv_heads, self.head_dim),
+                (self.num_kv_heads, self.head_dim))
 
     @staticmethod
     def tiny(vocab_size: int = 256) -> "ModelConfig":

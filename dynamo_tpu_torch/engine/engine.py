@@ -13,10 +13,16 @@ packed launch. The depth-2 pipelined decode loop and the multi-step and
 speculative fast paths are not ported yet (ROADMAP A3, A7), and requests
 that need anything but greedy sampling are refused at ``generate()``.
 
+Models: Llama-family GQA, and DeepSeek MLA with its MoE (the latent KV
+pool is sized from ``ModelConfig.kv_cache_spec``; MLA decode rows go
+through the MLA latent-decode kernel, and a plan with decode rows only
+takes the step variant without the chunk-grid walk).
+
 ``embed`` is the port of ``AsyncJaxEngine.embed``: mean-pooled sequence
 embeddings through the dense forward and the flash prefill kernel, over a
-scratch cache of its own. ``EngineArgs.kv_cache_dtype="int8"`` serves from
-an int8 KV pool through the ragged kernel's int8 pages.
+scratch cache of its own (GQA models; MLA raises, ROADMAP B3).
+``EngineArgs.kv_cache_dtype="int8"`` serves a GQA model from an int8 KV
+pool through the ragged kernel's int8 pages; MLA refuses it (ROADMAP B5b).
 
 The engine runs on the card: ``device=None`` means "cuda" and raises when
 CUDA is missing. Only an explicit ``device="cpu"`` runs on the CPU, where
@@ -42,8 +48,8 @@ from dynamo_tpu_torch.engine.config import (
     RAGGED_MAX_CHUNKS, EngineArgs, ModelConfig,
 )
 from dynamo_tpu_torch.engine.model import (
-    check_kernel_geometry, check_supported, init_params, make_embed_fn,
-    make_ragged_step_fn, torch_dtype,
+    RAGGED_TILE, check_kernel_geometry, check_supported, init_params,
+    make_embed_fn, make_ragged_step_fn, torch_dtype,
 )
 from dynamo_tpu_torch.engine.scheduler import Scheduler, SeqState, StepPlan
 from dynamo_tpu_torch.protocols import (
@@ -107,6 +113,10 @@ class AsyncTorchEngine:
                  device=None, event_cb: Optional[Callable] = None,
                  metrics_cb: Optional[Callable] = None):
         check_supported(cfg)
+        if cfg.is_mla and args.kv_cache_dtype == "int8":
+            raise ValueError(
+                "kv_cache_dtype='int8' with MLA needs the int8 branch of the "
+                "MLA decode kernel, not ported yet (ROADMAP B5b)")
         self.cfg, self.args = cfg, args
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -142,7 +152,8 @@ class AsyncTorchEngine:
         self.steps = 0
         # embeddings: one forward fn and ONE scratch cache, replaced when
         # the (B, S) bucket changes, apart from the serving pool
-        self._embed_fn = make_embed_fn(cfg, args.block_size)
+        self._embed_fn = (None if cfg.is_mla
+                          else make_embed_fn(cfg, args.block_size))
         self._embed_cache: Optional[tuple] = None
         self._embed_lock = threading.Lock()
 
@@ -174,6 +185,10 @@ class AsyncTorchEngine:
         """Mean-pooled L2-normalised embeddings for a batch of token lists,
         through the dense forward (flash prefill kernel) over a scratch
         cache. B and S bucket to powers of two, S at least one block."""
+        if self._embed_fn is None:
+            raise NotImplementedError(
+                "MLA embeddings need the flash prefill kernel at the MLA "
+                "geometry, not ported yet (ROADMAP B3)")
         if not token_id_lists:
             return []
         # bound inputs by the serving context the same way generate does
@@ -227,7 +242,9 @@ class AsyncTorchEngine:
         """Endpoint handler: {"token_ids": [[...]]} → one embeddings frame."""
         try:
             vecs = await self.embed(request.get("token_ids") or [])
-        except ValueError as e:  # input too long: client error, not a crash
+        except (ValueError, NotImplementedError) as e:
+            # input too long, or a model without embeddings: an error
+            # frame, not a crash
             yield {"error": str(e)}
             return
         yield {"embeddings": vecs}
@@ -313,8 +330,8 @@ class AsyncTorchEngine:
             for j, pos in enumerate(range(start, end)):
                 ints5[2, t + j] = seq.block_table[pos // bs] * bs + pos % bs
             if chunk > 1:
-                # chunk grid tiling, kept for layout parity with the JAX
-                # engine (the port's step does not read it)
+                # chunk grid tiling, as the JAX engine packs it (the MLA
+                # step reads it; the GQA kernel does not need it)
                 for off in range(0, chunk, S_C):
                     width = min(S_C, chunk - off)
                     grid_rows[tile] = i
@@ -335,6 +352,8 @@ class AsyncTorchEngine:
 
         def forward():
             tensors = [torch.from_numpy(a).to(dev) for a in operands]
+            if not plan.prefill:
+                tensors[2] = None  # no chunk tokens: MLA skips the grid
             logits, _, _ = self.step_fn(self.params, *tensors, self.k_cache,
                                         self.v_cache)
             return logits
@@ -400,11 +419,6 @@ class AsyncTorchEngine:
                 gpu_prefix_cache_hit_rate=(
                     sched.prefix_hit_tokens / sched.prefix_query_tokens
                     if sched.prefix_query_tokens else 0.0)))
-
-
-#: chunk-grid tile width of the JAX engine's XLA path; kept so the packed
-#: operands match the reference's layout operand for operand
-RAGGED_TILE = 32
 
 
 def ragged_grid_shape(t_bucket: int) -> tuple[int, int]:

@@ -1,18 +1,28 @@
-"""Llama-family forward pass over a paged KV cache, in PyTorch.
+"""Decoder forward pass over a paged KV cache, in PyTorch: Llama-family GQA
+and DeepSeek MLA, each with a dense or a MoE MLP.
 
-The port of the dense paths of ``dynamo_tpu/engine/model.py``:
+The port of ``dynamo_tpu/engine/model.py``'s single-device paths:
 
 - ``make_ragged_step_fn`` (``forward(ragged=...)``): one call is one engine
   step; every prefill chunk and decode row of a scheduler plan rides one
-  packed token batch, and attention runs through the ragged paged kernel
-  (ops/ragged_attention.py).
-- ``make_forward_fn`` (``forward(ragged=None)``) for [B, S] prefill
-  batches, attention through the flash prefill kernel
-  (ops/flash_prefill.py), and ``make_embed_fn`` on top of it: mean-pooled
-  sequence embeddings.
+  packed token batch. GQA attention runs through the ragged paged kernel
+  (ops/ragged_attention.py). MLA attention decomposes as the JAX package's
+  ``_mla_ragged_olat`` does: decode rows through the MLA latent-decode
+  kernel (ops/mla_decode.py, one launch per layer for all rows), chunk
+  tokens through a segment walk over the chunk grid (``_mla_attention_seg``
+  in PyTorch, the reference's own XLA path).
+- ``make_forward_fn`` (``forward(ragged=None)``) for [B, S] batches: S > 1
+  through the flash prefill kernel (ops/flash_prefill.py, GQA only), S == 1
+  through the paged decode kernel (ops/paged_attention.py, GQA) or the MLA
+  latent-decode kernel; ``make_embed_fn`` on top of it: mean-pooled
+  sequence embeddings (GQA only).
 
-Both write K/V into a plain or an int8 cache (engine/cache.py) and share
-one layer stack.
+MoE layers route tokens with ``router_weights`` (softmax or sigmoid
+scoring, group-limited choice, ``norm_topk_prob``, routed scaling) and
+compute every expert for every token (``mlp_moe``: plain matrix products
+over [E, N, F], as the JAX package's single-device path leaves them to
+XLA), plus the shared experts; a MoE model's dense prefix is its own
+``dense_layers`` stack and the first cache layers.
 
 Differences from the JAX package, each deliberate:
 
@@ -23,10 +33,13 @@ Differences from the JAX package, each deliberate:
   ``slot_map`` (padding tokens write into the null block, as in JAX); an
   int8 cache stores ``quantize_kv`` of k and v. It replaces buffer
   donation: the returned caches are the tensors passed in.
-- The chunk-grid operands exist only for the JAX package's XLA
-  decomposition; the step accepts them and does not read them.
-- Plain Llama GQA only. Every other ``ModelConfig`` switch raises
-  ``NotImplementedError`` when the step is built.
+- The GQA step does not read the chunk-grid operands; the MLA step reads
+  them and never reads ``rows3`` on the host. Its segment walk covers the
+  whole table width (the JAX loop stops at the batch's longest row, a
+  bound PyTorch would have to read on the host); the extra segments are
+  fully masked and change nothing.
+- Every architecture switch the port lacks raises ``NotImplementedError``
+  when a step is built.
 
 Weights keep the JAX layout ``[in, out]``, so each projection is
 ``x @ W`` exactly as in the reference.
@@ -43,11 +56,18 @@ import torch.nn.functional as F
 from dynamo_tpu_torch.engine.cache import layer_pages, write_kv
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.ops.flash_prefill import flash_prefill_paged
+from dynamo_tpu_torch.ops.mla_decode import geometry_error, mla_paged_decode
+from dynamo_tpu_torch.ops.paged_attention import (
+    decode_rows, paged_attention_decode,
+)
 from dynamo_tpu_torch.ops.ragged_attention import (
     HEAD_DIMS, MAX_GROUP, ragged_paged_attention,
 )
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_NEG = -1e30
+#: chunk-grid tile width (tokens per grid row), as in the JAX package
+RAGGED_TILE = 32
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -60,14 +80,13 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for every architecture switch the port's forward lacks."""
     unsupported = {
-        "MoE (num_experts)": cfg.is_moe,
-        "MLA (kv_lora_rank)": cfg.is_mla,
         "qkv_bias": cfg.qkv_bias,
         "qk_norm": cfg.qk_norm,
         "o_bias": cfg.o_bias,
         "sliding_window": bool(cfg.sliding_window),
         "layer_windows": cfg.layer_windows is not None,
         "attention_sinks": cfg.attention_sinks,
+        "moe_activation": cfg.is_moe and cfg.moe_activation != "swiglu",
         "embed_scale": cfg.embed_scale,
         "hidden_activation": cfg.hidden_activation != "silu",
         "attn_logit_softcap": bool(cfg.attn_logit_softcap),
@@ -78,16 +97,24 @@ def check_supported(cfg: ModelConfig) -> None:
     bad = [name for name, on in unsupported.items() if on]
     if bad:
         raise NotImplementedError(
-            "the torch port serves plain Llama GQA only; not yet ported: "
-            + ", ".join(bad) + " (ROADMAP A2, A9, A10)")
+            "the torch port serves Llama-family GQA and DeepSeek MLA with "
+            "dense or swiglu MoE MLPs; not yet ported: " + ", ".join(bad)
+            + " (ROADMAP A2, A9)")
 
 
 def check_kernel_geometry(cfg: ModelConfig) -> None:
     """Raise unless the port's CUDA attention kernels take this model's
-    heads: head_dim in HEAD_DIMS and a GQA group of at most MAX_GROUP. An
-    engine on the card checks this when it is built, so no step routes
-    around a kernel at run time."""
+    heads. GQA: head_dim in HEAD_DIMS and a group of at most MAX_GROUP.
+    MLA: H a multiple of 16, latent rank and rope cache width multiples
+    of 64 (ops/mla_decode.py). An engine on the card checks this when it is
+    built, so no step routes around a kernel at run time."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.is_mla:
+        why = geometry_error(H, cfg.kv_lora_rank, cfg.rope_cache_dim)
+        if why:
+            raise ValueError(f"the CUDA MLA decode kernel cannot take this "
+                             f"model: {why}")
+        return
     if hd not in HEAD_DIMS or H % KV or H // KV > MAX_GROUP:
         raise ValueError(
             f"the CUDA attention kernels take head_dim in {HEAD_DIMS} and "
@@ -101,50 +128,110 @@ def check_kernel_geometry(cfg: ModelConfig) -> None:
 #
 # params = {
 #   "embed": [V, D],
-#   "layers": {"attn_norm": [L, D], "mlp_norm": [L, D],
-#              "wq": [L, D, H*hd], "wk": [L, D, KV*hd], "wv": [L, D, KV*hd],
-#              "wo": [L, H*hd, D],
-#              "w_gate": [L, D, F], "w_up": [L, D, F], "w_down": [L, F, D]},
+#   "layers": {                       (stacked on a leading L axis)
+#     "attn_norm": [L, D], "mlp_norm": [L, D],
+#     GQA: "wq": [L, D, H*hd], "wk": [L, D, KV*hd], "wv": [L, D, KV*hd],
+#          "wo": [L, H*hd, D]
+#     MLA: "wq": [L, D, H*(dn+dr)] or "q_a": [L, D, qr], "q_a_norm": [L, qr],
+#          "q_b": [L, qr, H*(dn+dr)]; "kv_a": [L, D, r+dr],
+#          "kv_a_norm": [L, r], "w_uk": [L, r, H*dn], "w_uv": [L, r, H*dv],
+#          "wo": [L, H*dv, D]
+#     dense MLP: "w_gate": [L, D, F], "w_up": [L, D, F], "w_down": [L, F, D]
+#     MoE: "router": [L, D, E], "router_bias": [L, E] f32,
+#          "w_gate": [L, E, D, Fm], "w_up": [L, E, D, Fm],
+#          "w_down": [L, E, Fm, D]; shared experts "ws_gate": [L, D, Fs],
+#          "ws_up": [L, D, Fs], "ws_down": [L, Fs, D]
+#   },
+#   "dense_layers": {...}  a MoE model's dense prefix (dense MLP), when any
 #   "final_norm": [D], "lm_head": [D, V] (absent when tied)
 # }
+
+
+def _init_stack(cfg: ModelConfig, w, n: int, moe: bool, dtype,
+                device) -> dict:
+    """One stacked layer group of ``n`` layers (dense or MoE MLP); ``w``
+    draws one [in, out] matrix. Each layer, and each expert, is drawn on
+    its own."""
+    D, H, KV, hd = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+                    cfg.head_dim)
+
+    def stacked(shape, fan_in, experts: int = 0):
+        lead = (n, experts) if experts else (n,)
+        out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+        for i in range(n):
+            for e in range(max(1, experts)):
+                (out[i, e] if experts else out[i]).copy_(w(shape, fan_in))
+        return out
+
+    def ones(dim):
+        return torch.ones((n, dim), dtype=dtype, device=device)
+
+    layers = {"attn_norm": ones(D), "mlp_norm": ones(D)}
+    if cfg.is_mla:
+        r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+        if cfg.q_lora_rank:
+            qr = cfg.q_lora_rank
+            layers["q_a"] = stacked((D, qr), D)
+            layers["q_a_norm"] = ones(qr)
+            layers["q_b"] = stacked((qr, H * (dn + dr)), qr)
+        else:
+            layers["wq"] = stacked((D, H * (dn + dr)), D)
+        layers["kv_a"] = stacked((D, r + dr), D)
+        layers["kv_a_norm"] = ones(r)
+        layers["w_uk"] = stacked((r, H * dn), r)
+        layers["w_uv"] = stacked((r, H * dv), r)
+        layers["wo"] = stacked((H * dv, D), H * dv)
+    else:
+        layers["wq"] = stacked((D, H * hd), D)
+        layers["wk"] = stacked((D, KV * hd), D)
+        layers["wv"] = stacked((D, KV * hd), D)
+        layers["wo"] = stacked((H * hd, D), H * hd)
+    if moe:
+        Fm, E = cfg.moe_ffn_size, cfg.num_experts
+        layers["router"] = stacked((D, E), D)
+        layers["router_bias"] = torch.zeros((n, E), dtype=torch.float32,
+                                            device=device)
+        layers["w_gate"] = stacked((D, Fm), D, E)
+        layers["w_up"] = stacked((D, Fm), D, E)
+        layers["w_down"] = stacked((Fm, D), Fm, E)
+        if cfg.n_shared_experts:
+            Fs = cfg.n_shared_experts * Fm
+            layers["ws_gate"] = stacked((D, Fs), D)
+            layers["ws_up"] = stacked((D, Fs), D)
+            layers["ws_down"] = stacked((Fs, D), Fs)
+    else:
+        Fi = cfg.intermediate_size
+        layers["w_gate"] = stacked((D, Fi), D)
+        layers["w_up"] = stacked((D, Fi), D)
+        layers["w_down"] = stacked((Fi, D), Fi)
+    return layers
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> dict:
     """Random weights with the JAX package's shapes and scales: normal /
-    sqrt(fan_in), norms one. Drawn from ``generator`` (which must live on
-    ``device``), one layer at a time so the f32 draw never doubles the
-    footprint of a full-width model."""
+    sqrt(fan_in), norms one, router bias zero. Drawn from ``generator``
+    (which must live on ``device``) one matrix at a time — one layer, or
+    one expert of a layer — so the f32 draw never adds more than one
+    matrix to the footprint of a full-width model."""
     check_supported(cfg)
     dtype = torch_dtype(cfg)
     D, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
-    H, KV, hd, Fi = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                     cfg.intermediate_size)
+    k_dense = cfg.num_dense_prefix_layers
 
     def w(shape, fan_in):
         return (torch.randn(shape, generator=generator, device=device,
                             dtype=torch.float32)
                 / float(np.sqrt(fan_in))).to(dtype)
 
-    def stacked(shape, fan_in):
-        out = torch.empty((L, *shape), dtype=dtype, device=device)
-        for i in range(L):
-            out[i] = w(shape, fan_in)
-        return out
-
-    layers = {
-        "attn_norm": torch.ones((L, D), dtype=dtype, device=device),
-        "mlp_norm": torch.ones((L, D), dtype=dtype, device=device),
-        "wq": stacked((D, H * hd), D),
-        "wk": stacked((D, KV * hd), D),
-        "wv": stacked((D, KV * hd), D),
-        "wo": stacked((H * hd, D), H * hd),
-        "w_gate": stacked((D, Fi), D),
-        "w_up": stacked((D, Fi), D),
-        "w_down": stacked((Fi, D), Fi),
-    }
-    params = {"embed": w((V, D), D), "layers": layers,
+    params = {"embed": w((V, D), D),
+              "layers": _init_stack(cfg, w, L - k_dense, cfg.is_moe, dtype,
+                                    device),
               "final_norm": torch.ones((D,), dtype=dtype, device=device)}
+    if k_dense:
+        params["dense_layers"] = _init_stack(cfg, w, k_dense, False, dtype,
+                                             device)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((D, V), D)
     return params
@@ -237,6 +324,20 @@ def rope_params(theta: float, hd: int, scaling: Optional[dict]):
     raise NotImplementedError(f"rope_scaling type '{kind}' not supported")
 
 
+def mla_softmax_scale(cfg: ModelConfig) -> float:
+    """MLA attention scale: qk_head_dim^-0.5 times the YaRN mscale² that
+    HF's DeepseekV2/V3 attention applies when rope_scaling carries
+    mscale_all_dim."""
+    scale = 1.0 / np.sqrt(cfg.qk_head_dim)
+    s = cfg.rope_scaling or {}
+    if s.get("mscale_all_dim"):
+        factor = float(s.get("factor", 1.0))
+        if factor > 1.0:
+            m = 0.1 * float(s["mscale_all_dim"]) * np.log(factor) + 1.0
+            scale *= m * m
+    return float(scale)
+
+
 def rope_tables(positions, inv_freq, attn_scale: float):
     """(cos, sin) [..., 1, hd/2] f32 for ``positions`` [...]: computed once
     per step and shared by every layer's q and k."""
@@ -264,17 +365,79 @@ def _mlp(h, w_gate, w_up, w_down):
     return (F.silu(h @ w_gate) * (h @ w_up)) @ w_down
 
 
+def router_weights(xf, router_w, router_bias, cfg: ModelConfig):
+    """Token→expert combine weights [N, E] f32, zero for unrouted experts
+    (the JAX package's ``_router_weights``).
+
+    - softmax: softmax over all expert logits (plus the router bias with
+      ``router_logit_bias``), the top-k probabilities;
+    - sigmoid: sigmoid scores; the choice adds the correction bias and,
+      with n_group > 1, keeps the best ``topk_group`` groups by the sum of
+      each group's top-2 choice scores (softmax groups score by their max);
+      the weights are the raw scores at the chosen experts.
+    Then optionally renormalised (``norm_topk_prob``) and scaled by
+    ``routed_scaling_factor``."""
+    N = xf.shape[0]
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    logits = (xf @ router_w).float()  # [N, E]
+
+    def group_mask(choice, group_score):
+        G = cfg.n_group
+        gi = torch.topk(group_score(choice.view(N, G, E // G)),
+                        cfg.topk_group, dim=-1).indices
+        keep = torch.zeros((N, G), dtype=torch.bool, device=xf.device)
+        keep.scatter_(1, gi, True)
+        return torch.where(keep.repeat_interleave(E // G, dim=1), choice,
+                           torch.zeros_like(choice))
+
+    if cfg.scoring_func == "sigmoid":
+        scores = torch.sigmoid(logits)
+        choice = scores + router_bias[None, :]
+        if cfg.n_group > 1:
+            choice = group_mask(
+                choice, lambda g: torch.topk(g, 2, dim=-1).values.sum(-1))
+    else:
+        if cfg.router_logit_bias:
+            logits = logits + router_bias[None, :]
+        scores = torch.softmax(logits, dim=-1)
+        choice = scores
+        if cfg.n_group > 1:
+            choice = group_mask(choice, lambda g: g.amax(-1))
+    topi = torch.topk(choice, K, dim=-1).indices
+    gates = torch.gather(scores, 1, topi)
+    if cfg.norm_topk_prob:
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    gates = gates * cfg.routed_scaling_factor
+    return torch.zeros((N, E), dtype=torch.float32,
+                       device=xf.device).scatter_add_(1, topi, gates)
+
+
+def mlp_moe(x, router_w, router_bias, w_gate, w_up, w_down,
+            cfg: ModelConfig):
+    """Token-choice MoE over x [N, D], all experts computed for every token
+    and combined with the router's weights (the JAX package's single-device
+    ``_mlp_moe``): expert weights [E, D, Fm] / [E, Fm, D]. The combine
+    weights are cast to the expert output's dtype first, as there."""
+    cw = router_weights(x, router_w, router_bias, cfg)
+    h = torch.matmul(x, w_gate)  # [E, N, Fm]
+    u = torch.matmul(x, w_up)
+    y = torch.matmul(F.silu(h) * u, w_down)  # [E, N, D]
+    return torch.einsum("end,ne->nd", y, cw.to(y.dtype))
+
+
 # ---------------------------------------------------------------------------
 # The layer stack
 # ---------------------------------------------------------------------------
 
 
 class _Rope:
-    """inv_freq of ``cfg`` per device, built once."""
+    """inv_freq of ``cfg`` per device, built once: head_dim wide for GQA,
+    qk_rope_head_dim wide for MLA."""
 
     def __init__(self, cfg: ModelConfig):
-        self.inv_np, self.attn_scale = rope_params(
-            cfg.rope_theta, cfg.head_dim, cfg.rope_scaling)
+        dim = cfg.qk_rope_head_dim if cfg.is_mla else cfg.head_dim
+        self.inv_np, self.attn_scale = rope_params(cfg.rope_theta, dim,
+                                                   cfg.rope_scaling)
         self._inv: dict = {}
 
     def tables(self, positions):
@@ -285,30 +448,201 @@ class _Rope:
         return rope_tables(positions, inv, self.attn_scale)
 
 
+def _gqa_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
+                   attend):
+    """GQA attention of layer ``i`` of stack ``lw`` (cache layer ``li``):
+    q/k/v, RoPE, the KV write, ``attend(li, q [N, H, hd])`` and wo."""
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    N = h.shape[0]
+    q = apply_rope((h @ lw["wq"][i]).view(N, H, hd), cos, sin)
+    k = apply_rope((h @ lw["wk"][i]).view(N, KV, hd), cos, sin)
+    v = (h @ lw["wv"][i]).view(N, KV, hd)
+    write_kv(k_cache, v_cache, li, slots, k, v)
+    return attend(li, q).reshape(N, H * hd) @ lw["wo"][i]
+
+
+def _mla_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
+                   attend):
+    """Multi-head latent attention (the JAX package's ``_mla_attention``,
+    weight-absorbed): q through wq (or q_a → RMSNorm → q_b); kv_a gives the
+    RMSNorm'd latent c and the rotated k_rot, written at ``slots`` (k_rot
+    zero-padded to rope_cache_dim); q_eff = q_nope·W_UK in f32;
+    ``attend(li, q_eff [N, H, r], q_rot [N, H, pr])`` (both f32, q_rot
+    zero-padded) returns the latent output [N, H, r], expanded through
+    W_UV and wo."""
+    H, r, dr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dn, dv, pr = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.rope_cache_dim
+    eps = cfg.rms_norm_eps
+    N = h.shape[0]
+    if "q_b" in lw:
+        q = rms_norm(h @ lw["q_a"][i], lw["q_a_norm"][i], eps) @ lw["q_b"][i]
+    else:
+        q = h @ lw["wq"][i]
+    q = q.view(N, H, dn + dr)
+    q_rot = apply_rope(q[..., dn:], cos, sin)
+    ckv = h @ lw["kv_a"][i]  # [N, r + dr]
+    c = rms_norm(ckv[:, :r], lw["kv_a_norm"][i], eps)
+    k_rot = apply_rope(ckv[:, None, r:], cos, sin)  # [N, 1, dr]
+    write_kv(k_cache, v_cache, li, slots, c.view(N, 1, r),
+             F.pad(k_rot, (0, pr - dr)))
+    w_uk = lw["w_uk"][i].view(r, H, dn).float()
+    q_eff = torch.einsum("nhd,rhd->nhr", q[..., :dn].float(), w_uk)
+    o_lat = attend(li, q_eff.contiguous(), F.pad(q_rot.float(), (0, pr - dr)))
+    w_uv = lw["w_uv"][i].view(r, H, dv).float()
+    out = torch.einsum("nhr,rhd->nhd", o_lat.float(), w_uv)
+    return out.reshape(N, H * dv).to(h.dtype) @ lw["wo"][i]
+
+
 def _layers(cfg: ModelConfig, params, x, cos, sin, slot_map, k_cache,
             v_cache, attend):
     """The decoder stack over N flat tokens: x [N, D] embeddings, cos/sin
-    their RoPE tables, K/V written at ``slot_map`` [N] (int64) of a plain
-    or int8 cache in place; ``attend(li, q [N, H, hd]) -> [N, H, hd]`` is
-    the layer's attention. Returns the final-normed hidden states [N, D]."""
-    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    their RoPE tables, K/V (or MLA's latent and rope part) written at
+    ``slot_map`` [N] (int64) of the cache in place; ``attend`` is the
+    layer's attention call (see ``_gqa_attention`` / ``_mla_attention``).
+    A MoE model's dense prefix (``dense_layers``) comes first. Returns the
+    final-normed hidden states [N, D]."""
     eps = cfg.rms_norm_eps
-    N = x.shape[0]
-    lw = params["layers"]
-    for li in range(cfg.num_layers):
-        h = rms_norm(x, lw["attn_norm"][li], eps)
-        q = apply_rope((h @ lw["wq"][li]).view(N, H, hd), cos, sin)
-        k = apply_rope((h @ lw["wk"][li]).view(N, KV, hd), cos, sin)
-        v = (h @ lw["wv"][li]).view(N, KV, hd)
-        write_kv(k_cache, v_cache, li, slot_map, k, v)
-        x = x + attend(li, q).reshape(N, H * hd) @ lw["wo"][li]
-        h = rms_norm(x, lw["mlp_norm"][li], eps)
-        x = x + _mlp(h, lw["w_gate"][li], lw["w_up"][li], lw["w_down"][li])
+    attention = _mla_attention if cfg.is_mla else _gqa_attention
+    k_dense = cfg.num_dense_prefix_layers
+    stacks = [(params["layers"], k_dense, cfg.num_layers - k_dense,
+               cfg.is_moe)]
+    if k_dense:
+        stacks.insert(0, (params["dense_layers"], 0, k_dense, False))
+    for lw, base, n, moe in stacks:
+        for i in range(n):
+            h = rms_norm(x, lw["attn_norm"][i], eps)
+            x = x + attention(cfg, lw, i, base + i, h, cos, sin, slot_map,
+                              k_cache, v_cache, attend)
+            h = rms_norm(x, lw["mlp_norm"][i], eps)
+            if moe:
+                x = x + mlp_moe(h, lw["router"][i], lw["router_bias"][i],
+                                lw["w_gate"][i], lw["w_up"][i],
+                                lw["w_down"][i], cfg)
+                if cfg.n_shared_experts:  # dense shared experts on top
+                    x = x + _mlp(h, lw["ws_gate"][i], lw["ws_up"][i],
+                                 lw["ws_down"][i])
+            else:
+                x = x + _mlp(h, lw["w_gate"][i], lw["w_up"][i],
+                             lw["w_down"][i])
     return rms_norm(x, params["final_norm"], eps)
 
 
 def _lm_head(cfg: ModelConfig, params):
     return params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+
+
+def mla_layer_pages(k_cache, v_cache, li: int):
+    """(latent [slots, r], rope [slots, pr]) of cache layer ``li``: views
+    of the MLA caches [L, slots, 1, r] / [L, slots, 1, pr]."""
+    return k_cache[li].flatten(1), v_cache[li].flatten(1)
+
+
+# ---------------------------------------------------------------------------
+# MLA attention over the packed ragged batch
+# ---------------------------------------------------------------------------
+
+
+def mla_attention_seg(q_eff, q_rot, latent, rope_pages, block_tables,
+                      positions, kv_lens, *, block_size: int, scale: float,
+                      seg_keys: int = 128):
+    """Latent-space attention of q_eff [B, S, H, r] / q_rot [B, S, H, pr]
+    (f32) over each row's pages, the key axis walked in segments of
+    ``seg_keys`` with an online softmax (the JAX package's
+    ``_mla_attention_seg``): scores q_eff·c + q_rot·k_rot, value c, keys at
+    or before each query's position and below kv_len. Returns o_lat
+    [B, S, H, r] f32.
+
+    The walk covers the whole table width W (a fully masked segment leaves
+    the running max, sum and output as they are), so no bound is read on
+    the host. Transient memory per segment: the scores [B, H, S, SEG] and
+    the gathered latent [B, SEG, r], f32: at DeepSeek-V2-Lite width (H 16,
+    r 512) and a 2048-token bucket (B = 68 chunk-grid tiles of S = 32
+    tokens, SEG = 128), 17.8 MB each, beside the running output
+    [B, H, S, r] of 71.3 MB."""
+    B, S, H, r = q_eff.shape
+    W = block_tables.shape[1]
+    bs = block_size
+    dev = q_eff.device
+    spp = max(1, min(W, -(-seg_keys // bs)))
+    SEG = spp * bs
+    nseg = -(-W // spp)
+    bt = F.pad(block_tables.long(), (0, nseg * spp - W))
+    # queries as [B, H*S, .] rows, so every product is one batched matmul
+    # against the row's gathered segment
+    qe = (q_eff.permute(0, 2, 1, 3) * scale).reshape(B, H * S, r)
+    qr = (q_rot.permute(0, 2, 1, 3) * scale).reshape(B, H * S, -1)
+    pos = positions.long()[:, :, None]
+    lens = kv_lens.long()[:, None, None]
+    m = torch.full((B, H, S), _NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H * S, r), dtype=torch.float32, device=dev)
+    offs = torch.arange(bs, device=dev)
+    for s in range(nseg):
+        slot_idx = (bt[:, s * spp:(s + 1) * spp, None] * bs
+                    + offs).reshape(B, SEG)
+        cg = latent[slot_idx].float()       # [B, SEG, r]
+        krg = rope_pages[slot_idx].float()  # [B, SEG, pr]
+        sc = (torch.bmm(qe, cg.transpose(1, 2))
+              + torch.bmm(qr, krg.transpose(1, 2))).view(B, H, S, SEG)
+        key_pos = s * SEG + torch.arange(SEG, device=dev)
+        mask = (key_pos <= pos) & (key_pos < lens)  # [B, S, SEG]
+        sc = sc.masked_fill(~mask[:, None], _NEG)
+        m_new = torch.maximum(m, sc.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = (acc * corr.view(B, H * S, 1)
+               + torch.bmm(p.view(B, H * S, SEG), cg))
+        m = m_new
+    out = acc.view(B, H, S, r) / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3)  # [B, S, H, r]
+
+
+def mla_ragged_olat(q_eff, q_rot, latent, rope_pages, block_tables,
+                    positions, rows3, grid_row, grid_col, grid_rows, *,
+                    block_size: int, scale: float, decode: Callable):
+    """Ragged MLA attention (the JAX package's ``_mla_ragged_olat``): q_eff
+    [T, H, r] / q_rot [T, H, pr] f32 → o_lat [T, H, r] f32.
+
+    - Every row goes through ``decode`` (the latent-decode kernel wrapper or
+      its plain version) in ONE call, its query the row's first token;
+      rows whose q_len is not 1 see kv_len 0, so they cost nothing and
+      their (zero) output lands in a dump slot.
+    - Chunk tokens scatter into the [C, RAGGED_TILE] chunk grid
+      (``grid_row``/``grid_col`` per token, ``grid_rows`` per tile) and go
+      through :func:`mla_attention_seg`; ``grid_rows`` None skips them (a
+      plan with decode rows only)."""
+    T, H, r = q_eff.shape
+    q_start, q_len, kv_lens = rows3[:, 0], rows3[:, 1], rows3[:, 2]
+    is_dec = q_len == 1
+    dec_idx = torch.where(is_dec, q_start, T).long()
+    qe_pad = F.pad(q_eff, (0, 0, 0, 0, 0, 1))
+    qr_pad = F.pad(q_rot, (0, 0, 0, 0, 0, 1))
+    dec = decode(qe_pad[dec_idx], qr_pad[dec_idx], latent, rope_pages,
+                 block_tables, torch.where(is_dec, kv_lens,
+                                           torch.zeros_like(kv_lens)),
+                 block_size=block_size, scale=scale)  # [R, H, r]
+    out = torch.zeros((T + 1, H, r), dtype=torch.float32,
+                      device=q_eff.device)
+    out[dec_idx] = dec.float()
+    out = out[:T]
+    if grid_rows is None:
+        return out
+    C = grid_rows.shape[0]
+    S_C = min(RAGGED_TILE, T)
+    gr, gc = grid_row.long(), grid_col.long()
+
+    def to_grid(x):
+        g = x.new_zeros((C + 1, S_C, *x.shape[1:]))
+        g[gr, gc] = x
+        return g[:C]
+
+    g_out = mla_attention_seg(
+        to_grid(q_eff), to_grid(q_rot), latent, rope_pages,
+        block_tables[grid_rows.long()], to_grid(positions),
+        kv_lens[grid_rows.long()], block_size=block_size, scale=scale)
+    vals = F.pad(g_out, (0, 0, 0, 0, 0, 0, 0, 1))[gr, gc]  # [T, H, r]
+    return torch.where((gr < C)[:, None, None], vals, out)
 
 
 # ---------------------------------------------------------------------------
@@ -317,34 +651,50 @@ def _lm_head(cfg: ModelConfig, params):
 
 
 def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
-                        attention: Callable = ragged_paged_attention):
+                        attention: Optional[Callable] = None):
     """The packed ragged engine step.
 
     ``fn(params, ints5 [5, T], rows3 [R, 3], grid_rows [C],
     block_tables [R, W], k_cache, v_cache) -> (logits [R, V] f32, k_cache,
     v_cache)``: ``ints5`` stacks tokens / positions / slot_map / grid_row /
     grid_col, ``rows3`` holds (q_start, q_len, kv_len) per row (q_len 0 =
-    padding row), caches are [L, slots, KV, hd] (or int8 ``{"q", "s"}``)
-    and are updated in place. Logits are taken at each row's last token.
+    padding row), caches are [L, slots, KV, hd] (or int8 ``{"q", "s"}``;
+    MLA: the latent and rope caches) and are updated in place. Logits are
+    taken at each row's last token. ``grid_rows`` None says the step has
+    decode rows only: MLA then skips its chunk-grid walk (GQA reads no
+    grid operand).
 
-    ``attention`` is the per-layer attention call: the kernel wrapper, or
-    ``ragged_attention_ref`` to run the same step on the plain version. An
-    int8 cache passes each layer's pages with that layer's scales (scale
-    slot base 0).
+    ``attention`` is the per-layer attention call: by default the kernel
+    wrapper of the model's family (``ragged_paged_attention``, or
+    ``mla_paged_decode`` for MLA decode rows), or its plain version
+    (``ragged_attention_ref``, ``mla_paged_decode_ref``) to run the same
+    step without the kernel. An int8 cache passes each layer's pages with
+    that layer's scales (scale slot base 0).
     """
     check_supported(cfg)
     rope_ = _Rope(cfg)
+    if attention is None:
+        attention = mla_paged_decode if cfg.is_mla else ragged_paged_attention
+    scale = mla_softmax_scale(cfg) if cfg.is_mla else None
 
     def fn(params, ints5, rows3, grid_rows, block_tables, k_cache, v_cache):
-        del grid_rows  # XLA chunk-grid operand; not used by the kernel path
         T = ints5.shape[1]
         cos, sin = rope_.tables(ints5[1])
 
-        def attend(li, q):
-            kc, ks = layer_pages(k_cache, li)
-            vc, vs = layer_pages(v_cache, li)
-            return attention(q, kc, vc, block_tables, rows3,
-                             block_size=block_size, k_scales=ks, v_scales=vs)
+        if cfg.is_mla:
+            def attend(li, q_eff, q_rot):
+                lat, rp = mla_layer_pages(k_cache, v_cache, li)
+                return mla_ragged_olat(
+                    q_eff, q_rot, lat, rp, block_tables, ints5[1], rows3,
+                    ints5[3], ints5[4], grid_rows,
+                    block_size=block_size, scale=scale, decode=attention)
+        else:
+            def attend(li, q):
+                kc, ks = layer_pages(k_cache, li)
+                vc, vs = layer_pages(v_cache, li)
+                return attention(q, kc, vc, block_tables, rows3,
+                                 block_size=block_size, k_scales=ks,
+                                 v_scales=vs)
 
         x = _layers(cfg, params, params["embed"][ints5[0]], cos, sin,
                     ints5[2].long(), k_cache, v_cache, attend)
@@ -360,8 +710,9 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
 
 
 def make_forward_fn(cfg: ModelConfig, block_size: int,
-                    attention: Callable = flash_prefill_paged):
-    """The non-ragged forward of [B, S] prefill batches.
+                    attention: Callable = flash_prefill_paged,
+                    decode_attention: Optional[Callable] = None):
+    """The non-ragged forward of [B, S] batches.
 
     ``fn(params, tokens [B, S], positions [B, S], slot_map [B, S],
     block_tables [B, W], kv_lens [B], last_idx [B], k_cache, v_cache,
@@ -369,30 +720,56 @@ def make_forward_fn(cfg: ModelConfig, block_size: int,
     v_cache)``, or with ``return_hidden`` the final-normed hidden states
     ``[B, S, D]`` f32 in place of the logits. Each row's tokens are
     consecutive positions from ``positions[b, 0]``; K/V is written at
-    ``slot_map`` (padding → the null block) and attention runs through
-    ``attention`` (``flash_prefill_paged``, whose dense call is the kernel
-    wrapper) over the row's pages below ``kv_lens``.
+    ``slot_map`` (padding → the null block).
 
-    S == 1 is the JAX package's paged decode kernel branch, which is not
-    ported (ROADMAP B4).
+    S > 1 attends through ``attention`` (``flash_prefill_paged``, whose
+    dense call is the flash kernel wrapper) over the row's pages below
+    ``kv_lens``; MLA raises there (the flash kernel at the MLA geometry is
+    ROADMAP B3). S == 1 is a decode step over each row's pages below
+    ``kv_lens``, through ``decode_attention``: by default
+    ``paged_attention_decode`` (GQA) or ``mla_paged_decode`` (MLA), or
+    their plain versions.
     """
     check_supported(cfg)
     H, hd = cfg.num_heads, cfg.head_dim
     rope_ = _Rope(cfg)
+    if decode_attention is None:
+        decode_attention = (mla_paged_decode if cfg.is_mla
+                            else paged_attention_decode)
+    scale = mla_softmax_scale(cfg) if cfg.is_mla else None
 
     def fn(params, tokens, positions, slot_map, block_tables, kv_lens,
            last_idx, k_cache, v_cache, return_hidden: bool = False):
         B, S = tokens.shape
-        if S == 1:
+        if cfg.is_mla and S > 1:
             raise NotImplementedError(
-                "S == 1 takes the paged decode kernel, not ported yet "
-                "(ROADMAP B4); decode through make_ragged_step_fn")
+                "the MLA forward with S > 1 needs the flash prefill kernel "
+                "at the MLA geometry (KV 1, hd r + pr, hdv r), not ported "
+                "yet (ROADMAP B3); prefill MLA through make_ragged_step_fn")
         cos, sin = rope_.tables(positions.reshape(B * S))
+        lens = kv_lens.to(torch.int32)
 
-        def attend(li, q):
-            return attention(q.view(B, S, H, hd), k_cache, v_cache, li,
-                             block_tables, positions, kv_lens,
-                             block_size=block_size)
+        if cfg.is_mla:
+            def attend(li, q_eff, q_rot):
+                lat, rp = mla_layer_pages(k_cache, v_cache, li)
+                return decode_attention(q_eff, q_rot, lat, rp, block_tables,
+                                        lens, block_size=block_size,
+                                        scale=scale)
+        elif S == 1:
+            # the kernel's rows, made once for every layer
+            rows3 = decode_rows(lens)
+
+            def attend(li, q):
+                kc, ks = layer_pages(k_cache, li)
+                vc, vs = layer_pages(v_cache, li)
+                return decode_attention(q, kc, vc, block_tables, lens,
+                                        block_size=block_size, k_scales=ks,
+                                        v_scales=vs, rows3=rows3)
+        else:
+            def attend(li, q):
+                return attention(q.view(B, S, H, hd), k_cache, v_cache, li,
+                                 block_tables, positions, kv_lens,
+                                 block_size=block_size)
 
         x = _layers(cfg, params, params["embed"][tokens.reshape(B * S)], cos,
                     sin, slot_map.reshape(B * S).long(), k_cache, v_cache,
@@ -413,7 +790,12 @@ def make_embed_fn(cfg: ModelConfig, block_size: int,
     caches need B·S/block_size + 1 blocks (block 0 is the null block), laid
     out contiguously as row b's block w = 1 + b·W + w, and their contents
     are irrelevant between calls. Padding rows (length 0) see no key and
-    pool to zeros."""
+    pool to zeros. GQA only: MLA embeddings need the MLA forward with
+    S > 1 (ROADMAP B3)."""
+    if cfg.is_mla:
+        raise NotImplementedError(
+            "MLA embeddings need the flash prefill kernel at the MLA "
+            "geometry, not ported yet (ROADMAP B3)")
     forward = make_forward_fn(cfg, block_size, attention)
 
     def f(params, tokens, lengths, k_cache, v_cache):

@@ -1,0 +1,170 @@
+"""MLA decode in latent space over the paged latent cache.
+
+Port of ``dynamo_tpu/ops/paged_attention.py``'s Pallas kernel
+``_mla_decode_kernel`` (wrapper ``mla_paged_decode``), bf16/f32 pages; its
+int8 branch is not ported. Contract, per layer:
+
+  q_eff         [B, H, R] f32    queries absorbed through W_UK
+  q_rot         [B, H, PR] f32   post-RoPE query part, zero-padded to PR
+  latent_cache  [slots, R]       normalised latent c per slot (bf16/f32)
+  rope_cache    [slots, PR]      post-RoPE k_rot per slot, zero-padded
+  block_tables  [B, W] int32     per row (block 0 is the null block)
+  kv_lens       [B] int32        keys of each row
+  scale         float            softmax scale, folded into the queries
+  → out         [B, H, R] f32    softmax(scale·(q_eff·c + q_rot·k_rot))·c
+
+Every key below kv_len is visible; a row with kv_len 0 gets zeros. The
+caller expands the output through W_UV.
+
+:func:`mla_paged_decode` launches the hand-written Hopper kernel
+(``csrc/mla_decode.cu``) for CUDA tensors and uses the plain version
+:func:`mla_paged_decode_ref` only for tensors that lie on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dynamo_tpu_torch.ops import _build
+
+_NEG = -1e30
+#: heads one CTA holds (the MMA's M); H must be a multiple of it
+HEAD_TILE = 16
+#: largest latent rank and rope width the kernel takes (multiples of 64)
+MAX_RANK = 512
+MAX_ROPE = 256
+#: bf16 pages: the kernel rounds q·scale and P to bf16 for the tensor cores
+#: where the plain version keeps both in f32. Each row's output agrees with
+#: the plain version's within this share of the row's largest magnitude:
+#: the output is a softmax-weighted mean of latents, whose scale falls as
+#: the row grows, so one absolute limit cannot serve short and long rows
+BF16_ROW_RTOL = 1e-2
+
+
+def geometry_error(H: int, R: int, PR: int):
+    """Why the kernel cannot take H heads, latent rank R and rope width PR,
+    or None."""
+    if H % HEAD_TILE:
+        return f"H {H} is not a multiple of {HEAD_TILE}"
+    for name, v, top in (("R", R, MAX_RANK), ("PR", PR, MAX_ROPE)):
+        if v % 64 or not 64 <= v <= top:
+            return f"{name} {v} is not a multiple of 64 in [64, {top}]"
+    return None
+
+
+def mla_paged_decode_ref(q_eff, q_rot, latent_cache, rope_cache,
+                         block_tables, kv_lens, *, block_size: int,
+                         scale: float):
+    """Plain PyTorch version: a dense gather of every row's table width,
+    masked softmax in f32."""
+    B, H, R = q_eff.shape
+    W = block_tables.shape[1]
+    T = W * block_size
+    dev = q_eff.device
+    slot_idx = (block_tables.long()[:, :, None] * block_size
+                + torch.arange(block_size, device=dev)).reshape(B, T)
+    c = latent_cache[slot_idx].float()  # [B, T, R]
+    kr = rope_cache[slot_idx].float()   # [B, T, PR]
+    s = (torch.einsum("bhr,btr->bht", q_eff.float() * scale, c)
+         + torch.einsum("bhd,btd->bht", q_rot.float() * scale, kr))
+    mask = (torch.arange(T, device=dev)[None, :]
+            < kv_lens.long()[:, None])[:, None, :]  # [B, 1, T]
+    s = s.masked_fill(~mask, _NEG)
+    e = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    p = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
+    # slots past kv_len may hold anything: keep them out of P·V, as the
+    # kernel never loads them
+    c = c.masked_fill(~mask[:, 0, :, None], 0.0)
+    return torch.einsum("bht,btr->bhr", p, c).to(q_eff.dtype)
+
+
+def _kernel():
+    """(launch, scratch-size query) of the kernel library, typed: left
+    undeclared, ctypes would pass each pointer as a 32-bit int and cut it."""
+    lib = _build.load("mla_decode")
+    fn = lib.dtt_mla_paged_decode
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    size = lib.dtt_mla_decode_scratch_floats
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    return fn, size
+
+
+def _check(q_eff, q_rot, latent_cache, rope_cache, block_tables,
+           kv_lens) -> None:
+    dev = q_eff.device
+    named = [("q_eff", q_eff), ("q_rot", q_rot),
+             ("latent_cache", latent_cache), ("rope_cache", rope_cache),
+             ("block_tables", block_tables), ("kv_lens", kv_lens)]
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q_eff on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q_eff.dtype != torch.float32 or q_rot.dtype != torch.float32:
+        raise ValueError("q_eff and q_rot must be f32")
+    if (latent_cache.dtype not in (torch.bfloat16, torch.float32)
+            or rope_cache.dtype != latent_cache.dtype):
+        raise ValueError("latent and rope caches must both be bf16 or f32")
+    if (q_eff.dim() != 3 or q_rot.dim() != 3 or latent_cache.dim() != 2
+            or rope_cache.dim() != 2):
+        raise ValueError("q_eff/q_rot must be [B, H, R]/[B, H, PR] and the "
+                         "caches [slots, R]/[slots, PR]")
+    B, H, R = q_eff.shape
+    PR = q_rot.shape[2]
+    if (q_rot.shape[:2] != (B, H) or latent_cache.shape[1] != R
+            or rope_cache.shape[1] != PR
+            or rope_cache.shape[0] != latent_cache.shape[0]):
+        raise ValueError("q and cache shapes disagree")
+    why = geometry_error(H, R, PR)
+    if why:
+        raise ValueError(f"MLA decode kernel geometry: {why}")
+    if block_tables.dtype != torch.int32 or kv_lens.dtype != torch.int32:
+        raise ValueError("block_tables and kv_lens must be int32")
+    if (block_tables.dim() != 2 or block_tables.shape[0] != B
+            or tuple(kv_lens.shape) != (B,)):
+        raise ValueError("block_tables must be [B, W] and kv_lens [B]")
+
+
+def mla_paged_decode(q_eff, q_rot, latent_cache, rope_cache, block_tables,
+                     kv_lens, *, block_size: int, scale: float):
+    """MLA latent decode (see the module docstring for the contract). CUDA
+    tensors launch the Hopper kernel on the current stream; CPU tensors take
+    :func:`mla_paged_decode_ref`."""
+    if q_eff.device.type == "cpu":
+        return mla_paged_decode_ref(q_eff, q_rot, latent_cache, rope_cache,
+                                    block_tables, kv_lens,
+                                    block_size=block_size, scale=scale)
+    if q_eff.device.type != "cuda":
+        raise ValueError(f"no MLA decode kernel for {q_eff.device}")
+    _check(q_eff, q_rot, latent_cache, rope_cache, block_tables, kv_lens)
+    B, H, R = q_eff.shape
+    PR = q_rot.shape[2]
+    W = block_tables.shape[1]
+    out = torch.empty((B, H, R), dtype=torch.float32, device=q_eff.device)
+    if B == 0:
+        return out
+    launch, scratch_floats = _kernel()
+    # split-K partials of rows whose keys span several chunks
+    n = scratch_floats(B, H, R, W, block_size)
+    scratch = (torch.empty(n, dtype=torch.float32, device=q_eff.device)
+               if n else None)
+    err = launch(
+        q_eff.data_ptr(), q_rot.data_ptr(), latent_cache.data_ptr(),
+        rope_cache.data_ptr(), block_tables.data_ptr(), kv_lens.data_ptr(),
+        out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+        B, H, R, PR, W, block_size, float(scale),
+        int(latent_cache.dtype == torch.bfloat16),
+        torch.cuda.current_stream(q_eff.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"MLA decode kernel launch failed (code {err})")
+    mla_paged_decode.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+mla_paged_decode.launches = 0

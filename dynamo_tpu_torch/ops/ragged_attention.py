@@ -56,7 +56,7 @@ def ragged_attention_ref(q, k_cache, v_cache, block_tables, rows3, *,
     out = torch.zeros_like(q)
     dev = q.device
     for r, (q_start, q_len, kv_len) in enumerate(rows3.tolist()):
-        if q_len == 0:
+        if q_len == 0 or kv_len == 0:  # no key: zeros, as the kernel writes
             continue
         keys = torch.arange(kv_len, device=dev)
         pos = torch.arange(kv_len - q_len, kv_len, device=dev)
@@ -165,6 +165,19 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, rows3, *,
             q, k_cache, v_cache, block_tables, rows3, block_size=block_size,
             window=window, sinks=sinks, k_scales=k_scales, v_scales=v_scales,
             scale_slot_base=scale_slot_base)
+    return launch_ragged(q, k_cache, v_cache, block_tables, rows3,
+                         block_size=block_size, window=window, sinks=sinks,
+                         k_scales=k_scales, v_scales=v_scales,
+                         scale_slot_base=scale_slot_base,
+                         counter=ragged_paged_attention)
+
+
+def launch_ragged(q, k_cache, v_cache, block_tables, rows3, *,
+                  block_size: int, window: int, sinks, k_scales, v_scales,
+                  scale_slot_base: int, counter):
+    """Check the CUDA operands and launch the ragged kernel, adding one to
+    ``counter.launches`` (the calling wrapper's count: this module's, or
+    ``paged_attention_decode``'s) when it launches."""
     if q.device.type != "cuda":
         raise ValueError(f"no ragged attention kernel for {q.device}")
     _check(q, k_cache, v_cache, block_tables, rows3, sinks, window,
@@ -196,7 +209,7 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, rows3, *,
     if err != 0:
         raise RuntimeError(f"ragged attention kernel launch failed (code "
                            f"{err})")
-    ragged_paged_attention.launches += 1
+    counter.launches += 1
     return out
 
 

@@ -112,13 +112,6 @@ def test_dense_forward_int8_cache_matches_jax(weights):
                                    np.asarray(want["s"])[:, bs:], rtol=1e-2)
 
 
-def test_dense_forward_refuses_decode_shape():
-    fn = TM.make_forward_fn(ModelConfig.tiny(), 4)
-    one = torch.zeros((2, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="B4"):
-        fn({}, one, one, one, one, one[:, 0], one[:, 0], None, None)
-
-
 SETTINGS = dict(block_size=4, num_blocks=64, max_num_seqs=8,
                 max_num_batched_tokens=64, max_model_len=256)
 

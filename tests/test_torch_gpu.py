@@ -12,6 +12,12 @@ import torch
 
 from dynamo_tpu_torch.engine.cache import quantize_kv
 from dynamo_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_ref
+from dynamo_tpu_torch.ops.mla_decode import (
+    BF16_ROW_RTOL, mla_paged_decode, mla_paged_decode_ref,
+)
+from dynamo_tpu_torch.ops.paged_attention import (
+    paged_attention_decode, paged_attention_decode_ref,
+)
 from dynamo_tpu_torch.ops.ragged_attention import (
     ragged_attention_ref, ragged_paged_attention,
 )
@@ -130,3 +136,85 @@ def test_flash_prefill_matches_plain_on_card(dtype, tol, hd):
             want = flash_prefill_ref(q, k, v, pb, kl, **kw)
             torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                        rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_paged_decode_matches_plain_on_card(dtype, tol, quant):
+    """The paged decode contract on the ragged kernel: one query per row at
+    the Llama-3-8B head geometry, a kv_len 0 row, a one-page row and a row
+    long enough to split its keys; window and sinks; int8 pages behind a
+    junk layer that the tables and ``scale_slot_base`` step over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kv_lens = [0, 16, 1057, 2900, 333]
+    rows = [(1, max(k, 1)) for k in kv_lens]
+    case, _ = make_case(7, rows, H=32, KV=8, hd=128, bs=16, W=192,
+                        num_blocks=600, pad_rows=0, pad_tokens=0)
+    q = torch.from_numpy(case["q"]).cuda().to(dtype)
+    kc = torch.from_numpy(case["kc"]).cuda()
+    vc = torch.from_numpy(case["vc"]).cuda()
+    bt = torch.from_numpy(case["bt"]).cuda()
+    kl = torch.tensor(kv_lens, dtype=torch.int32).cuda()
+    sinks = torch.from_numpy(case["sinks"]).cuda()
+    kw = {}
+    if quant:
+        kq, ks = quantize_kv(kc)
+        vq, vs = quantize_kv(vc)
+        slots = kq.shape[0]
+        kc = torch.cat([torch.full_like(kq, 7), kq])
+        vc = torch.cat([torch.full_like(vq, 7), vq])
+        bt = bt + slots // 16
+        kw = dict(k_scales=ks, v_scales=vs, scale_slot_base=slots)
+    else:
+        kc, vc = kc.to(dtype), vc.to(dtype)
+    for window, sk in ((None, None), (100, sinks)):
+        got = paged_attention_decode(q, kc, vc, bt, kl, block_size=16,
+                                     window=window, sinks=sk, **kw)
+        want = paged_attention_decode_ref(q, kc, vc, bt, kl, block_size=16,
+                                          window=window, sinks=sk, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        assert not got[0].float().any()  # kv_len 0: zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", [(16, 512, 128), (32, 128, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_decode_matches_plain_on_card(dtype, geometry):
+    """The MLA latent-decode kernel against its plain version: the
+    DeepSeek-V2-Lite geometry (H = 16, R = 512, PR = 128) and one with two head
+    tiles; a kv_len 0 row, a one-page row and long rows split over many
+    CTAs. f32 within 1e-4; bf16 pages round q·scale and P to bf16 for the
+    tensor cores, so each row within ``BF16_ROW_RTOL`` of its own largest
+    magnitude, the limit chip_smoke.py holds the kernel to."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    H, R, PR = geometry
+    rng = np.random.default_rng(H + R)
+    bs, nb, W = 16, 700, 256
+    kv_lens = [0, 16, 3000, 65, 1500, 9]
+    bt = np.zeros((len(kv_lens), W), np.int32)
+    for b, n in enumerate(kv_lens):
+        used = -(-n // bs)
+        bt[b, :used] = rng.choice(np.arange(1, nb), used, replace=False)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+
+    q_eff, q_rot = t(len(kv_lens), H, R), t(len(kv_lens), H, PR)
+    lat, rope = t(nb * bs, R).to(dtype), t(nb * bs, PR).to(dtype)
+    args = (q_eff, q_rot, lat, rope, torch.from_numpy(bt).cuda(),
+            torch.tensor(kv_lens, dtype=torch.int32).cuda())
+    got = mla_paged_decode(*args, block_size=bs, scale=0.0722)
+    want = mla_paged_decode_ref(*args, block_size=bs, scale=0.0722)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        err = (got - want).abs().flatten(1).amax(1)
+        scale = want.abs().flatten(1).amax(1)
+        assert bool((err <= BF16_ROW_RTOL * scale).all()), (err, scale)
+    assert not got[0].any()  # kv_len 0: zeros

@@ -158,11 +158,13 @@ def test_ragged_step_matches_jax():
 
 
 @pytest.mark.parametrize("switch", [
-    {"num_experts": 4}, {"qkv_bias": True}, {"qk_norm": True},
-    {"sliding_window": 8}, {"attention_sinks": True},
+    {"num_experts": 4, "moe_activation": "swiglu_oss"}, {"qkv_bias": True},
+    {"qk_norm": True}, {"sliding_window": 8}, {"attention_sinks": True},
     {"attn_logit_softcap": 50.0}, {"sandwich_norms": True},
-    {"kv_lora_rank": 16}])
+    {"kv_lora_rank": 16, "attention_sinks": True}])
 def test_unported_switches_refused(switch):
+    """MoE and MLA are served; a model with a switch the port lacks (the
+    gpt-oss expert activation, or sinks on MLA) is refused."""
     import dataclasses
 
     cfg = dataclasses.replace(ModelConfig.tiny(), **switch)
