@@ -27,7 +27,14 @@ prints any result:
    - MLA latent decode: f32 and bf16 with a kv_len 0 row, a one-page row
      and a long split-K row, and the DeepSeek-V2-Lite geometry (8 decode
      rows at kv 65-3000, H = 16, R = 512, PR = 128); bf16 is held row by
-     row, and three planted wrong outputs must fail that check.
+     row, and three planted wrong outputs must fail that check;
+   - the same kernel on int8 pages: the DeepSeek-V2-Lite decode case, and
+     the same behind a layer-rebased scale table;
+   - MLA flash prefill: f32 and bf16 dense chunks deep into their context
+     (pos_base > 0, S < T) with a kv_len 0 row and a row whose last query
+     tile straddles kv_len, int8 pages on a rebased scale table, and the
+     DeepSeek-V2-Lite geometry: a dense 2 x 1024-token prefill and a chunk
+     grid of 68 tiles x 32 tokens at kv up to 3000 (bf16 and int8 pages).
 3. Serving: ``AsyncTorchEngine`` with the llama3_8b preset at full width
    and depth on random weights from a seeded generator, eight concurrent
    greedy requests after one warm-up request. The kernels' launch counts
@@ -52,10 +59,16 @@ prints any result:
    models never share the card): ``AsyncTorchEngine`` with the
    deepseek_v2_lite preset at full width and depth (MLA + MoE, random
    seeded weights), the eight requests of phase 3 (79-881 prompt tokens
-   from the same seed); the MLA decode kernel must launch 27 times a step and no other
-   attention kernel at all. Then one full-width MLA ragged step through
-   the kernel against the same step through its plain version, and the
-   step profile.
+   from the same seed); the MLA decode kernel must launch 27 times a step,
+   the MLA prefill kernel 27 times in each step with chunk tokens, and no
+   other attention kernel at all. Then one full-width MLA ragged step
+   through the kernels against the same step through their plain
+   versions, the step profile, and one embedding call (2 inputs of up to
+   1024 tokens) through the MLA prefill kernel against the plain attention.
+9. DeepSeek-V2-Lite from an int8 latent pool, on the same weights: the
+   eight requests again (both MLA kernels on int8 pages, the same launch
+   rule), the pool's blocks beside the bf16 pool's, one full-width int8
+   step against its plain version, and the step profile.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
@@ -85,13 +98,15 @@ from dynamo_tpu_torch.engine.cache import (
 from dynamo_tpu_torch.engine.config import EngineArgs
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
 from dynamo_tpu_torch.engine.model import (
-    make_embed_fn, make_forward_fn, make_ragged_step_fn,
+    make_embed_fn, make_forward_fn, make_ragged_step_fn, mla_attention_seg,
 )
 from dynamo_tpu_torch.engine.scheduler import PrefillWork, SeqState, StepPlan
 from dynamo_tpu_torch.models import get_model_config
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.flash_prefill import (
-    flash_prefill, flash_prefill_paged, flash_prefill_ref,
+    flash_mla_prefill, flash_mla_prefill_paged, flash_mla_prefill_paged_ref,
+    flash_mla_prefill_ref, flash_prefill, flash_prefill_paged,
+    flash_prefill_ref,
 )
 from dynamo_tpu_torch.ops.mla_decode import (
     BF16_ROW_RTOL, mla_paged_decode, mla_paged_decode_ref,
@@ -129,7 +144,9 @@ PAD_COS = 0.9999
 
 #: every kernel of the main paths: the ragged kernel once for each page
 #: dtype (its launches are those of the bf16 and the int8 serving run) and
-#: once under the paged decode contract (the S == 1 dense step)
+#: once under the paged decode contract (the S == 1 dense step); the MLA
+#: decode kernel once for each page dtype (the DeepSeek-V2-Lite bf16 and
+#: int8 serving runs); the MLA prefill kernel (its bf16 serving run)
 KERNELS = [{
     "name": "ragged_paged_attention",
     "route": "cuda",
@@ -165,6 +182,20 @@ KERNELS = [{
     "replaces": "dynamo_tpu/ops/paged_attention.py:389",
     "build": "mla_decode",
     "wrapper": mla_paged_decode,
+}, {
+    "name": "mla_paged_decode_int8",
+    "route": "cuda",
+    "source": "dynamo_tpu_torch/ops/csrc/mla_decode.cu",
+    "replaces": "dynamo_tpu/ops/paged_attention.py:389",
+    "build": "mla_decode",
+    "wrapper": mla_paged_decode,
+}, {
+    "name": "flash_mla_prefill",
+    "route": "cuda",
+    "source": "dynamo_tpu_torch/ops/csrc/mla_prefill.cu",
+    "replaces": "dynamo_tpu/ops/flash_prefill.py:46",
+    "build": "mla_prefill",
+    "wrapper": flash_mla_prefill_paged,
 }]
 
 
@@ -520,54 +551,242 @@ def make_mla(kv_lens, *, H, R, PR, rope_dim, bs, dtype, seed):
                 kvs=list(kv_lens), bs=bs, dtype=dtype, scale=MLA_SCALE)
 
 
+def mla_int8(case, rebase: bool = False):
+    """The MLA case's pages quantized per slot, one scale per stream; with
+    ``rebase``, behind a junk layer that the block tables and
+    ``scale_slot_base`` step over, as a layer-stacked caller passes them."""
+    cq, cs = quantize_kv(case["lat"].float()[:, None])
+    rq, rs = quantize_kv(case["rope"].float()[:, None])
+    out = dict(case, lat=cq[:, 0], rope=rq[:, 0], cs=cs[:, 0], rs=rs[:, 0],
+               base=0, dtype=torch.int8)
+    if rebase:
+        slots = cq.shape[0]
+        out.update(lat=torch.cat([torch.full_like(out["lat"], 7),
+                                  out["lat"]]),
+                   rope=torch.cat([torch.full_like(out["rope"], 7),
+                                   out["rope"]]),
+                   bt=case["bt"] + slots // case["bs"], base=slots)
+    return out
+
+
+def mla_scales(case) -> dict:
+    return (dict(c_scales=case["cs"], r_scales=case["rs"],
+                 scale_slot_base=case["base"]) if "cs" in case else {})
+
+
+def mla_compute_dtype(case):
+    """The type the MLA kernels compute in: f32 pages on CUDA cores, bf16
+    and int8 pages on the bf16 tensor cores."""
+    return torch.float32 if case["dtype"] == torch.float32 else torch.bfloat16
+
+
 def mla_bound(case) -> tuple[float, str]:
     """q_eff and q_rot read and the output written (f32), every key's
-    latent and rope part read once, the tables; 2·(R + PR) operations per
-    (head, key) for the score and 2·R for P·V."""
+    latent and rope part read once (int8: with its two scales), the tables;
+    2·(R + PR) operations per (head, key) for the score and 2·R for P·V."""
     B, H, R = case["q_eff"].shape
     PR = case["q_rot"].shape[2]
     esz = case["lat"].element_size()
+    key_bytes = (R + PR) * esz + (8 if "cs" in case else 0)
     keys = sum(case["kvs"])
-    nbytes = (B * H * (2 * R + PR) * 4 + keys * (R + PR) * esz
+    nbytes = (B * H * (2 * R + PR) * 4 + keys * key_bytes
               + case["bt"].numel() * 4 + B * 4)
-    return bound_of(nbytes, keys * H * 2 * (2 * R + PR), case["dtype"])
+    return bound_of(nbytes, keys * H * 2 * (2 * R + PR),
+                    mla_compute_dtype(case))
 
 
 def sdpa_mla(case):
     """PyTorch's scaled_dot_product_attention per row over the row's
-    gathered keys (gather done up front): q = [q_eff | q_rot], K =
-    [c | k_rot] as one KV head, V = c. The library yardstick."""
+    gathered keys (gather done up front; int8 pages dequantize inside the
+    timed call): q = [q_eff | q_rot], K = [c | k_rot] as one KV head, V = c.
+    The library yardstick."""
     bs = case["bs"]
-    dt = case["dtype"]
+    dt = mla_compute_dtype(case)
     calls = []
     for r, kv in enumerate(case["kvs"]):
         keys = torch.arange(kv, device="cuda")
         slots = case["bt"][r, keys // bs].long() * bs + keys % bs
-        c = case["lat"][slots]
-        k = torch.cat([c, case["rope"][slots]], -1)[None, None]
+        sc = None
+        if "cs" in case:
+            sidx = slots - case["base"]
+            sc = (case["cs"][sidx][:, None], case["rs"][sidx][:, None])
         q = torch.cat([case["q_eff"][r], case["q_rot"][r]], -1)
-        calls.append((q.to(dt)[None, :, None], k, c[None, None]))
+        calls.append((q.to(dt)[None, :, None], case["lat"][slots],
+                      case["rope"][slots], sc))
 
     def run():
-        for q, k, v in calls:
-            F.scaled_dot_product_attention(q, k, v, scale=case["scale"],
-                                           enable_gqa=True)
+        for q, c, kr, sc in calls:
+            if sc is not None:
+                c = (c.float() * sc[0]).to(dt)
+                kr = (kr.float() * sc[1]).to(dt)
+            F.scaled_dot_product_attention(
+                q, torch.cat([c, kr], -1)[None, None], c[None, None],
+                scale=case["scale"], enable_gqa=True)
     return run
 
 
 def check_mla(label, case, iters=20):
-    """The MLA kernel vs its plain version: f32 pages within TOL, bf16
-    pages (q·scale and P rounded to bf16 for the tensor cores) row by row
-    within BF16_ROW_RTOL of each row's scale."""
+    """The MLA kernel vs its plain version: f32 pages within TOL, bf16 and
+    int8 pages (q·scale and P rounded to bf16 for the tensor cores) row by
+    row within BF16_ROW_RTOL of each row's scale."""
     args = (case["q_eff"], case["q_rot"], case["lat"], case["rope"],
             case["bt"], case["kv_lens"])
-    kw = dict(block_size=case["bs"], scale=case["scale"])
+    kw = dict(block_size=case["bs"], scale=case["scale"], **mla_scales(case))
     library = sdpa_mla(case) if all(case["kvs"]) else None
-    bf16 = case["dtype"] == torch.bfloat16
+    f32 = case["dtype"] == torch.float32
     return measure(label, lambda: mla_paged_decode(*args, **kw),
                    lambda: mla_paged_decode_ref(*args, **kw), library,
                    mla_bound(case), TOL[torch.float32], iters=iters,
-                   row_rtol=BF16_ROW_RTOL if bf16 else None)
+                   row_rtol=None if f32 else BF16_ROW_RTOL)
+
+
+# MLA flash prefill --------------------------------------------------------------
+
+
+def make_mla_prefill(rows, *, S, H, R, PR, rope_dim, bs, dtype, seed,
+                     dense_T=None):
+    """MLA prefill operands on the card. ``rows``: (seq, pos_base, kv_len)
+    per batch row of S query tokens, rows of one seq sharing its blocks (the
+    tiles of a chunk grid); seq None is a spare tile (no keys). With
+    ``dense_T`` the keys are dense [B, T, .] arrays instead of pages."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    B = len(rows)
+    q_rot = randn(B, S, H, PR)
+    q_rot[..., rope_dim:] = 0
+    case = dict(q_eff=randn(B, S, H, R), q_rot=q_rot,
+                pos_base=torch.tensor([p for _, p, _ in rows],
+                                      dtype=torch.int32, device="cuda"),
+                kv_lens=torch.tensor([k for _, _, k in rows],
+                                     dtype=torch.int32, device="cuda"),
+                rows=rows, bs=bs, dtype=dtype, scale=MLA_SCALE)
+    if dense_T is not None:
+        c, kr = randn(B, dense_T, R), randn(B, dense_T, PR)
+        kr[..., rope_dim:] = 0
+        case.update(c=c.to(dtype), kr=kr.to(dtype))
+        return case
+    seq_kv = {}
+    for seq, _, kv in rows:
+        if seq is not None:
+            seq_kv[seq] = max(seq_kv.get(seq, 0), kv)
+    need = {q: -(-kv // bs) for q, kv in seq_kv.items()}
+    num_blocks = sum(need.values()) + 8
+    W = max(need.values())
+    perm = rng.permutation(np.arange(1, num_blocks))
+    tables, used = {}, 0
+    for q, n in need.items():
+        tables[q] = perm[used:used + n]
+        used += n
+    bt = np.zeros((B, W), np.int32)
+    for i, (seq, _, _) in enumerate(rows):
+        if seq is not None:
+            bt[i, :need[seq]] = tables[seq]
+    rope = randn(num_blocks * bs, PR)
+    rope[:, rope_dim:] = 0
+    case.update(lat=randn(num_blocks * bs, R).to(dtype), rope=rope.to(dtype),
+                bt=torch.from_numpy(bt).cuda(), seq_kv=seq_kv)
+    return case
+
+
+def mla_prefill_bound(case) -> tuple[float, str]:
+    """For the real tokens (a dense row's S; a chunk-grid tile's tokens
+    below its kv_len, the rest being the grid's padding): q_eff and q_rot
+    read and the output written (f32), per visible (token, key) pair
+    2·(R + PR)·H operations for the scores and 2·R·H for P·V; the keys each
+    sequence's tokens can see read once (int8: with their scales), the
+    tables."""
+    B, S, H, R = case["q_eff"].shape
+    PR = case["q_rot"].shape[3]
+    dense = "c" in case
+    esz = (case["c"] if dense else case["lat"]).element_size()
+    key_bytes = (R + PR) * esz + (8 if "cs" in case else 0)
+    tokens = pairs = 0
+    seen = {}
+    for i, (seq, pos, kv) in enumerate(case["rows"]):
+        n = S if dense else max(0, min(S, kv - pos))
+        tokens += n
+        pairs += sum(max(0, min(kv, pos + s + 1)) for s in range(n))
+        key = i if dense else seq
+        seen[key] = max(seen.get(key, 0), max(0, min(kv, pos + n)))
+    nbytes = (tokens * H * (2 * R + PR) * 4 + sum(seen.values()) * key_bytes
+              + 8 * B + (0 if dense else case["bt"].numel() * 4))
+    return bound_of(nbytes, pairs * H * 2 * (2 * R + PR),
+                    mla_compute_dtype(case))
+
+
+def sdpa_mla_prefill(case):
+    """PyTorch's scaled_dot_product_attention over every row's keys at
+    once (paged keys gathered up front; int8 pages dequantize inside the
+    timed call), one KV head, a causal mask below kv_len: q = [q_eff |
+    q_rot], K = [c | k_rot], V = c. The library yardstick."""
+    dt = mla_compute_dtype(case)
+    B, S = case["q_eff"].shape[:2]
+    q = torch.cat([case["q_eff"], case["q_rot"]], -1).to(dt).transpose(1, 2)
+    sc = None
+    if "c" in case:
+        c, kr = case["c"], case["kr"]
+    else:
+        W = case["bt"].shape[1]
+        bs = case["bs"]
+        slots = (case["bt"].long()[:, :, None] * bs
+                 + torch.arange(bs, device="cuda")).reshape(B, W * bs)
+        c, kr = case["lat"][slots], case["rope"][slots]
+        if "cs" in case:
+            sidx = slots - case["base"]
+            sc = (case["cs"][sidx][..., None], case["rs"][sidx][..., None])
+    T = c.shape[1]
+    keys = torch.arange(T, device="cuda")
+    pos = case["pos_base"][:, None].long() + torch.arange(S, device="cuda")
+    mask = ((keys[None, None, :] <= pos[:, :, None])
+            & (keys[None, None, :]
+               < case["kv_lens"][:, None, None].long()))[:, None]
+
+    def run():
+        cc, kk = c, kr
+        if sc is not None:
+            cc = (c.float() * sc[0]).to(dt)
+            kk = (kr.float() * sc[1]).to(dt)
+        F.scaled_dot_product_attention(
+            q, torch.cat([cc, kk], -1)[:, None], cc[:, None], attn_mask=mask,
+            scale=case["scale"], enable_gqa=True)
+    return run
+
+
+def check_mla_prefill(label, case, iters=20):
+    """The MLA prefill kernel (dense or paged entry) vs its plain version:
+    f32 within TOL, bf16 and int8 pages each token's row within
+    BF16_ROW_RTOL of its scale."""
+    qs = (case["q_eff"], case["q_rot"])
+    lens = (case["pos_base"], case["kv_lens"])
+    if "c" in case:
+        args = qs + (case["c"], case["kr"]) + lens
+        kw = dict(scale=case["scale"])
+        kernel, plain = flash_mla_prefill, flash_mla_prefill_ref
+    else:
+        args = qs + (case["lat"], case["rope"], case["bt"]) + lens
+        kw = dict(block_size=case["bs"], scale=case["scale"],
+                  **mla_scales(case))
+        kernel, plain = flash_mla_prefill_paged, flash_mla_prefill_paged_ref
+    f32 = case["dtype"] == torch.float32
+    return measure(label, lambda: kernel(*args, **kw),
+                   lambda: plain(*args, **kw), sdpa_mla_prefill(case),
+                   mla_prefill_bound(case), TOL[torch.float32],
+                   pick=lambda o: o.flatten(0, 1), iters=iters,
+                   row_rtol=None if f32 else BF16_ROW_RTOL)
+
+
+def mla_grid_rows(chunks, spare: int, tile: int = 32):
+    """Chunk-grid tiles as the engine packs them: each (start, n) chunk of
+    its own sequence cut into tiles of ``tile`` tokens, every tile of a
+    chunk at kv_len start + n; then ``spare`` tiles with no tokens."""
+    rows = []
+    for seq, (start, n) in enumerate(chunks):
+        rows += [(seq, start + off, start + n) for off in range(0, n, tile)]
+    return rows + [(None, 0, 0)] * spare
 
 
 def mla_controls(case) -> None:
@@ -705,6 +924,50 @@ def kernel_phase(seed: int) -> dict:
     main["mla_paged_decode"] = check_mla(
         f"deepseek_v2_lite 8 decode rows bf16 kv {kvs}", v2_case)
     mla_controls(v2_case)
+
+    log("kernel phase: mla_paged_decode on int8 pages")
+    main["mla_paged_decode_int8"] = check_mla(
+        f"deepseek_v2_lite 8 decode rows int8 pages kv {kvs}",
+        mla_int8(v2_case))
+    check_mla("deepseek_v2_lite 8 decode rows int8 pages, rebased scales",
+              mla_int8(v2_case, rebase=True), iters=5)
+    check_mla("kv 0, 16, 3000, 9 int8 pages, rebased scales", mla_int8(
+        make_mla([0, 16, 3000, 9], dtype=torch.float32, seed=seed + 8, **v2),
+        rebase=True), iters=5)
+
+    log("kernel phase: flash_mla_prefill vs flash_mla_prefill_ref")
+    geo = dict(H=16, R=512, PR=128, rope_dim=64)
+    for dtype in (torch.float32, torch.bfloat16):
+        # a chunk deep into its context (S < T, pos_base > 0), a kv_len 0
+        # row, a row whose last query tile straddles kv_len
+        case = make_mla_prefill([(0, 600, 640), (1, 0, 0), (2, 5, 30)],
+                                S=40, bs=16, dtype=dtype, seed=seed + 20,
+                                dense_T=700, **geo)
+        check_mla_prefill(f"small dense {str(dtype)[6:]}", case, iters=5)
+    rows = mla_grid_rows([(600, 40), (0, 30), (1000, 3)], spare=2)
+    small = make_mla_prefill(rows, S=32, bs=16, dtype=torch.bfloat16,
+                             seed=seed + 21, **geo)
+    check_mla_prefill("small chunk grid int8 pages, rebased scales",
+                      mla_int8(small, rebase=True), iters=5)
+    check_mla_prefill("small chunk grid f32 pages", make_mla_prefill(
+        rows, S=32, bs=16, dtype=torch.float32, seed=seed + 22, **geo),
+        iters=5)
+    # DeepSeek-V2-Lite: a dense 2 x 1024-token prefill (embeddings, the
+    # S > 1 forward) and a chunk grid of 68 tiles of 32 tokens at kv up to
+    # 3000 (the ragged step's chunk tokens)
+    dense = make_mla_prefill([(0, 0, 1024), (1, 0, 1024)], S=1024, bs=16,
+                             dtype=torch.bfloat16, seed=seed + 23,
+                             dense_T=1024, **geo)
+    check_mla_prefill("deepseek_v2_lite dense 2 x 1024 bf16", dense,
+                      iters=10)
+    chunks = [(1976, 1024), (0, 512), (1500, 480), (900, 100)]
+    grid = make_mla_prefill(mla_grid_rows(chunks, spare=1), S=32, bs=16,
+                            dtype=torch.bfloat16, seed=seed + 24, **geo)
+    main["flash_mla_prefill"] = check_mla_prefill(
+        f"deepseek_v2_lite chunk grid {len(grid['rows'])} tiles x 32 bf16, "
+        f"chunks (start, tokens) {chunks}", grid)
+    check_mla_prefill("deepseek_v2_lite chunk grid int8 pages",
+                      mla_int8(grid), iters=10)
     return main
 
 
@@ -714,7 +977,8 @@ def kernel_phase(seed: int) -> dict:
 async def serve(engine, model, prompts, max_tokens):
     """One short warm-up request (cuBLAS handles, allocator growth), then
     the kernels' counts set to 0 and the prompts served concurrently;
-    returns the streams, the wall time and the steps of the measured run."""
+    returns the streams, the wall time, the steps of the measured run and
+    those of them with chunk tokens."""
     async def one(p, n):
         req = PreprocessedRequest(
             model=model, token_ids=p,
@@ -729,30 +993,33 @@ async def serve(engine, model, prompts, max_tokens):
 
     try:
         await one(list(range(1, 17)), 2)  # shares no prefix with prompts
-        steps0 = engine.steps
+        steps0, chunk_steps0 = engine.steps, engine.chunk_steps
         reset_counts()
         t0 = time.perf_counter()
         res = await asyncio.gather(*(one(p, max_tokens) for p in prompts))
-        return res, time.perf_counter() - t0, engine.steps - steps0
+        return (res, time.perf_counter() - t0, engine.steps - steps0,
+                engine.chunk_steps - chunk_steps0)
     finally:
         await engine.close()
 
 
 def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
-                  model: str = "llama3_8b"):
-    """Eight concurrent greedy requests at full width; returns the engine,
-    its attention kernel's launches in the run and the streams. The kernel
-    (the ragged kernel, or the MLA decode kernel for an MLA model) must
-    launch once a layer every step, and no other kernel at all."""
+                  model: str = "llama3_8b", params=None):
+    """Eight concurrent greedy requests at full width (on ``params``, or
+    weights drawn from ``seed``); returns the engine, its attention
+    kernels' launches in the run by wrapper name, and the streams. The
+    ragged kernel (GQA), or the MLA decode kernel, must launch once a layer
+    every step; an MLA model's prefill kernel once a layer in every step
+    with chunk tokens; no other kernel at all."""
     cfg = get_model_config(model)
     args = EngineArgs(block_size=16, max_num_seqs=8,
                       max_num_batched_tokens=2048, max_model_len=4096,
                       seed=seed, kv_cache_dtype=kv_cache_dtype)
     label = f"{model}, {kv_cache_dtype or cfg.dtype} KV"
-    wrapper = mla_paged_decode if cfg.is_mla else ragged_paged_attention
     t0 = time.perf_counter()
     events = []
-    engine = AsyncTorchEngine(cfg, args, event_cb=events.append)
+    engine = AsyncTorchEngine(cfg, args, params=params,
+                              event_cb=events.append)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(engine.params))
     block_bytes = kv_block_bytes(cfg, args.block_size, engine.dtype,
@@ -776,21 +1043,28 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     prompts = [list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
                for n in rng.integers(64, 1025, 8)]
     max_tokens = 32
-    res, wall, steps = asyncio.run(serve(engine, model, prompts,
-                                         max_tokens))
-    launches = wrapper.launches
+    res, wall, steps, chunk_steps = asyncio.run(serve(engine, model, prompts,
+                                                      max_tokens))
+    # launches each attention wrapper must show: one a layer per step (per
+    # step with chunk tokens for the MLA prefill kernel), none elsewhere
+    L = cfg.num_layers
+    want = ({mla_paged_decode: L * steps,
+             flash_mla_prefill_paged: L * chunk_steps} if cfg.is_mla
+            else {ragged_paged_attention: L * steps})
+    launches = {w.__name__: w.launches for w in want}
     other = {k["name"]: k["wrapper"].launches for k in KERNELS
-             if k["wrapper"] is not wrapper}
+             if k["wrapper"] not in want}
 
     for i, (_t0, _st, toks, reason) in enumerate(res):
         if reason != "length" or len(toks) != max_tokens:
             raise AssertionError(f"stream {i}: finish {reason!r} after "
                                  f"{len(toks)} tokens, want length/"
                                  f"{max_tokens}")
-    want = cfg.num_layers * steps
-    if launches == 0 or launches != want:
-        raise AssertionError(f"{wrapper.__name__} launched {launches} times "
-                             f"in {steps} steps, want {want}")
+    for w, n in want.items():
+        if n == 0 or w.launches != n:
+            raise AssertionError(f"{w.__name__} launched {w.launches} times "
+                                 f"in {steps} steps ({chunk_steps} with "
+                                 f"chunk tokens), want {n}")
     if any(other.values()):
         raise AssertionError(f"serving launched other kernels: {other}")
     stored = sum(len(e.stored_blocks) for e in events)
@@ -801,8 +1075,8 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     n_tok = sum(len(r[2]) for r in res)
     log(f"  [{smi}] {label}: 8 streams x {max_tokens} tokens, prompts "
         f"{sorted(len(p) for p in prompts)} (after a warm-up request): "
-        f"{steps} ragged steps, "
-        f"{launches} {wrapper.__name__} launches, {stored} KV blocks stored")
+        f"{steps} ragged steps ({chunk_steps} with chunk tokens), "
+        f"launches {launches}, {stored} KV blocks stored")
     log(f"  [{smi}] {label}: TTFT mean {statistics.mean(ttft) * 1e3:.2f} ms "
         f"max {max(ttft) * 1e3:.2f} ms; ITL mean "
         f"{statistics.mean(itl) * 1e3:.2f} ms p50 "
@@ -844,9 +1118,10 @@ def full_width_step(engine, model: str, seed: int) -> float:
         return logits
 
     kernel_fn = engine.step_fn
-    plain_fn = make_ragged_step_fn(
-        cfg, bs, attention=(mla_paged_decode_ref if cfg.is_mla
-                            else ragged_attention_ref))
+    plain_fn = (make_ragged_step_fn(cfg, bs, attention=mla_paged_decode_ref,
+                                    chunk_attention=mla_attention_seg)
+                if cfg.is_mla else
+                make_ragged_step_fn(cfg, bs, attention=ragged_attention_ref))
     # context for the step under test
     run(StepPlan(prefill=[PrefillWork(a, 0, 700, False),
                           PrefillWork(b, 0, 200, False)]), kernel_fn)
@@ -1110,6 +1385,7 @@ def int8_phase(seed: int, smi: str, bf16_blocks: int, bf16_streams):
     """Serving with an int8 KV pool and one full-width int8 step; returns
     the ragged kernel's launches in the serving run."""
     engine, launches, streams = serving_phase(seed, smi, "int8")
+    launches = launches["ragged_paged_attention"]
     same = sum(a == b for a, b in zip(streams, bf16_streams))
     log(f"  int8 KV pool {engine.num_blocks} blocks vs bf16 pool "
         f"{bf16_blocks} blocks ({engine.num_blocks / bf16_blocks:.3f}x); "
@@ -1123,13 +1399,89 @@ def int8_phase(seed: int, smi: str, bf16_blocks: int, bf16_streams):
 # ------------------------------------------------------------------ phase 8
 
 
-def mla_phase(seed: int, smi: str) -> int:
+def mla_embedding(engine, seed: int, smi: str) -> int:
+    """One ``AsyncTorchEngine.embed`` call of a DeepSeek-V2-Lite engine (2
+    inputs of up to 1024 tokens: the all-experts MoE makes a larger bucket
+    heavy) through the MLA prefill kernel, against the same embeddings
+    through the plain attention. Returns the kernel's launches in it."""
+    cfg, bs = engine.cfg, engine.args.block_size
+    rng = np.random.default_rng(seed + 19)
+    lens = [1024, int(rng.integers(300, 1024))]
+    inputs = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+              for n in lens]
+    asyncio.run(engine.embed(inputs))  # first call: scratch cache, warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    vecs = asyncio.run(engine.embed(inputs))
+    wall = time.perf_counter() - t0
+    launches = flash_mla_prefill_paged.launches
+    other = {k["name"]: k["wrapper"].launches for k in KERNELS
+             if k["wrapper"] is not flash_mla_prefill_paged}
+    if launches != cfg.num_layers:
+        raise AssertionError(f"the MLA prefill kernel launched {launches} "
+                             f"times in one embed call, want "
+                             f"{cfg.num_layers}")
+    if any(other.values()):
+        raise AssertionError(f"embed launched other kernels: {other}")
+    v = np.asarray(vecs)
+    norms = np.linalg.norm(v, axis=1)
+    if (v.shape != (2, cfg.hidden_size) or not np.isfinite(v).all()
+            or np.abs(norms - 1).max() > 1e-3):
+        raise AssertionError(f"embed: shape {v.shape}, norms {norms}")
+    B, S = 2, 1024
+    tokens = np.zeros((B, S), np.int32)
+    for i, ids in enumerate(inputs):
+        tokens[i, :len(ids)] = ids
+    plain_fn = make_embed_fn(cfg, bs, attention=flash_mla_prefill_paged_ref)
+    kc, vc = allocate_device_cache(cfg, B * S // bs + 1, bs, engine.device,
+                                   engine.dtype)
+    dev = engine.device
+    want = plain_fn(engine.params, torch.from_numpy(tokens).to(dev),
+                    torch.tensor(lens, dtype=torch.int32, device=dev), kc,
+                    vc).cpu().numpy()
+    del kc, vc
+    cos = [_cos(a, b) for a, b in zip(vecs, want)]
+    log(f"  [{smi}] embeddings, deepseek_v2_lite: 2 inputs of {lens} tokens "
+        f"(bucket 2 x 1024): {launches} MLA prefill launches; wall "
+        f"{wall * 1e3:.2f} ms a call, {sum(lens) / wall:.0f} input tokens/s; "
+        f"|norm - 1| max {np.abs(norms - 1).max():.2e}; kernel vs "
+        f"plain-attention embed: cosine min {min(cos):.6f} (>= {EMBED_COS})")
+    if min(cos) < EMBED_COS:
+        raise AssertionError(f"MLA embed: kernel vs plain cosines {cos}")
+    return launches
+
+
+def mla_phase(seed: int, smi: str) -> dict:
     """DeepSeek-V2-Lite at full width: serving, one full-width MLA step
-    against its plain version, the step profile. Returns the MLA decode
-    kernel's launches in the serving run."""
-    engine, launches, _ = serving_phase(seed, smi, model="deepseek_v2_lite")
-    full_width_step(engine, "deepseek_v2_lite", seed)
-    step_profile(engine, "deepseek_v2_lite", seed)
+    against its plain version, the step profile and an embedding call; then
+    the same weights from an int8 latent pool: serving, its pool against
+    the bf16 one's, the full-width int8 step and its profile. Returns the
+    MLA kernels' launches in the two serving runs by KERNELS name."""
+    model = "deepseek_v2_lite"
+    engine, served, streams = serving_phase(seed, smi, model=model)
+    launches = {"mla_paged_decode": served["mla_paged_decode"],
+                "flash_mla_prefill": served["flash_mla_prefill_paged"]}
+    full_width_step(engine, model, seed)
+    step_profile(engine, model, seed)
+    mla_embedding(engine, seed, smi)
+    params, bf16_blocks = engine.params, engine.num_blocks
+    _release(engine)
+    del engine
+    # the int8 latent pool takes the freed pool's memory; same weights
+    engine, served, streams8 = serving_phase(seed, smi, "int8", model=model,
+                                             params=params)
+    del params
+    launches["mla_paged_decode_int8"] = served["mla_paged_decode"]
+    same = sum(a == b for a, b in zip(streams8, streams))
+    log(f"  int8 latent pool {engine.num_blocks} blocks vs bf16 pool "
+        f"{bf16_blocks} blocks ({engine.num_blocks / bf16_blocks:.3f}x); "
+        f"{same} of 8 greedy streams equal to the bf16 run's")
+    if engine.num_blocks <= bf16_blocks:
+        raise AssertionError("the int8 latent pool is not larger than the "
+                             "bf16 one")
+    full_width_step(engine, model, seed)
+    step_profile(engine, model, seed)
     _release(engine)
     return launches
 
@@ -1150,8 +1502,8 @@ def main() -> int:
     main_case = kernel_phase(a.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    engine, ragged_launches, streams = serving_phase(a.seed, smi)
-    launches = {"ragged_paged_attention": ragged_launches}
+    engine, served, streams = serving_phase(a.seed, smi)
+    launches = {"ragged_paged_attention": served["ragged_paged_attention"]}
     full_width_step(engine, "llama3_8b", a.seed)
     step_profile(engine, "llama3_8b", a.seed)
     launches["paged_attention_decode"] = dense_decode_step(engine, a.seed,
@@ -1163,7 +1515,7 @@ def main() -> int:
     launches["ragged_paged_attention_int8"] = int8_phase(
         a.seed, smi, bf16_blocks, streams)
     # the Llama engines are gone: DeepSeek-V2-Lite has the card to itself
-    launches["mla_paged_decode"] = mla_phase(a.seed, smi)
+    launches.update(mla_phase(a.seed, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for k in KERNELS:

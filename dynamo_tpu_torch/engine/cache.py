@@ -241,15 +241,21 @@ def gather_pages(cache, lidx: int, slot_idx):
 
 
 def write_kv(k_cache, v_cache, lidx: int, slots, k, v) -> None:
-    """Write ``k`` and ``v`` [N, KV, hd] in place at the flat ``slots`` [N]
-    of layer ``lidx``. Int8 caches store ``quantize_kv`` of both, computed
-    in one pass over the pair (each (token, head) row is quantized on its
-    own, so the bytes are those of two calls, in half the launches)."""
+    """Write ``k`` and ``v`` [N, heads, dim] in place at the flat ``slots``
+    [N] of layer ``lidx``. Int8 caches store ``quantize_kv`` of both: GQA
+    k and v in one pass over the pair (each (token, head) row is quantized
+    on its own, so the bytes are those of two calls, in half the launches);
+    MLA's latent and rope part, whose widths differ, in one pass each, as
+    the JAX package's ``_mla_attention`` writes them."""
     if is_quant_cache(k_cache):
-        q, s = quantize_kv(torch.stack((k, v)))
-        for i, cache in enumerate((k_cache, v_cache)):
-            cache["q"][lidx].index_copy_(0, slots, q[i])
-            cache["s"][lidx].index_copy_(0, slots, s[i])
+        if k.shape == v.shape:
+            q, s = quantize_kv(torch.stack((k, v)))
+            pairs = ((q[0], s[0]), (q[1], s[1]))
+        else:
+            pairs = (quantize_kv(k), quantize_kv(v))
+        for cache, (q, s) in zip((k_cache, v_cache), pairs):
+            cache["q"][lidx].index_copy_(0, slots, q)
+            cache["s"][lidx].index_copy_(0, slots, s)
     else:
         k_cache[lidx].index_copy_(0, slots, k)
         v_cache[lidx].index_copy_(0, slots, v)

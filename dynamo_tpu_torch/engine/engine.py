@@ -15,14 +15,16 @@ that need anything but greedy sampling are refused at ``generate()``.
 
 Models: Llama-family GQA, and DeepSeek MLA with its MoE (the latent KV
 pool is sized from ``ModelConfig.kv_cache_spec``; MLA decode rows go
-through the MLA latent-decode kernel, and a plan with decode rows only
-takes the step variant without the chunk-grid walk).
+through the MLA latent-decode kernel, chunk tokens through the MLA
+flash-prefill kernel, and a plan with decode rows only passes no chunk
+grid).
 
 ``embed`` is the port of ``AsyncJaxEngine.embed``: mean-pooled sequence
-embeddings through the dense forward and the flash prefill kernel, over a
-scratch cache of its own (GQA models; MLA raises, ROADMAP B3).
-``EngineArgs.kv_cache_dtype="int8"`` serves a GQA model from an int8 KV
-pool through the ragged kernel's int8 pages; MLA refuses it (ROADMAP B5b).
+embeddings through the dense forward and a flash prefill kernel (GQA or
+MLA), over a scratch cache of its own.
+``EngineArgs.kv_cache_dtype="int8"`` serves from an int8 KV pool: GQA
+through the ragged kernel's int8 pages, MLA through the int8 latent and
+rope pages of both MLA kernels.
 
 The engine runs on the card: ``device=None`` means "cuda" and raises when
 CUDA is missing. Only an explicit ``device="cpu"`` runs on the CPU, where
@@ -113,10 +115,6 @@ class AsyncTorchEngine:
                  device=None, event_cb: Optional[Callable] = None,
                  metrics_cb: Optional[Callable] = None):
         check_supported(cfg)
-        if cfg.is_mla and args.kv_cache_dtype == "int8":
-            raise ValueError(
-                "kv_cache_dtype='int8' with MLA needs the int8 branch of the "
-                "MLA decode kernel, not ported yet (ROADMAP B5b)")
         self.cfg, self.args = cfg, args
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -148,12 +146,13 @@ class AsyncTorchEngine:
         self.pool.on_freed = self._wake.set
         self._task: Optional[asyncio.Task] = None
         self._closed = False
-        #: packed ragged steps executed (one forward each)
+        #: packed ragged steps executed (one forward each), and those of
+        #: them whose plan held prefill chunks (an MLA model's chunk grid)
         self.steps = 0
+        self.chunk_steps = 0
         # embeddings: one forward fn and ONE scratch cache, replaced when
         # the (B, S) bucket changes, apart from the serving pool
-        self._embed_fn = (None if cfg.is_mla
-                          else make_embed_fn(cfg, args.block_size))
+        self._embed_fn = make_embed_fn(cfg, args.block_size)
         self._embed_cache: Optional[tuple] = None
         self._embed_lock = threading.Lock()
 
@@ -183,12 +182,8 @@ class AsyncTorchEngine:
     async def embed(self, token_id_lists: list[list[int]]
                     ) -> list[list[float]]:
         """Mean-pooled L2-normalised embeddings for a batch of token lists,
-        through the dense forward (flash prefill kernel) over a scratch
+        through the dense forward (a flash prefill kernel) over a scratch
         cache. B and S bucket to powers of two, S at least one block."""
-        if self._embed_fn is None:
-            raise NotImplementedError(
-                "MLA embeddings need the flash prefill kernel at the MLA "
-                "geometry, not ported yet (ROADMAP B3)")
         if not token_id_lists:
             return []
         # bound inputs by the serving context the same way generate does
@@ -292,6 +287,7 @@ class AsyncTorchEngine:
                         finish_reason=FinishReason.ERROR,
                         text="engine step failed"))
             self.steps += 1
+            self.chunk_steps += bool(plan.prefill)
             if self.metrics_cb:
                 self.metrics_cb(self._metrics())
             await asyncio.sleep(0)  # let ingress / cancellation run

@@ -9,13 +9,16 @@ The port of ``dynamo_tpu/engine/model.py``'s single-device paths:
   (ops/ragged_attention.py). MLA attention decomposes as the JAX package's
   ``_mla_ragged_olat`` does: decode rows through the MLA latent-decode
   kernel (ops/mla_decode.py, one launch per layer for all rows), chunk
-  tokens through a segment walk over the chunk grid (``_mla_attention_seg``
-  in PyTorch, the reference's own XLA path).
+  tokens over the chunk grid through the MLA flash-prefill kernel's paged
+  entry (ops/flash_prefill.py, one launch per layer) on the card, and
+  through a segment walk (``mla_attention_seg``, the reference's own XLA
+  path ``_mla_attention_seg`` in PyTorch) on the CPU.
 - ``make_forward_fn`` (``forward(ragged=None)``) for [B, S] batches: S > 1
-  through the flash prefill kernel (ops/flash_prefill.py, GQA only), S == 1
-  through the paged decode kernel (ops/paged_attention.py, GQA) or the MLA
-  latent-decode kernel; ``make_embed_fn`` on top of it: mean-pooled
-  sequence embeddings (GQA only).
+  through the flash prefill kernel (ops/flash_prefill.py; GQA, or the MLA
+  flash-prefill kernel over the layer's pages), S == 1 through the paged
+  decode kernel (ops/paged_attention.py, GQA) or the MLA latent-decode
+  kernel; ``make_embed_fn`` on top of it: mean-pooled sequence embeddings
+  of either family.
 
 MoE layers route tokens with ``router_weights`` (softmax or sigmoid
 scoring, group-limited choice, ``norm_topk_prob``, routed scaling) and
@@ -31,13 +34,17 @@ Differences from the JAX package, each deliberate:
   per token bucket.
 - The KV write is an in-place ``index_copy_`` into the caller's cache at
   ``slot_map`` (padding tokens write into the null block, as in JAX); an
-  int8 cache stores ``quantize_kv`` of k and v. It replaces buffer
-  donation: the returned caches are the tensors passed in.
+  int8 cache stores ``quantize_kv`` of k and v (MLA: of the latent and of
+  the rope part). It replaces buffer donation: the returned caches are the
+  tensors passed in.
 - The GQA step does not read the chunk-grid operands; the MLA step reads
-  them and never reads ``rows3`` on the host. Its segment walk covers the
-  whole table width (the JAX loop stops at the batch's longest row, a
-  bound PyTorch would have to read on the host); the extra segments are
-  fully masked and change nothing.
+  them and never reads ``rows3`` on the host. The MLA prefill kernel stops
+  each query tile at its last visible key on the device. The CPU's
+  segment walk covers the whole table width (the JAX loop stops at the
+  batch's longest row, a bound PyTorch would have to read on the host);
+  the extra segments are fully masked and change nothing.
+- The MLA S > 1 forward reads the layer's pages through the block tables
+  in the kernel; the JAX package gathers them first. Same numbers.
 - Every architecture switch the port lacks raises ``NotImplementedError``
   when a step is built.
 
@@ -55,8 +62,12 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine.cache import layer_pages, write_kv
 from dynamo_tpu_torch.engine.config import ModelConfig
-from dynamo_tpu_torch.ops.flash_prefill import flash_prefill_paged
-from dynamo_tpu_torch.ops.mla_decode import geometry_error, mla_paged_decode
+from dynamo_tpu_torch.ops.flash_prefill import (
+    flash_mla_prefill_paged, flash_prefill_paged,
+)
+from dynamo_tpu_torch.ops.mla_decode import (
+    gather_latent, geometry_error, mla_paged_decode,
+)
 from dynamo_tpu_torch.ops.paged_attention import (
     decode_rows, paged_attention_decode,
 )
@@ -106,14 +117,16 @@ def check_kernel_geometry(cfg: ModelConfig) -> None:
     """Raise unless the port's CUDA attention kernels take this model's
     heads. GQA: head_dim in HEAD_DIMS and a group of at most MAX_GROUP.
     MLA: H a multiple of 16, latent rank and rope cache width multiples
-    of 64 (ops/mla_decode.py). An engine on the card checks this when it is
-    built, so no step routes around a kernel at run time."""
+    of 64, for the latent-decode and the flash-prefill kernel alike
+    (ops/mla_decode.py), with bf16, f32 or int8 pages. An engine on the
+    card checks this when it is built, so no step routes around a kernel at
+    run time."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if cfg.is_mla:
         why = geometry_error(H, cfg.kv_lora_rank, cfg.rope_cache_dim)
         if why:
-            raise ValueError(f"the CUDA MLA decode kernel cannot take this "
-                             f"model: {why}")
+            raise ValueError(f"the CUDA MLA decode and prefill kernels "
+                             f"cannot take this model: {why}")
         return
     if hd not in HEAD_DIMS or H % KV or H // KV > MAX_GROUP:
         raise ValueError(
@@ -532,9 +545,12 @@ def _lm_head(cfg: ModelConfig, params):
 
 
 def mla_layer_pages(k_cache, v_cache, li: int):
-    """(latent [slots, r], rope [slots, pr]) of cache layer ``li``: views
-    of the MLA caches [L, slots, 1, r] / [L, slots, 1, pr]."""
-    return k_cache[li].flatten(1), v_cache[li].flatten(1)
+    """(latent [slots, r], rope [slots, pr], c_scales, r_scales) of cache
+    layer ``li``: views of the MLA caches [L, slots, 1, r] / [L, slots, 1,
+    pr]; an int8 cache's pages with each stream's scales [slots, 1] (scale
+    slot base 0), a plain cache's with None."""
+    (lat, cs), (rp, rs) = layer_pages(k_cache, li), layer_pages(v_cache, li)
+    return lat.flatten(1), rp.flatten(1), cs, rs
 
 
 # ---------------------------------------------------------------------------
@@ -544,13 +560,14 @@ def mla_layer_pages(k_cache, v_cache, li: int):
 
 def mla_attention_seg(q_eff, q_rot, latent, rope_pages, block_tables,
                       positions, kv_lens, *, block_size: int, scale: float,
-                      seg_keys: int = 128):
+                      c_scales=None, r_scales=None, seg_keys: int = 128):
     """Latent-space attention of q_eff [B, S, H, r] / q_rot [B, S, H, pr]
     (f32) over each row's pages, the key axis walked in segments of
     ``seg_keys`` with an online softmax (the JAX package's
     ``_mla_attention_seg``): scores q_eff·c + q_rot·k_rot, value c, keys at
-    or before each query's position and below kv_len. Returns o_lat
-    [B, S, H, r] f32.
+    or before each query's position and below kv_len; int8 pages dequantize
+    in f32 with ``c_scales``/``r_scales`` (scale slot base 0). Returns
+    o_lat [B, S, H, r] f32.
 
     The walk covers the whole table width W (a fully masked segment leaves
     the running max, sum and output as they are), so no bound is read on
@@ -580,8 +597,8 @@ def mla_attention_seg(q_eff, q_rot, latent, rope_pages, block_tables,
     for s in range(nseg):
         slot_idx = (bt[:, s * spp:(s + 1) * spp, None] * bs
                     + offs).reshape(B, SEG)
-        cg = latent[slot_idx].float()       # [B, SEG, r]
-        krg = rope_pages[slot_idx].float()  # [B, SEG, pr]
+        cg, krg = gather_latent(latent, rope_pages, slot_idx, c_scales,
+                                r_scales)  # [B, SEG, r], [B, SEG, pr]
         sc = (torch.bmm(qe, cg.transpose(1, 2))
               + torch.bmm(qr, krg.transpose(1, 2))).view(B, H, S, SEG)
         key_pos = s * SEG + torch.arange(SEG, device=dev)
@@ -598,9 +615,32 @@ def mla_attention_seg(q_eff, q_rot, latent, rope_pages, block_tables,
     return out.permute(0, 2, 1, 3)  # [B, S, H, r]
 
 
+def mla_chunk_attention(q_eff, q_rot, latent, rope_pages, block_tables,
+                        positions, kv_lens, *, block_size: int, scale: float,
+                        c_scales=None, r_scales=None):
+    """The chunk grid's MLA attention: q_eff [C, S, H, r] / q_rot [C, S, H,
+    pr] f32 of tiles whose tokens sit at consecutive ``positions`` [C, S]
+    from column 0 on. CUDA tensors go through the MLA flash-prefill kernel
+    (``flash_mla_prefill_paged``, pos_base = each tile's column 0), CPU
+    tensors through :func:`mla_attention_seg`, the JAX package's own walk.
+    Returns o_lat [C, S, H, r] f32; a tile's columns past its tokens are
+    unspecified."""
+    kw = dict(block_size=block_size, scale=scale, c_scales=c_scales,
+              r_scales=r_scales)
+    if q_eff.device.type == "cuda":
+        return flash_mla_prefill_paged(
+            q_eff, q_rot, latent, rope_pages, block_tables,
+            positions[:, 0].to(torch.int32).contiguous(),
+            kv_lens.to(torch.int32).contiguous(), **kw)
+    return mla_attention_seg(q_eff, q_rot, latent, rope_pages, block_tables,
+                             positions, kv_lens, **kw)
+
+
 def mla_ragged_olat(q_eff, q_rot, latent, rope_pages, block_tables,
                     positions, rows3, grid_row, grid_col, grid_rows, *,
-                    block_size: int, scale: float, decode: Callable):
+                    block_size: int, scale: float, decode: Callable,
+                    chunk: Callable = mla_chunk_attention, c_scales=None,
+                    r_scales=None):
     """Ragged MLA attention (the JAX package's ``_mla_ragged_olat``): q_eff
     [T, H, r] / q_rot [T, H, pr] f32 → o_lat [T, H, r] f32.
 
@@ -610,18 +650,22 @@ def mla_ragged_olat(q_eff, q_rot, latent, rope_pages, block_tables,
       their (zero) output lands in a dump slot.
     - Chunk tokens scatter into the [C, RAGGED_TILE] chunk grid
       (``grid_row``/``grid_col`` per token, ``grid_rows`` per tile) and go
-      through :func:`mla_attention_seg`; ``grid_rows`` None skips them (a
-      plan with decode rows only)."""
+      through ``chunk`` (:func:`mla_chunk_attention`, or
+      :func:`mla_attention_seg` to run the walk on any device) in one call;
+      tiles that hold no token see kv_len 0. ``grid_rows`` None skips them
+      (a plan with decode rows only).
+    int8 pages pass each stream's scales (scale slot base 0)."""
     T, H, r = q_eff.shape
     q_start, q_len, kv_lens = rows3[:, 0], rows3[:, 1], rows3[:, 2]
     is_dec = q_len == 1
     dec_idx = torch.where(is_dec, q_start, T).long()
     qe_pad = F.pad(q_eff, (0, 0, 0, 0, 0, 1))
     qr_pad = F.pad(q_rot, (0, 0, 0, 0, 0, 1))
+    scales = dict(c_scales=c_scales, r_scales=r_scales)
     dec = decode(qe_pad[dec_idx], qr_pad[dec_idx], latent, rope_pages,
                  block_tables, torch.where(is_dec, kv_lens,
                                            torch.zeros_like(kv_lens)),
-                 block_size=block_size, scale=scale)  # [R, H, r]
+                 block_size=block_size, scale=scale, **scales)  # [R, H, r]
     out = torch.zeros((T + 1, H, r), dtype=torch.float32,
                       device=q_eff.device)
     out[dec_idx] = dec.float()
@@ -637,10 +681,14 @@ def mla_ragged_olat(q_eff, q_rot, latent, rope_pages, block_tables,
         g[gr, gc] = x
         return g[:C]
 
-    g_out = mla_attention_seg(
+    # tiles that hold no token (the grid's spare rows) see no key
+    used = torch.zeros((C + 1,), dtype=torch.bool,
+                       device=q_eff.device).index_fill_(0, gr, True)[:C]
+    g_out = chunk(
         to_grid(q_eff), to_grid(q_rot), latent, rope_pages,
         block_tables[grid_rows.long()], to_grid(positions),
-        kv_lens[grid_rows.long()], block_size=block_size, scale=scale)
+        torch.where(used, kv_lens[grid_rows.long()], 0),
+        block_size=block_size, scale=scale, **scales)
     vals = F.pad(g_out, (0, 0, 0, 0, 0, 0, 0, 1))[gr, gc]  # [T, H, r]
     return torch.where((gr < C)[:, None, None], vals, out)
 
@@ -651,7 +699,8 @@ def mla_ragged_olat(q_eff, q_rot, latent, rope_pages, block_tables,
 
 
 def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
-                        attention: Optional[Callable] = None):
+                        attention: Optional[Callable] = None,
+                        chunk_attention: Callable = mla_chunk_attention):
     """The packed ragged engine step.
 
     ``fn(params, ints5 [5, T], rows3 [R, 3], grid_rows [C],
@@ -668,8 +717,11 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
     wrapper of the model's family (``ragged_paged_attention``, or
     ``mla_paged_decode`` for MLA decode rows), or its plain version
     (``ragged_attention_ref``, ``mla_paged_decode_ref``) to run the same
-    step without the kernel. An int8 cache passes each layer's pages with
-    that layer's scales (scale slot base 0).
+    step without the kernel. MLA chunk tokens go through
+    ``chunk_attention``: :func:`mla_chunk_attention` (the MLA flash-prefill
+    kernel on the card), or :func:`mla_attention_seg` to run them without
+    it. An int8 cache passes each layer's pages with that layer's scales
+    (scale slot base 0).
     """
     check_supported(cfg)
     rope_ = _Rope(cfg)
@@ -683,11 +735,12 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
 
         if cfg.is_mla:
             def attend(li, q_eff, q_rot):
-                lat, rp = mla_layer_pages(k_cache, v_cache, li)
+                lat, rp, cs, rs = mla_layer_pages(k_cache, v_cache, li)
                 return mla_ragged_olat(
                     q_eff, q_rot, lat, rp, block_tables, ints5[1], rows3,
                     ints5[3], ints5[4], grid_rows,
-                    block_size=block_size, scale=scale, decode=attention)
+                    block_size=block_size, scale=scale, decode=attention,
+                    chunk=chunk_attention, c_scales=cs, r_scales=rs)
         else:
             def attend(li, q):
                 kc, ks = layer_pages(k_cache, li)
@@ -710,7 +763,7 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
 
 
 def make_forward_fn(cfg: ModelConfig, block_size: int,
-                    attention: Callable = flash_prefill_paged,
+                    attention: Optional[Callable] = None,
                     decode_attention: Optional[Callable] = None):
     """The non-ragged forward of [B, S] batches.
 
@@ -722,17 +775,21 @@ def make_forward_fn(cfg: ModelConfig, block_size: int,
     consecutive positions from ``positions[b, 0]``; K/V is written at
     ``slot_map`` (padding → the null block).
 
-    S > 1 attends through ``attention`` (``flash_prefill_paged``, whose
-    dense call is the flash kernel wrapper) over the row's pages below
-    ``kv_lens``; MLA raises there (the flash kernel at the MLA geometry is
-    ROADMAP B3). S == 1 is a decode step over each row's pages below
+    S > 1 attends through ``attention`` over the row's pages below
+    ``kv_lens``: by default ``flash_prefill_paged`` (GQA; its dense call is
+    the flash kernel wrapper) or ``flash_mla_prefill_paged`` (MLA: the MLA
+    flash-prefill kernel reads the layer's pages itself), or their plain
+    versions. S == 1 is a decode step over each row's pages below
     ``kv_lens``, through ``decode_attention``: by default
     ``paged_attention_decode`` (GQA) or ``mla_paged_decode`` (MLA), or
-    their plain versions.
+    their plain versions. Int8 caches pass each layer's scales.
     """
     check_supported(cfg)
     H, hd = cfg.num_heads, cfg.head_dim
     rope_ = _Rope(cfg)
+    if attention is None:
+        attention = (flash_mla_prefill_paged if cfg.is_mla
+                     else flash_prefill_paged)
     if decode_attention is None:
         decode_attention = (mla_paged_decode if cfg.is_mla
                             else paged_attention_decode)
@@ -741,20 +798,23 @@ def make_forward_fn(cfg: ModelConfig, block_size: int,
     def fn(params, tokens, positions, slot_map, block_tables, kv_lens,
            last_idx, k_cache, v_cache, return_hidden: bool = False):
         B, S = tokens.shape
-        if cfg.is_mla and S > 1:
-            raise NotImplementedError(
-                "the MLA forward with S > 1 needs the flash prefill kernel "
-                "at the MLA geometry (KV 1, hd r + pr, hdv r), not ported "
-                "yet (ROADMAP B3); prefill MLA through make_ragged_step_fn")
         cos, sin = rope_.tables(positions.reshape(B * S))
         lens = kv_lens.to(torch.int32)
 
         if cfg.is_mla:
+            pos_base = positions[:, 0].to(torch.int32).contiguous()
+
             def attend(li, q_eff, q_rot):
-                lat, rp = mla_layer_pages(k_cache, v_cache, li)
-                return decode_attention(q_eff, q_rot, lat, rp, block_tables,
-                                        lens, block_size=block_size,
-                                        scale=scale)
+                lat, rp, cs, rs = mla_layer_pages(k_cache, v_cache, li)
+                kw = dict(block_size=block_size, scale=scale, c_scales=cs,
+                          r_scales=rs)
+                if S == 1:
+                    return decode_attention(q_eff, q_rot, lat, rp,
+                                            block_tables, lens, **kw)
+                o = attention(q_eff.view(B, S, H, -1),
+                              q_rot.view(B, S, H, -1), lat, rp,
+                              block_tables, pos_base, lens, **kw)
+                return o.view(B * S, H, -1)
         elif S == 1:
             # the kernel's rows, made once for every layer
             rows3 = decode_rows(lens)
@@ -783,19 +843,15 @@ def make_forward_fn(cfg: ModelConfig, block_size: int,
 
 
 def make_embed_fn(cfg: ModelConfig, block_size: int,
-                  attention: Callable = flash_prefill_paged):
+                  attention: Optional[Callable] = None):
     """Mean-pooled, L2-normalised sequence embeddings over the dense
     forward: ``f(params, tokens [B, S], lengths [B], k_cache, v_cache) →
     [B, D] f32``. S must be a multiple of ``block_size``; the scratch
     caches need B·S/block_size + 1 blocks (block 0 is the null block), laid
     out contiguously as row b's block w = 1 + b·W + w, and their contents
     are irrelevant between calls. Padding rows (length 0) see no key and
-    pool to zeros. GQA only: MLA embeddings need the MLA forward with
-    S > 1 (ROADMAP B3)."""
-    if cfg.is_mla:
-        raise NotImplementedError(
-            "MLA embeddings need the flash prefill kernel at the MLA "
-            "geometry, not ported yet (ROADMAP B3)")
+    pool to zeros. ``attention`` is the S > 1 attention of
+    :func:`make_forward_fn` (None: the family's kernel wrapper)."""
     forward = make_forward_fn(cfg, block_size, attention)
 
     def f(params, tokens, lengths, k_cache, v_cache):

@@ -20,8 +20,11 @@ enter the softmax denominator with no value, and ``scale`` defaults to
 {64, 128}, H / KV <= 64) and uses the plain version
 :func:`flash_prefill_ref` only for tensors that lie on the CPU.
 :func:`flash_prefill_paged` gathers a layer's pages (dequantizing an int8
-cache) and calls it; :func:`flash_mla_prefill` is the MLA form, whose
-geometry the kernel does not take yet (ROADMAP A10).
+cache) and calls it. The MLA geometry has its own kernel
+(``csrc/mla_prefill.cu``) behind :func:`flash_mla_prefill` (dense keys) and
+:func:`flash_mla_prefill_paged` (a layer's latent pages through block
+tables), with the plain versions :func:`flash_mla_prefill_ref` and
+:func:`flash_mla_prefill_paged_ref`.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ import torch
 
 from dynamo_tpu_torch.engine.cache import gather_pages
 from dynamo_tpu_torch.ops import _build
+from dynamo_tpu_torch.ops.mla_decode import (
+    PAGE_KINDS, check_pages, gather_latent,
+)
 from dynamo_tpu_torch.ops.ragged_attention import HEAD_DIMS, MAX_GROUP
 
 _NEG = -1e30
@@ -108,8 +114,8 @@ def _check(q, k, v, pos_base, kv_lens, sinks, window) -> None:
         raise ValueError("q, k and v shapes disagree")
     if v.shape[3] != hd or hd not in HEAD_DIMS:
         raise ValueError(f"the kernel takes hd == hdv in {HEAD_DIMS}, got "
-                         f"hd {hd}, hdv {v.shape[3]} (the MLA geometry "
-                         f"waits for ROADMAP A10)")
+                         f"hd {hd}, hdv {v.shape[3]} (the MLA geometry is "
+                         f"flash_mla_prefill's kernel)")
     KV = k.shape[2]
     if H % KV or H // KV > MAX_GROUP:
         raise ValueError(f"H={H}, KV={KV}: need H % KV == 0 and "
@@ -187,14 +193,151 @@ def flash_prefill_paged(q, k_cache, v_cache, lidx: int, block_tables,
                      sliding_window=sliding_window, sinks=sinks)
 
 
+# ------------------------------------------------------------ MLA geometry
+#
+# The same TPU kernel at the MLA geometry (JAX ``flash_mla_prefill``: KV 1,
+# G = H, hd = r + pr, hdv = r) is a kernel of its own here,
+# ``csrc/mla_prefill.cu``: all H heads share one latent stream, so its CTA
+# puts 4 tokens x 16 heads on the MMA rows and reads each key tile (latent
+# and rope part) once for both products. Contract:
+#
+#   q_eff     [B, S, H, r]   absorbed queries (f32 on the card)
+#   q_rot     [B, S, H, pr]  post-RoPE query part, zero-padded to pr
+#   keys      dense: c [B, T, r], k_rot [B, T, pr]; paged: the layer's
+#             latent [slots, r] and rope [slots, pr] pages (bf16, f32, or
+#             int8 with the c/r scales of mla_paged_decode) read through
+#             block_tables [B, W]
+#   pos_base  [B] int32      position of row b's token 0
+#   kv_lens   [B] int32
+#   → out     [B, S, H, r] f32
+#
+# Token s sees key t when t <= pos_base[b] + s and t < kv_lens[b]; scores
+# (q_eff·c + q_rot·k_rot)·scale, value c; a token that sees no key gets
+# zeros (ROADMAP C1). The output is f32 because every caller continues in
+# f32 (the JAX package casts the kernel's output to f32 at once).
+
+
+def flash_mla_prefill_ref(q_eff, q_rot, c, k_rot, pos_base, kv_lens, *,
+                          scale: float):
+    """Plain PyTorch version of the dense entry: masked softmax in f32, one
+    batch row at a time (scores [H, S, T])."""
+    B, S, H, r = q_eff.shape
+    T = c.shape[1]
+    dev = q_eff.device
+    keys = torch.arange(T, device=dev)
+    out = torch.empty((B, S, H, r), dtype=torch.float32, device=dev)
+    for b in range(B):
+        qpos = pos_base[b].long() + torch.arange(S, device=dev)
+        live = keys < kv_lens[b].long()
+        mask = (keys[None, :] <= qpos[:, None]) & live[None, :]  # [S, T]
+        cb = c[b].float()
+        s = (torch.einsum("shr,tr->hst", q_eff[b].float(), cb)
+             + torch.einsum("shd,td->hst", q_rot[b].float(),
+                            k_rot[b].float())) * scale
+        s = s.masked_fill(~mask, _NEG)
+        e = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+        p = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
+        # keys past kv_len may hold anything (the null block): keep them
+        # out of P·V
+        out[b] = torch.einsum("hst,tr->shr", p,
+                              cb.masked_fill(~live[:, None], 0.0))
+    return out
+
+
+def flash_mla_prefill_paged_ref(q_eff, q_rot, latent, rope, block_tables,
+                                pos_base, kv_lens, *, block_size: int,
+                                scale: float, c_scales=None, r_scales=None,
+                                scale_slot_base: int = 0):
+    """Plain PyTorch version of the paged entry: every row's table width
+    gathered (int8 pages dequantized in f32), then
+    :func:`flash_mla_prefill_ref`."""
+    B, W = block_tables.shape
+    slot_idx = (block_tables.long()[:, :, None] * block_size
+                + torch.arange(block_size, device=q_eff.device)).reshape(
+                    B, W * block_size)
+    c, kr = gather_latent(latent, rope, slot_idx, c_scales, r_scales,
+                          scale_slot_base)
+    return flash_mla_prefill_ref(q_eff, q_rot, c, kr, pos_base, kv_lens,
+                                 scale=scale)
+
+
+def _mla_kernel():
+    """The MLA prefill launch of its kernel library, typed: left
+    undeclared, ctypes would pass each pointer as a 32-bit int and cut it."""
+    fn = _build.load("mla_prefill").dtt_mla_prefill
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_mla_prefill_paged(q_eff, q_rot, latent, rope, block_tables,
+                            pos_base, kv_lens, *, block_size: int,
+                            scale: float, c_scales=None, r_scales=None,
+                            scale_slot_base: int = 0):
+    """MLA flash prefill over a layer's pages (see the contract above), the
+    entry the engine's chunk grid and dense forward call. CUDA tensors
+    launch the Hopper kernel on the current stream; CPU tensors take
+    :func:`flash_mla_prefill_paged_ref`."""
+    if q_eff.device.type == "cpu":
+        return flash_mla_prefill_paged_ref(
+            q_eff, q_rot, latent, rope, block_tables, pos_base, kv_lens,
+            block_size=block_size, scale=scale, c_scales=c_scales,
+            r_scales=r_scales, scale_slot_base=scale_slot_base)
+    if q_eff.device.type != "cuda":
+        raise ValueError(f"no MLA prefill kernel for {q_eff.device}")
+    check_pages(q_eff, q_rot, latent, rope, c_scales, r_scales,
+                scale_slot_base, block_tables, kv_lens)
+    if q_eff.dim() != 4:
+        raise ValueError("q_eff/q_rot must be [B, S, H, r]/[B, S, H, pr]")
+    B, S, H, r = q_eff.shape
+    pr = q_rot.shape[3]
+    if (pos_base.dtype != torch.int32 or tuple(pos_base.shape) != (B,)
+            or pos_base.device != q_eff.device
+            or not pos_base.is_contiguous()):
+        raise ValueError("pos_base must be a contiguous int32 [B] on q's "
+                         "device")
+    out = torch.empty((B, S, H, r), dtype=torch.float32, device=q_eff.device)
+    if B == 0 or S == 0:
+        return out
+    err = _mla_kernel()(
+        q_eff.data_ptr(), q_rot.data_ptr(), latent.data_ptr(),
+        rope.data_ptr(),
+        c_scales.data_ptr() if c_scales is not None else None,
+        r_scales.data_ptr() if r_scales is not None else None,
+        int(scale_slot_base), block_tables.data_ptr(), pos_base.data_ptr(),
+        kv_lens.data_ptr(), out.data_ptr(), B, S, H, r, pr,
+        block_tables.shape[1], block_size, float(scale),
+        PAGE_KINDS[latent.dtype],
+        torch.cuda.current_stream(q_eff.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"MLA prefill kernel launch failed (code {err})")
+    flash_mla_prefill_paged.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0 (both entries)
+flash_mla_prefill_paged.launches = 0
+
+
 def flash_mla_prefill(q_eff, q_rot, c, k_rot, pos_base, kv_lens, *,
                       scale: float):
-    """MLA prefill in latent space, as single-KV-head attention: Q = [q_eff
-    | q_rot] against K = [c | k_rot], V = c. q_eff [B,S,H,r], q_rot
-    [B,S,H,pr], c [B,T,r], k_rot [B,T,pr] → [B,S,H,r]. Its geometry (KV 1,
-    G = H, hd = r + pr, hdv = r) is the plain version's only: on CUDA
-    tensors the kernel wrapper refuses it until MLA lands (ROADMAP A10)."""
-    q_cat = torch.cat([q_eff, q_rot], dim=-1)
-    k_cat = torch.cat([c, k_rot], dim=-1)[:, :, None, :]
-    return flash_prefill(q_cat, k_cat, c[:, :, None, :].contiguous(),
-                         pos_base, kv_lens, scale=scale)
+    """MLA flash prefill over dense keys, the JAX ``flash_mla_prefill``
+    contract: q_eff [B,S,H,r], q_rot [B,S,H,pr], c [B,T,r], k_rot [B,T,pr]
+    → [B,S,H,r] f32. CPU tensors take :func:`flash_mla_prefill_ref`. On the
+    card the dense keys are a paged cache of one T-slot page a row (table
+    [[0], [1], ...], block size T), so :func:`flash_mla_prefill_paged`
+    launches the kernel on them without a copy; queries of another float
+    type become f32 first."""
+    if q_eff.device.type == "cpu":
+        return flash_mla_prefill_ref(q_eff, q_rot, c, k_rot, pos_base,
+                                     kv_lens, scale=scale)
+    B, T = c.shape[:2]
+    table = torch.arange(B, dtype=torch.int32,
+                         device=q_eff.device)[:, None]
+    return flash_mla_prefill_paged(
+        q_eff.float().contiguous(), q_rot.float().contiguous(),
+        c.reshape(B * T, -1).contiguous(),
+        k_rot.reshape(B * T, -1).contiguous(), table, pos_base,
+        kv_lens, block_size=T, scale=scale)

@@ -148,10 +148,12 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 
 @pytest.mark.parametrize("hd,hdv,KV,match", [
-    (48, 32, 1, "hd == hdv"), (576, 512, 1, "A10"), (64, 64, 3, "H % KV")])
+    (48, 32, 1, "hd == hdv"), (576, 512, 1, "flash_mla_prefill"),
+    (64, 64, 3, "H % KV")])
 def test_kernel_shape_check_refuses(hd, hdv, KV, match):
     """The checks the wrapper runs before a launch on a CUDA tensor: the
-    MLA geometry and other shapes the kernel does not take raise."""
+    MLA geometry (its own kernel, flash_mla_prefill's) and other shapes the
+    kernel does not take raise."""
     case = make_inputs(B=1, S=4, H=8, KV=KV, hd=hd, hdv=hdv, T=8)
     with pytest.raises(ValueError, match=match):
         P._check(*(torch.from_numpy(case[n]) for n in

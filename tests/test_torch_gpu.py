@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.engine.cache import quantize_kv
-from dynamo_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_ref
+from dynamo_tpu_torch.ops.flash_prefill import (
+    flash_mla_prefill, flash_mla_prefill_paged, flash_mla_prefill_paged_ref,
+    flash_mla_prefill_ref, flash_prefill, flash_prefill_ref,
+)
 from dynamo_tpu_torch.ops.mla_decode import (
     BF16_ROW_RTOL, mla_paged_decode, mla_paged_decode_ref,
 )
@@ -180,16 +183,48 @@ def test_paged_decode_matches_plain_on_card(dtype, tol, quant):
         assert not got[0].float().any()  # kv_len 0: zeros
 
 
+def mla_pages(rng, nb, bs, R, PR, dtype):
+    """Latent and rope pages of nb blocks on the card, and the kwargs that
+    go with them: int8 pages quantized per slot and stream, behind a junk
+    layer that the returned table offset and ``scale_slot_base`` step
+    over."""
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+
+    lat, rope = t(nb * bs, R), t(nb * bs, PR)
+    if dtype != torch.int8:
+        return lat.to(dtype), rope.to(dtype), 0, {}
+    cq, cs = quantize_kv(lat[:, None])
+    rq, rs = quantize_kv(rope[:, None])
+    slots = nb * bs
+    return (torch.cat([torch.full_like(cq[:, 0], 7), cq[:, 0]]),
+            torch.cat([torch.full_like(rq[:, 0], 7), rq[:, 0]]), nb,
+            dict(c_scales=cs, r_scales=rs, scale_slot_base=slots))
+
+
+def assert_mla_close(got, want, dtype):
+    """f32 within 1e-4; bf16 and int8 pages (q·scale and P rounded to bf16
+    for the tensor cores) each row within BF16_ROW_RTOL of its own largest
+    magnitude, the limit chip_smoke.py holds the kernels to; a row of zeros
+    (no visible key) exactly zeros."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        return
+    err = (got - want).abs().flatten(1).amax(1)
+    scale = want.abs().flatten(1).amax(1)
+    assert bool((err <= BF16_ROW_RTOL * scale).all()), (err, scale)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("geometry", [(16, 512, 128), (32, 128, 64)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
 def test_mla_decode_matches_plain_on_card(dtype, geometry):
     """The MLA latent-decode kernel against its plain version: the
     DeepSeek-V2-Lite geometry (H = 16, R = 512, PR = 128) and one with two head
     tiles; a kv_len 0 row, a one-page row and long rows split over many
-    CTAs. f32 within 1e-4; bf16 pages round q·scale and P to bf16 for the
-    tensor cores, so each row within ``BF16_ROW_RTOL`` of its own largest
-    magnitude, the limit chip_smoke.py holds the kernel to."""
+    CTAs; f32, bf16 and int8 pages (the int8 scale table rebased)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     H, R, PR = geometry
@@ -200,21 +235,63 @@ def test_mla_decode_matches_plain_on_card(dtype, geometry):
     for b, n in enumerate(kv_lens):
         used = -(-n // bs)
         bt[b, :used] = rng.choice(np.arange(1, nb), used, replace=False)
-
-    def t(*shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).cuda()
-
-    q_eff, q_rot = t(len(kv_lens), H, R), t(len(kv_lens), H, PR)
-    lat, rope = t(nb * bs, R).to(dtype), t(nb * bs, PR).to(dtype)
-    args = (q_eff, q_rot, lat, rope, torch.from_numpy(bt).cuda(),
+    q_eff = torch.from_numpy(rng.standard_normal(
+        (len(kv_lens), H, R)).astype(np.float32)).cuda()
+    q_rot = torch.from_numpy(rng.standard_normal(
+        (len(kv_lens), H, PR)).astype(np.float32)).cuda()
+    lat, rope, off, kw = mla_pages(rng, nb, bs, R, PR, dtype)
+    args = (q_eff, q_rot, lat, rope, torch.from_numpy(bt + off).cuda(),
             torch.tensor(kv_lens, dtype=torch.int32).cuda())
-    got = mla_paged_decode(*args, block_size=bs, scale=0.0722)
-    want = mla_paged_decode_ref(*args, block_size=bs, scale=0.0722)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-    else:
-        err = (got - want).abs().flatten(1).amax(1)
-        scale = want.abs().flatten(1).amax(1)
-        assert bool((err <= BF16_ROW_RTOL * scale).all()), (err, scale)
+    got = mla_paged_decode(*args, block_size=bs, scale=0.0722, **kw)
+    want = mla_paged_decode_ref(*args, block_size=bs, scale=0.0722, **kw)
+    assert_mla_close(got, want, dtype)
     assert not got[0].any()  # kv_len 0: zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_mla_prefill_matches_plain_on_card(dtype):
+    """The MLA flash-prefill kernel against its plain versions, paged and
+    dense: chunks deep into their context (pos_base > 0, S < T), a kv_len 0
+    row, a row whose last query tile straddles kv_len (S not a multiple of
+    the tile), a fresh causal row; the DeepSeek-V2-Lite geometry and one
+    with two head tiles; int8 pages with a rebased scale table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    bs, nb = 16, 400
+    for H, R, PR in ((16, 512, 128), (32, 128, 64)):
+        B, S, W = 4, 38, 160
+        pos_base = [600, 0, 0, 37]
+        kv_lens = [638, 0, 30, 75]  # row 2: kv_len inside its last tiles
+        bt = np.zeros((B, W), np.int32)
+        for b, n in enumerate(kv_lens):
+            used = -(-n // bs)
+            bt[b, :used] = rng.choice(np.arange(1, nb), used, replace=False)
+
+        def t(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).cuda()
+
+        q_eff, q_rot = t(B, S, H, R), t(B, S, H, PR)
+        lat, rope, off, kw = mla_pages(rng, nb, bs, R, PR, dtype)
+        pb = torch.tensor(pos_base, dtype=torch.int32).cuda()
+        kl = torch.tensor(kv_lens, dtype=torch.int32).cuda()
+        args = (q_eff, q_rot, lat, rope, torch.from_numpy(bt + off).cuda(),
+                pb, kl)
+        got = flash_mla_prefill_paged(*args, block_size=bs, scale=0.0722,
+                                      **kw)
+        want = flash_mla_prefill_paged_ref(*args, block_size=bs,
+                                           scale=0.0722, **kw)
+        assert_mla_close(got.flatten(0, 1), want.flatten(0, 1), dtype)
+        assert not got[1].any()  # kv_len 0: zeros
+        if dtype == torch.int8:
+            continue
+        # the dense entry: T keys per row, no table
+        T = 700
+        c, kr = t(B, T, R).to(dtype), t(B, T, PR).to(dtype)
+        got = flash_mla_prefill(q_eff, q_rot, c, kr, pb, kl, scale=0.0722)
+        want = flash_mla_prefill_ref(q_eff, q_rot, c, kr, pb, kl,
+                                     scale=0.0722)
+        assert_mla_close(got.flatten(0, 1), want.flatten(0, 1), dtype)

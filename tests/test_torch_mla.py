@@ -12,7 +12,8 @@
   interpret mode (R = PR = 128, a kv_len 0 row), atol 1e-5.
 - ``make_forward_fn`` with S == 1 against JAX ``forward(use_pallas=True)``
   on a lane-aligned MLA config (the Pallas latent decode, interpret mode).
-- Presets, latent pool sizing and the MLA refusals.
+- Presets, latent pool sizing, the MLA paths that need the MLA kernels
+  (S > 1, embeddings, int8 latents), and the card's geometry check.
 """
 
 import asyncio
@@ -293,21 +294,30 @@ def test_latent_pool_sizing():
 
 
 def test_mla_refusals():
+    """The MLA paths that need the MLA kernels serve on the CPU (the forward
+    with S > 1, embeddings, an int8 latent pool); the card's kernel
+    geometry is checked when an engine is built."""
     cfg = get_model_config("mla_tiny")
+    tp = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     fwd = TM.make_forward_fn(cfg, 4)
-    z = torch.zeros((1, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        fwd(None, z, z, z, z, z[:, 0], z[:, 0], None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        TM.make_embed_fn(cfg, 4)
+    kc, vc = allocate_device_cache(cfg, 4, 4, "cpu", torch.float32)
+    toks = torch.tensor([[5, 9]], dtype=torch.int32)
+    pos = torch.tensor([[0, 1]], dtype=torch.int32)
+    logits, _, _ = fwd(tp, toks, pos, pos + 4, torch.tensor(
+        [[1]], dtype=torch.int32), torch.tensor([2], dtype=torch.int32),
+        torch.tensor([1], dtype=torch.int32), kc, vc)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
     args = EngineArgs(block_size=4, num_blocks=16, max_num_seqs=2,
                       max_num_batched_tokens=16, max_model_len=32)
-    with pytest.raises(ValueError, match="ROADMAP B5"):
-        AsyncTorchEngine(cfg, dataclasses.replace(args, kv_cache_dtype="int8"),
-                         device="cpu")
-    eng = AsyncTorchEngine(cfg, args, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        asyncio.run(eng.embed([[1, 2, 3]]))
+    eng8 = AsyncTorchEngine(cfg, dataclasses.replace(
+        args, kv_cache_dtype="int8"), params=tp, device="cpu")
+    assert eng8.k_cache["q"].dtype == torch.int8
+    assert eng8.v_cache["s"].shape == (cfg.num_layers, 16 * 4, 1)
+    eng = AsyncTorchEngine(cfg, args, params=tp, device="cpu")
+    (vec,) = asyncio.run(eng.embed([[1, 2, 3]]))
+    assert len(vec) == cfg.hidden_size
+    assert abs(float(np.linalg.norm(vec)) - 1.0) < 1e-5
     # the card's kernel geometry: 16-head tiles, 64-wide latent and rope
     with pytest.raises(ValueError, match="multiple of 16"):
         TM.check_kernel_geometry(cfg)
