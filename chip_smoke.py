@@ -12,9 +12,13 @@ prints any result:
 2. Kernels: each kernel against its plain PyTorch version on the card,
    with its tolerance, and its time beside the plain version's, a PyTorch
    library call's (a yardstick the port never calls) and the least time
-   the card could take:
+   the card could take (each timed with the host's work kept out of the
+   window, see ``time_ms``):
    - ragged paged attention on bf16/f32 pages: small mixed cases (f32 and
-     bf16, window, sinks, both head dims) and the Llama-3-8B geometry;
+     bf16, window, sinks, both head dims), the tile edges of the bf16 body
+     (group sizes 1 to 16, rows that see no key or one key, a window edge
+     inside a key tile, int8 pages) and the Llama-3-8B geometry, whose
+     mixed case is also timed row kind by row kind;
    - the same kernel on int8 pages: the Llama-3-8B mixed and decode cases,
      window + sinks, and a layer-rebased scale table (scale_slot_base);
    - flash prefill: f32 and bf16, hd 64 and 128, window, sinks, pos_base
@@ -229,7 +233,8 @@ def device_phase() -> tuple[str, str]:
     log(f"kernel build: {time.perf_counter() - t0:.3f} s wall")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry function" in line):
                 log(f"  ptxas {name}: {line.strip()}")
     return smi, torch.cuda.get_device_name(0)
 
@@ -237,21 +242,49 @@ def device_phase() -> tuple[str, str]:
 # ------------------------------------------------------------------ phase 2
 
 
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card,
+    measured once with CUDA events."""
+    n = 2_000_000
+    torch.cuda._sleep(n)  # first use
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(n)
+    e.record()
+    torch.cuda.synchronize()
+    return n / s.elapsed_time(e)
+
+
 def time_ms(fn, iters: int) -> float:
     """Median device time of ``fn`` with L2 evicted before each call (the
-    engine reads each layer's pages once per step, cold)."""
+    engine reads each layer's pages once per step, cold). After the flush
+    the stream spins (``torch.cuda._sleep``) for twice the host time that
+    ``fn`` took to enqueue its work in the warm-up call, so the start event
+    fires only once ``fn``'s launches are queued behind it: the wrapper's
+    host work (checks, ctypes, scratch) stays out of the window. A plain
+    version that reads the device on the host (``rows3.tolist()``) waits
+    for the start event there, and its host time after that read stays
+    in."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin = int(spin_cycles_per_ms() * (2 * host_ms + 0.05))
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(spin)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
         fn()
         e.record()
         times.append((s, e))
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in times)
 
 
@@ -312,14 +345,16 @@ def bound_of(nbytes: float, ops: float, dtype) -> tuple[float, str]:
 # ragged paged attention ------------------------------------------------------
 
 
-def make_case(rows, *, H, KV, hd, bs, dtype, pad_rows, pad_tokens, seed):
+def make_case(rows, *, H, KV, hd, bs, dtype, pad_rows, pad_tokens, seed,
+              width=None):
     """Attention operands on the card for rows of (q_len, kv_len), each row
-    on its own random blocks of a shared paged cache."""
+    on its own random blocks of a shared paged cache; block tables of
+    ``width`` blocks (default: the longest row's)."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     need = [-(-kv // bs) for _, kv in rows]
     num_blocks = sum(need) + 8
-    W = max(need)
+    W = max(need) if width is None else width
     perm = rng.permutation(np.arange(1, num_blocks))
     R = len(rows) + pad_rows
     rows3 = np.zeros((R, 3), np.int32)
@@ -822,6 +857,25 @@ def mla_controls(case) -> None:
                              f"output ({name})")
 
 
+def mixed_parts(case, seed: int) -> None:
+    """Which rows set the mixed case's time: each kind of row alone (the
+    512-token prefill, the 128-token chunk at kv 2048, the two decode rows)
+    in a launch of the same geometry (tokens, rows and table width padded
+    to the mixed case's, so the same tiles split)."""
+    R, W = case["bt"].shape
+    T = case["q"].shape[0]
+    rows = case["rows"]
+    for part in ([r for r in rows if r[0] > 1 and r[1] == r[0]],
+                 [r for r in rows if r[0] > 1 and r[1] > r[0]],
+                 [r for r in rows if r[0] == 1]):
+        t = sum(q for q, _ in part)
+        sub = make_case(part, H=case["q"].shape[1], KV=case["kc"].shape[1],
+                        hd=case["q"].shape[2], bs=case["bs"],
+                        dtype=case["dtype"], pad_rows=R - len(part),
+                        pad_tokens=T - t, seed=seed, width=W)
+        check_ragged(f"  part of the mixed case {part}", sub, iters=10)
+
+
 def kernel_phase(seed: int) -> dict:
     """Every kernel case; returns the main case of each kernel by name."""
     main = {}
@@ -840,6 +894,20 @@ def kernel_phase(seed: int) -> dict:
     check_ragged("small bf16 hd=64 window=7 sinks=True", case, 7, True,
                  iters=5)
     check_ragged("small bf16 hd=64 int8 pages", int8_case(case), iters=5)
+    # tile edges of the bf16 body (64 query rows, 64-key tiles): group sizes
+    # 1 to 16 at both head dims; rows that see no key, one key, a page and
+    # one, a decode row that splits, a 45-token prefill, a chunk of 37 at kv
+    # 1300; a window edge inside a key tile; int8 pages on a rebased table
+    edge_rows = [(1, 0), (1, 1), (1, 17), (1, 2000), (45, 45), (37, 1300)]
+    for G, hd in ((1, 128), (4, 64), (8, 64), (16, 128)):
+        case = make_case(edge_rows, H=2 * G, KV=2, hd=hd, bs=16,
+                         dtype=torch.bfloat16, pad_rows=1, pad_tokens=3,
+                         seed=seed + 30 + G)
+        check_ragged(f"tile edges G={G} hd={hd} bf16 window=100 sinks=True",
+                     case, 100, True, iters=3)
+        check_ragged(f"tile edges G={G} hd={hd} int8 pages window=100 "
+                     f"sinks=True, rebased scales",
+                     int8_case(case, rebase=True), 100, True, iters=3)
     # Llama-3-8B attention geometry: decode rows, a fresh 512-token prefill
     # chunk, a 128-token chunk deep into its context, padding rows
     llama = make_case([(1, 1000), (1, 3000), (512, 512), (128, 2048)],
@@ -847,6 +915,7 @@ def kernel_phase(seed: int) -> dict:
                       pad_rows=4, pad_tokens=6, seed=seed + 2)
     main["ragged_paged_attention"] = check_ragged("llama3_8b mixed bf16",
                                                   llama)
+    mixed_parts(llama, seed + 2)
     check_ragged("llama3_8b mixed bf16 window=512 sinks=True", llama, 512,
                  True, iters=5)
     case = make_case([(1, 1500), (40, 700), (1, 9)], H=8, KV=2, hd=128,
@@ -881,6 +950,14 @@ def kernel_phase(seed: int) -> dict:
             check_flash(f"small {name}", case, iters=5)
             check_flash(f"small {name} window=33 sinks=True", case, 33,
                         True, iters=5)
+    # tile edges: S = 45 tokens over T = 300 keys at group sizes 1 to 16
+    # (a fresh row, a chunk at pos_base 255, a kv_len 0 row, kv_len 131
+    # inside a key tile), a window edge inside a key tile
+    for G, hd in ((1, 64), (8, 128), (16, 64)):
+        case = make_dense(4, 45, 300, 2 * G, 2, hd, torch.bfloat16,
+                          (0, 255, 0, 100), (45, 300, 0, 131), seed + 40 + G)
+        check_flash(f"tile edges G={G} hd={hd} bf16 window=100 sinks=True",
+                    case, 100, True, iters=3)
     # Llama-3-8B embeddings geometry: 8 rows, S = T = 2048, lengths
     # 100-2048 (the longest fills the bucket)
     lens = [2048] + [int(x) for x in rng.integers(100, 2049, 7)]
@@ -909,6 +986,14 @@ def kernel_phase(seed: int) -> dict:
                       pad_tokens=0, seed=seed + 7)
     check_decode("small float32 kv_len 0 row window=7 sinks=True", small, 7,
                  True, iters=5)
+    # rows at kv 1, at page boundaries and one past them, and kv 0
+    edges = make_case([(1, k) for k in (1, 16, 17, 32, 33, 64, 65, 0)],
+                      H=32, KV=8, hd=128, bs=16, dtype=torch.bfloat16,
+                      pad_rows=0, pad_tokens=0, seed=seed + 50)
+    check_decode("tile edges kv 1, 16, 17, 32, 33, 64, 65, 0 bf16 window=17 "
+                 "sinks=True", edges, 17, True, iters=3)
+    check_decode("tile edges int8 pages window=17 sinks=True, rebased "
+                 "scales", int8_case(edges, rebase=True), 17, True, iters=3)
 
     log("kernel phase: mla_paged_decode vs mla_paged_decode_ref")
     v2 = dict(H=16, R=512, PR=128, rope_dim=64, bs=16)

@@ -28,20 +28,24 @@
 // Design (the tile body is attention_core.cuh, shared with the ragged
 // kernel): the Pallas grid (B, KV, S/TQ, T/TK) accumulates over its
 // innermost, sequential key-tile axis in VMEM scratch; here one CTA owns a
-// query tile of one KV group — its G heads x 64/G tokens on the 64 MMA rows
-// (Pallas's TQ = 512/G rows would not fit a CTA) — and loops over the key
-// tiles itself, bf16 on the tensor cores (wmma), f32 on CUDA cores. Key
-// tiles wholly in the future, wholly past kv_len or wholly before the
-// window are never fetched. When the query tiles alone cannot fill the
-// card (fewer than two CTAs per SM), long key ranges are split over
-// blockIdx.z and merged by a second kernel. Every store is masked to S.
-// Left for later work: wgmma and TMA loads.
+// query tile of one KV group — its G heads x 64/G tokens on the 64 rows of
+// one wgmma warpgroup — and loops over the key tiles itself, S and P·V on
+// the tensor cores with the softmax in registers. Two CTAs fit an SM, so
+// one CTA's softmax, copies and barriers overlap the other's MMAs. f32
+// runs on CUDA cores. Key tiles wholly in
+// the future, wholly past kv_len or wholly before the window are never
+// fetched. When the query tiles alone cannot fill the card (fewer than
+// two CTAs per SM), long key ranges are split over blockIdx.z and merged
+// by a second kernel. Every store is masked to S. The dense keys could
+// arrive by TMA (one box [64, hd] per tile); they take the paged kernel's
+// cp.async path so that one body serves both.
 
 #include "attention_core.cuh"
 
 namespace {
 
 using namespace dtt;
+
 
 // Tile x = b * tiles_per_b + t covers tokens t*tq .. of batch row b.
 struct DenseSrc {
@@ -79,8 +83,8 @@ flash_prefill(const T* __restrict__ q, const T* __restrict__ k,
               float scale) {
   const DenseSrc src{pos_base, kv_lens, B, S, T_, tq, tiles_per_b, H / KV,
                      window, kch};
-  attend<T, HD>(src, q, k, v, nullptr, nullptr, 0, sinks, out, part, H, KV,
-                n_split_max, scale);
+  attend<T, HD>(src, q, k, v, nullptr, nullptr, 0, sinks, out,
+                             part, H, KV, n_split_max, scale);
 }
 
 template <typename T, int HD>
@@ -115,7 +119,8 @@ Geometry geometry(int B, int S, int T_, int H, int KV) {
     ge.n_split = 1;
     return ge;
   }
-  const int per = ((keys + MAX_SPLIT - 1) / MAX_SPLIT + BK - 1) / BK * BK;
+  const int per = ((keys + MAX_SPLIT - 1) / MAX_SPLIT + KCH_ROUND - 1) /
+                  KCH_ROUND * KCH_ROUND;
   ge.kch = per > KCH_MIN ? per : KCH_MIN;
   ge.n_split = (keys + ge.kch - 1) / ge.kch;
   return ge;
@@ -127,9 +132,14 @@ int launch(const void* q, const void* k, const void* v, const void* pos_base,
            int B, int S, int T_, int H, int KV, int window, float scale,
            cudaStream_t stream) {
   const auto kernel = flash_prefill<T, HD>;
-  constexpr size_t smem = smem_bytes<T, HD>();
+  constexpr size_t smem = smem_bytes<T, HD, T>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // all of L1 as shared memory, so two CTAs of the bf16 body fit an SM
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   const Geometry ge = geometry(B, S, T_, H, KV);
   float* part = static_cast<float*>(scratch);

@@ -295,3 +295,137 @@ def test_mla_prefill_matches_plain_on_card(dtype):
         want = flash_mla_prefill_ref(q_eff, q_rot, c, kr, pb, kl,
                                      scale=0.0722)
         assert_mla_close(got.flatten(0, 1), want.flatten(0, 1), dtype)
+
+
+# ------------------------------------------------ tile edges of the wgmma body
+#
+# The bf16 body attends query tiles of 64 rows a warpgroup (64/G tokens; the
+# dense kernel two warpgroups) over key tiles of 64 keys. These cases put
+# every edge inside a tile: query and key counts that are not multiples of
+# either, a window edge inside a key tile, rows that see no key, one key, a
+# page and a half, group sizes 1 to 16, and tiles that split their keys
+# beside tiles that do not, in one launch.
+
+#: (q_len, kv_len): a row that sees no key, one key, a page, a page and one,
+#: a decode row long enough to split, a fresh prefill of 45 tokens, a chunk
+#: of 37 at kv 1300, 3 tokens at kv 64, 70 at kv 200
+EDGE_ROWS = [(1, 0), (1, 1), (1, 16), (1, 17), (1, 2000), (45, 45),
+             (37, 1300), (3, 64), (70, 200)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+def test_ragged_tile_edges_on_card(G, hd, pages):
+    """The ragged kernel on bf16 queries at every tile edge (EDGE_ROWS),
+    without and with a window of 100 (an edge inside a key tile) and sinks;
+    int8 pages behind a junk layer that the tables and ``scale_slot_base``
+    step over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    KV = 2
+    case, t = make_case(20 + G + hd, EDGE_ROWS, H=G * KV, KV=KV, hd=hd,
+                        bs=16, W=128, num_blocks=400, pad_rows=2,
+                        pad_tokens=5)
+    q = torch.from_numpy(case["q"]).cuda().to(torch.bfloat16)
+    kc = torch.from_numpy(case["kc"]).cuda()
+    vc = torch.from_numpy(case["vc"]).cuda()
+    bt = torch.from_numpy(case["bt"]).cuda()
+    rows3 = torch.from_numpy(case["rows3"]).cuda()
+    sinks = torch.from_numpy(case["sinks"]).cuda()
+    kw = {}
+    if pages == "int8":
+        kq, ks = quantize_kv(kc)
+        vq, vs = quantize_kv(vc)
+        slots = kq.shape[0]
+        kc = torch.cat([torch.full_like(kq, 7), kq])
+        vc = torch.cat([torch.full_like(vq, 7), vq])
+        bt = bt + slots // 16
+        kw = dict(k_scales=ks, v_scales=vs, scale_slot_base=slots)
+    else:
+        kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    for window, sk in ((0, None), (100, sinks)):
+        got = ragged_paged_attention(q, kc, vc, bt, rows3, block_size=16,
+                                     window=window, sinks=sk, **kw)
+        want = ragged_attention_ref(q, kc, vc, bt, rows3, block_size=16,
+                                    window=window, sinks=sk, **kw)
+        torch.testing.assert_close(got[:t].float(), want[:t].float(),
+                                   atol=2e-2, rtol=2e-2)
+        assert not got[0].float().any()  # the row that sees no key: zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+def test_flash_prefill_tile_edges_on_card(G, hd):
+    """Flash prefill in bf16 with S = 45 tokens (not a multiple of any query
+    tile) over T = 300 keys: a fresh row, a chunk at pos_base 255, a kv_len
+    0 row, a row whose kv_len 131 ends inside a key tile below its last
+    queries; no window, and a window of 100 with sinks. Few query tiles, so
+    the keys split; then 2 rows of 1100 tokens at G = 4 whose tiles do not
+    split."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(30 + G + hd)
+    geometries = [(4, 45, G * 2, 2, 300, (0, 255, 0, 100), (45, 300, 0, 131))]
+    if G == 4:
+        geometries.append((2, 1100, 32, 8, 1100, (0, 0), (1100, 777)))
+    for B, S, H, KV, T, pos_base, kv_lens in geometries:
+        def t(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).cuda().to(torch.bfloat16)
+
+        q, k, v = t(B, S, H, hd), t(B, T, KV, hd), t(B, T, KV, hd)
+        pb = torch.tensor(pos_base, dtype=torch.int32).cuda()
+        kl = torch.tensor(kv_lens, dtype=torch.int32).cuda()
+        sinks = torch.from_numpy(rng.standard_normal(H).astype(
+            np.float32)).cuda()
+        for kw in ({}, {"sliding_window": 100, "sinks": sinks}):
+            got = flash_prefill(q, k, v, pb, kl, **kw)
+            want = flash_prefill_ref(q, k, v, pb, kl, **kw)
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                       rtol=2e-2)
+        if B == 4:
+            assert not got[2].float().any()  # kv_len 0: zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+@pytest.mark.parametrize("G", [1, 4, 8, 16])
+def test_paged_decode_tile_edges_on_card(G, pages):
+    """The paged decode contract (B4) at kv 1, at page boundaries (16, 32,
+    64, one past them) and at kv 0, hd 128, with a window of 17 and sinks;
+    int8 pages with a rebased scale table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    kv_lens = [1, 16, 17, 32, 33, 64, 65, 0, 1000]
+    KV = 2
+    case, _ = make_case(40 + G, [(1, max(k, 1)) for k in kv_lens],
+                        H=G * KV, KV=KV, hd=128, bs=16, W=64,
+                        num_blocks=200, pad_rows=0, pad_tokens=0)
+    q = torch.from_numpy(case["q"]).cuda().to(torch.bfloat16)
+    kc = torch.from_numpy(case["kc"]).cuda()
+    vc = torch.from_numpy(case["vc"]).cuda()
+    bt = torch.from_numpy(case["bt"]).cuda()
+    kl = torch.tensor(kv_lens, dtype=torch.int32).cuda()
+    sinks = torch.from_numpy(case["sinks"]).cuda()
+    kw = {}
+    if pages == "int8":
+        kq, ks = quantize_kv(kc)
+        vq, vs = quantize_kv(vc)
+        slots = kq.shape[0]
+        kc = torch.cat([torch.full_like(kq, 7), kq])
+        vc = torch.cat([torch.full_like(vq, 7), vq])
+        bt = bt + slots // 16
+        kw = dict(k_scales=ks, v_scales=vs, scale_slot_base=slots)
+    else:
+        kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    for window, sk in ((None, None), (17, sinks)):
+        got = paged_attention_decode(q, kc, vc, bt, kl, block_size=16,
+                                     window=window, sinks=sk, **kw)
+        want = paged_attention_decode_ref(q, kc, vc, bt, kl, block_size=16,
+                                          window=window, sinks=sk, **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+        assert not got[7].float().any()  # kv_len 0: zeros
