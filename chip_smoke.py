@@ -30,15 +30,18 @@ prints any result:
      and a kv_len 0 row;
    - MLA latent decode: f32 and bf16 with a kv_len 0 row, a one-page row
      and a long split-K row, and the DeepSeek-V2-Lite geometry (8 decode
-     rows at kv 65-3000, H = 16, R = 512, PR = 128); bf16 is held row by
-     row, and three planted wrong outputs must fail that check;
+     rows at kv 65-3000, H = 16, R = 512, PR = 128); the MLA cases pass a
+     q_rot of the live rope width (64 of the pages' 128 columns) as the
+     engine does, and a few the whole width; bf16 is held row by row, and
+     three planted wrong outputs must fail that check;
    - the same kernel on int8 pages: the DeepSeek-V2-Lite decode case, and
      the same behind a layer-rebased scale table;
    - MLA flash prefill: f32 and bf16 dense chunks deep into their context
      (pos_base > 0, S < T) with a kv_len 0 row and a row whose last query
      tile straddles kv_len, int8 pages on a rebased scale table, and the
      DeepSeek-V2-Lite geometry: a dense 2 x 1024-token prefill and a chunk
-     grid of 68 tiles x 32 tokens at kv up to 3000 (bf16 and int8 pages).
+     grid of 68 tiles x 32 tokens at kv up to 3000 (bf16 and int8 pages),
+     where the same three planted wrong outputs must fail the row check.
 3. Serving: ``AsyncTorchEngine`` with the llama3_8b preset at full width
    and depth on random weights from a seeded generator, eight concurrent
    greedy requests after one warm-up request. The kernels' launch counts
@@ -556,10 +559,11 @@ def check_decode(label, case, window=0, sinks=False, iters=20):
 # MLA latent decode -------------------------------------------------------------
 
 
-def make_mla(kv_lens, *, H, R, PR, rope_dim, bs, dtype, seed):
+def make_mla(kv_lens, *, H, R, PR, rope_dim, bs, dtype, seed, live=True):
     """MLA decode operands on the card: one row per kv_len on its own random
-    blocks; the rope parts zero past ``rope_dim``, as the engine pads
-    them."""
+    blocks; the rope pages zero past ``rope_dim``, as the engine pads
+    them, and q_rot ``rope_dim`` wide (``live``, as the engine passes it)
+    or PR wide with the same zero pad."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     need = [-(-kv // bs) for kv in kv_lens]
@@ -578,6 +582,8 @@ def make_mla(kv_lens, *, H, R, PR, rope_dim, bs, dtype, seed):
     q_rot, rope = randn(len(kv_lens), H, PR), randn(num_blocks * bs, PR)
     q_rot[..., rope_dim:] = 0
     rope[:, rope_dim:] = 0
+    if live:
+        q_rot = q_rot[..., :rope_dim].contiguous()
     return dict(q_eff=randn(len(kv_lens), H, R), q_rot=q_rot,
                 lat=randn(num_blocks * bs, R).to(dtype), rope=rope.to(dtype),
                 bt=torch.from_numpy(bt).cuda(),
@@ -611,13 +617,15 @@ def mla_scales(case) -> dict:
 
 def mla_compute_dtype(case):
     """The type the MLA kernels compute in: f32 pages on CUDA cores, bf16
-    and int8 pages on the bf16 tensor cores."""
+    and int8 pages on the tensor cores at the 16-bit rate (fp16 operands;
+    the SDPA yardstick runs in bf16)."""
     return torch.float32 if case["dtype"] == torch.float32 else torch.bfloat16
 
 
 def mla_bound(case) -> tuple[float, str]:
     """q_eff and q_rot read and the output written (f32), every key's
-    latent and rope part read once (int8: with its two scales), the tables;
+    latent and the rope columns it reads (q_rot's width PR, of the pages'
+    PR or more) read once (int8: with its two scales), the tables;
     2·(R + PR) operations per (head, key) for the score and 2·R for P·V."""
     B, H, R = case["q_eff"].shape
     PR = case["q_rot"].shape[2]
@@ -647,7 +655,7 @@ def sdpa_mla(case):
             sc = (case["cs"][sidx][:, None], case["rs"][sidx][:, None])
         q = torch.cat([case["q_eff"][r], case["q_rot"][r]], -1)
         calls.append((q.to(dt)[None, :, None], case["lat"][slots],
-                      case["rope"][slots], sc))
+                      case["rope"][slots, :case["q_rot"].shape[-1]], sc))
 
     def run():
         for q, c, kr, sc in calls:
@@ -660,18 +668,23 @@ def sdpa_mla(case):
     return run
 
 
-def check_mla(label, case, iters=20):
-    """The MLA kernel vs its plain version: f32 pages within TOL, bf16 and
-    int8 pages (q·scale and P rounded to bf16 for the tensor cores) row by
-    row within BF16_ROW_RTOL of each row's scale."""
+def mla_fns(case):
+    """(kernel, plain version) of the MLA decode case, as callables."""
     args = (case["q_eff"], case["q_rot"], case["lat"], case["rope"],
             case["bt"], case["kv_lens"])
     kw = dict(block_size=case["bs"], scale=case["scale"], **mla_scales(case))
+    return (lambda: mla_paged_decode(*args, **kw),
+            lambda: mla_paged_decode_ref(*args, **kw))
+
+
+def check_mla(label, case, iters=20):
+    """The MLA kernel vs its plain version: f32 pages within TOL, bf16 and
+    int8 pages (q and P rounded to fp16 for the tensor cores) row by
+    row within BF16_ROW_RTOL of each row's scale."""
     library = sdpa_mla(case) if all(case["kvs"]) else None
     f32 = case["dtype"] == torch.float32
-    return measure(label, lambda: mla_paged_decode(*args, **kw),
-                   lambda: mla_paged_decode_ref(*args, **kw), library,
-                   mla_bound(case), TOL[torch.float32], iters=iters,
+    return measure(label, *mla_fns(case), library, mla_bound(case),
+                   TOL[torch.float32], iters=iters,
                    row_rtol=None if f32 else BF16_ROW_RTOL)
 
 
@@ -679,11 +692,13 @@ def check_mla(label, case, iters=20):
 
 
 def make_mla_prefill(rows, *, S, H, R, PR, rope_dim, bs, dtype, seed,
-                     dense_T=None):
+                     dense_T=None, live=True):
     """MLA prefill operands on the card. ``rows``: (seq, pos_base, kv_len)
     per batch row of S query tokens, rows of one seq sharing its blocks (the
     tiles of a chunk grid); seq None is a spare tile (no keys). With
-    ``dense_T`` the keys are dense [B, T, .] arrays instead of pages."""
+    ``dense_T`` the keys are dense [B, T, .] arrays instead of pages. The
+    rope keys are zero past ``rope_dim``, and q_rot is ``rope_dim`` wide
+    (``live``) or PR wide, as :func:`make_mla`."""
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -693,6 +708,8 @@ def make_mla_prefill(rows, *, S, H, R, PR, rope_dim, bs, dtype, seed,
     B = len(rows)
     q_rot = randn(B, S, H, PR)
     q_rot[..., rope_dim:] = 0
+    if live:
+        q_rot = q_rot[..., :rope_dim].contiguous()
     case = dict(q_eff=randn(B, S, H, R), q_rot=q_rot,
                 pos_base=torch.tensor([p for _, p, _ in rows],
                                       dtype=torch.int32, device="cuda"),
@@ -731,9 +748,9 @@ def mla_prefill_bound(case) -> tuple[float, str]:
     """For the real tokens (a dense row's S; a chunk-grid tile's tokens
     below its kv_len, the rest being the grid's padding): q_eff and q_rot
     read and the output written (f32), per visible (token, key) pair
-    2·(R + PR)·H operations for the scores and 2·R·H for P·V; the keys each
-    sequence's tokens can see read once (int8: with their scales), the
-    tables."""
+    2·(R + PR)·H operations for the scores and 2·R·H for P·V, PR q_rot's
+    width; the latent and the PR rope columns of the keys each sequence's
+    tokens can see read once (int8: with their scales), the tables."""
     B, S, H, R = case["q_eff"].shape
     PR = case["q_rot"].shape[3]
     dense = "c" in case
@@ -761,15 +778,16 @@ def sdpa_mla_prefill(case):
     dt = mla_compute_dtype(case)
     B, S = case["q_eff"].shape[:2]
     q = torch.cat([case["q_eff"], case["q_rot"]], -1).to(dt).transpose(1, 2)
+    prl = case["q_rot"].shape[-1]
     sc = None
     if "c" in case:
-        c, kr = case["c"], case["kr"]
+        c, kr = case["c"], case["kr"][..., :prl]
     else:
         W = case["bt"].shape[1]
         bs = case["bs"]
         slots = (case["bt"].long()[:, :, None] * bs
                  + torch.arange(bs, device="cuda")).reshape(B, W * bs)
-        c, kr = case["lat"][slots], case["rope"][slots]
+        c, kr = case["lat"][slots], case["rope"][slots][..., :prl]
         if "cs" in case:
             sidx = slots - case["base"]
             sc = (case["cs"][sidx][..., None], case["rs"][sidx][..., None])
@@ -791,10 +809,9 @@ def sdpa_mla_prefill(case):
     return run
 
 
-def check_mla_prefill(label, case, iters=20):
-    """The MLA prefill kernel (dense or paged entry) vs its plain version:
-    f32 within TOL, bf16 and int8 pages each token's row within
-    BF16_ROW_RTOL of its scale."""
+def mla_prefill_fns(case):
+    """(kernel, plain version) of the MLA prefill case (dense or paged
+    entry), as callables."""
     qs = (case["q_eff"], case["q_rot"])
     lens = (case["pos_base"], case["kv_lens"])
     if "c" in case:
@@ -806,9 +823,15 @@ def check_mla_prefill(label, case, iters=20):
         kw = dict(block_size=case["bs"], scale=case["scale"],
                   **mla_scales(case))
         kernel, plain = flash_mla_prefill_paged, flash_mla_prefill_paged_ref
+    return (lambda: kernel(*args, **kw), lambda: plain(*args, **kw))
+
+
+def check_mla_prefill(label, case, iters=20):
+    """The MLA prefill kernel (dense or paged entry) vs its plain version:
+    f32 within TOL, bf16 and int8 pages each token's row within
+    BF16_ROW_RTOL of its scale."""
     f32 = case["dtype"] == torch.float32
-    return measure(label, lambda: kernel(*args, **kw),
-                   lambda: plain(*args, **kw), sdpa_mla_prefill(case),
+    return measure(label, *mla_prefill_fns(case), sdpa_mla_prefill(case),
                    mla_prefill_bound(case), TOL[torch.float32],
                    pick=lambda o: o.flatten(0, 1), iters=iters,
                    row_rtol=None if f32 else BF16_ROW_RTOL)
@@ -826,24 +849,24 @@ def mla_grid_rows(chunks, spare: int, tile: int = 32):
 
 def mla_controls(case) -> None:
     """The bf16 rule must tell a kernel that is wrong in a small way: the
-    kernel's output with the rope term dropped, with the last 32 keys (one
-    tile) of every row longer than 256 dropped, and with the softmax scale
-    2% off, each against the plain version of the true inputs, must fail
-    it."""
-    args = (case["q_eff"], case["q_rot"], case["lat"], case["rope"],
-            case["bt"], case["kv_lens"])
-    kw = dict(block_size=case["bs"], scale=case["scale"])
-    want = mla_paged_decode_ref(*args, **kw).float()
+    kernel's output (MLA decode, or MLA prefill for a case with pos_base)
+    with the rope term dropped, with the last 32 keys (half a key tile) of
+    every row longer than 256 dropped, and with the softmax scale 2% off,
+    each against the plain version of the true inputs, must fail it."""
+    prefill = "pos_base" in case
+    fns = mla_prefill_fns if prefill else mla_fns
+    pick = (lambda o: o.flatten(0, 1)) if prefill else (lambda o: o)
+    want = pick(fns(case)[1]().float())
     lens = case["kv_lens"]
     wrong = {
-        "rope term dropped": (args[:1] + (torch.zeros_like(args[1]),)
-                              + args[2:], kw),
-        "last tile dropped": (args[:5] + (torch.where(lens > 256, lens - 32,
-                                                      lens),), kw),
-        "scale 2% off": (args, dict(kw, scale=case["scale"] * 1.02)),
+        "rope term dropped": dict(case, q_rot=torch.zeros_like(
+            case["q_rot"])),
+        "last keys dropped": dict(case, kv_lens=torch.where(
+            lens > 256, lens - 32, lens)),
+        "scale 2% off": dict(case, scale=case["scale"] * 1.02),
     }
-    for name, (a, k) in wrong.items():
-        got = mla_paged_decode(*a, **k).float()
+    for name, bad in wrong.items():
+        got = pick(fns(bad)[0]().float())
         try:
             row_close(got, want, BF16_ROW_RTOL, name)
         except AssertionError:
@@ -995,16 +1018,41 @@ def kernel_phase(seed: int) -> dict:
     check_decode("tile edges int8 pages window=17 sinks=True, rebased "
                  "scales", int8_case(edges, rebase=True), 17, True, iters=3)
 
+    main.update(mla_kernel_phase(seed))
+    return main
+
+
+def mla_decode_kvs(seed: int) -> list:
+    """The kv_lens of the DeepSeek-V2-Lite decode case: the generator's
+    fourth draw after the GQA cases' three, as the kernel phase has drawn
+    them since the MLA kernels came (8 rows at kv 73-2582 for seed 0)."""
+    rng = np.random.default_rng(seed)
+    rng.integers(65, 1057, 8)
+    rng.integers(100, 2049, 7)
+    rng.integers(900, 1101, 8)
+    return [int(k) for k in rng.integers(65, 3001, 8)]
+
+
+def mla_kernel_phase(seed: int) -> dict:
+    """The MLA kernels' cases of the kernel phase; returns the main case of
+    each by name."""
+    main = {}
     log("kernel phase: mla_paged_decode vs mla_paged_decode_ref")
     v2 = dict(H=16, R=512, PR=128, rope_dim=64, bs=16)
     for dtype in (torch.float32, torch.bfloat16):
         # a kv_len 0 row, a one-page row, a long row split over CTAs
         check_mla(f"{str(dtype)[6:]} kv 0, 16, 3000, 9", make_mla(
             [0, 16, 3000, 9], dtype=dtype, seed=seed + 8, **v2), iters=5)
+    # the whole rope width read (R + PR = 640: the 32-key tiles)
+    whole = make_mla([0, 16, 3000, 9], dtype=torch.bfloat16, seed=seed + 8,
+                     live=False, **v2)
+    check_mla("bf16 kv 0, 16, 3000, 9, whole rope width", whole, iters=5)
+    check_mla("int8 pages kv 0, 16, 3000, 9, whole rope width",
+              mla_int8(whole), iters=5)
     check_mla("bf16 H=32 R=128 PR=64 kv 0, 16, 3000, 9", make_mla(
         [0, 16, 3000, 9], H=32, R=128, PR=64, rope_dim=64, bs=16,
         dtype=torch.bfloat16, seed=seed + 9), iters=5)
-    kvs = [int(k) for k in rng.integers(65, 3001, 8)]
+    kvs = mla_decode_kvs(seed)
     v2_case = make_mla(kvs, dtype=torch.bfloat16, seed=seed + 10, **v2)
     main["mla_paged_decode"] = check_mla(
         f"deepseek_v2_lite 8 decode rows bf16 kv {kvs}", v2_case)
@@ -1034,6 +1082,12 @@ def kernel_phase(seed: int) -> dict:
                              seed=seed + 21, **geo)
     check_mla_prefill("small chunk grid int8 pages, rebased scales",
                       mla_int8(small, rebase=True), iters=5)
+    whole = make_mla_prefill(rows, S=32, bs=16, dtype=torch.bfloat16,
+                             seed=seed + 21, live=False, **geo)
+    check_mla_prefill("small chunk grid bf16, whole rope width", whole,
+                      iters=5)
+    check_mla_prefill("small chunk grid int8 pages, whole rope width",
+                      mla_int8(whole), iters=5)
     check_mla_prefill("small chunk grid f32 pages", make_mla_prefill(
         rows, S=32, bs=16, dtype=torch.float32, seed=seed + 22, **geo),
         iters=5)
@@ -1051,6 +1105,7 @@ def kernel_phase(seed: int) -> dict:
     main["flash_mla_prefill"] = check_mla_prefill(
         f"deepseek_v2_lite chunk grid {len(grid['rows'])} tiles x 32 bf16, "
         f"chunks (start, tokens) {chunks}", grid)
+    mla_controls(grid)
     check_mla_prefill("deepseek_v2_lite chunk grid int8 pages",
                       mla_int8(grid), iters=10)
     return main

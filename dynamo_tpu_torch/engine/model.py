@@ -337,6 +337,14 @@ def rope_params(theta: float, hd: int, scaling: Optional[dict]):
     raise NotImplementedError(f"rope_scaling type '{kind}' not supported")
 
 
+def mla_rope_live(cfg: ModelConfig) -> int:
+    """The width of the q_rot that ``_mla_attention`` hands the MLA kernels:
+    qk_rope_head_dim rounded up to the kernels' 64-column step. The rope
+    pages keep rope_cache_dim columns, zero past qk_rope_head_dim, and the
+    kernels read only q_rot's width of them."""
+    return min(cfg.rope_cache_dim, -(-cfg.qk_rope_head_dim // 64) * 64)
+
+
 def mla_softmax_scale(cfg: ModelConfig) -> float:
     """MLA attention scale: qk_head_dim^-0.5 times the YaRN mscale² that
     HF's DeepseekV2/V3 attention applies when rope_scaling carries
@@ -480,8 +488,9 @@ def _mla_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
     weight-absorbed): q through wq (or q_a → RMSNorm → q_b); kv_a gives the
     RMSNorm'd latent c and the rotated k_rot, written at ``slots`` (k_rot
     zero-padded to rope_cache_dim); q_eff = q_nope·W_UK in f32;
-    ``attend(li, q_eff [N, H, r], q_rot [N, H, pr])`` (both f32, q_rot
-    zero-padded) returns the latent output [N, H, r], expanded through
+    ``attend(li, q_eff [N, H, r], q_rot [N, H, prl])`` (both f32, q_rot
+    zero-padded to prl = :func:`mla_rope_live`, the rope columns the
+    attention reads) returns the latent output [N, H, r], expanded through
     W_UV and wo."""
     H, r, dr = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
     dn, dv, pr = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.rope_cache_dim
@@ -500,7 +509,8 @@ def _mla_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
              F.pad(k_rot, (0, pr - dr)))
     w_uk = lw["w_uk"][i].view(r, H, dn).float()
     q_eff = torch.einsum("nhd,rhd->nhr", q[..., :dn].float(), w_uk)
-    o_lat = attend(li, q_eff.contiguous(), F.pad(q_rot.float(), (0, pr - dr)))
+    o_lat = attend(li, q_eff.contiguous(),
+                   F.pad(q_rot.float(), (0, mla_rope_live(cfg) - dr)))
     w_uv = lw["w_uv"][i].view(r, H, dv).float()
     out = torch.einsum("nhr,rhd->nhd", o_lat.float(), w_uv)
     return out.reshape(N, H * dv).to(h.dtype) @ lw["wo"][i]
@@ -561,13 +571,13 @@ def mla_layer_pages(k_cache, v_cache, li: int):
 def mla_attention_seg(q_eff, q_rot, latent, rope_pages, block_tables,
                       positions, kv_lens, *, block_size: int, scale: float,
                       c_scales=None, r_scales=None, seg_keys: int = 128):
-    """Latent-space attention of q_eff [B, S, H, r] / q_rot [B, S, H, pr]
-    (f32) over each row's pages, the key axis walked in segments of
-    ``seg_keys`` with an online softmax (the JAX package's
-    ``_mla_attention_seg``): scores q_eff·c + q_rot·k_rot, value c, keys at
-    or before each query's position and below kv_len; int8 pages dequantize
-    in f32 with ``c_scales``/``r_scales`` (scale slot base 0). Returns
-    o_lat [B, S, H, r] f32.
+    """Latent-space attention of q_eff [B, S, H, r] / q_rot [B, S, H, prl]
+    (f32; the first prl rope columns enter the scores) over each row's
+    pages, the key axis walked in segments of ``seg_keys`` with an online
+    softmax (the JAX package's ``_mla_attention_seg``): scores q_eff·c +
+    q_rot·k_rot, value c, keys at or before each query's position and below
+    kv_len; int8 pages dequantize in f32 with ``c_scales``/``r_scales``
+    (scale slot base 0). Returns o_lat [B, S, H, r] f32.
 
     The walk covers the whole table width W (a fully masked segment leaves
     the running max, sum and output as they are), so no bound is read on
@@ -600,7 +610,8 @@ def mla_attention_seg(q_eff, q_rot, latent, rope_pages, block_tables,
         cg, krg = gather_latent(latent, rope_pages, slot_idx, c_scales,
                                 r_scales)  # [B, SEG, r], [B, SEG, pr]
         sc = (torch.bmm(qe, cg.transpose(1, 2))
-              + torch.bmm(qr, krg.transpose(1, 2))).view(B, H, S, SEG)
+              + torch.bmm(qr, krg[..., :qr.shape[-1]].transpose(1, 2))
+              ).view(B, H, S, SEG)
         key_pos = s * SEG + torch.arange(SEG, device=dev)
         mask = (key_pos <= pos) & (key_pos < lens)  # [B, S, SEG]
         sc = sc.masked_fill(~mask[:, None], _NEG)
@@ -619,7 +630,7 @@ def mla_chunk_attention(q_eff, q_rot, latent, rope_pages, block_tables,
                         positions, kv_lens, *, block_size: int, scale: float,
                         c_scales=None, r_scales=None):
     """The chunk grid's MLA attention: q_eff [C, S, H, r] / q_rot [C, S, H,
-    pr] f32 of tiles whose tokens sit at consecutive ``positions`` [C, S]
+    prl] f32 of tiles whose tokens sit at consecutive ``positions`` [C, S]
     from column 0 on. CUDA tensors go through the MLA flash-prefill kernel
     (``flash_mla_prefill_paged``, pos_base = each tile's column 0), CPU
     tensors through :func:`mla_attention_seg`, the JAX package's own walk.

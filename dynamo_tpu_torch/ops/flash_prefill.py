@@ -202,7 +202,7 @@ def flash_prefill_paged(q, k_cache, v_cache, lidx: int, block_tables,
 # and rope part) once for both products. Contract:
 #
 #   q_eff     [B, S, H, r]   absorbed queries (f32 on the card)
-#   q_rot     [B, S, H, pr]  post-RoPE query part, zero-padded to pr
+#   q_rot     [B, S, H, prl] post-RoPE query part, zero-padded to prl
 #   keys      dense: c [B, T, r], k_rot [B, T, pr]; paged: the layer's
 #             latent [slots, r] and rope [slots, pr] pages (bf16, f32, or
 #             int8 with the c/r scales of mla_paged_decode) read through
@@ -212,8 +212,10 @@ def flash_prefill_paged(q, k_cache, v_cache, lidx: int, block_tables,
 #   → out     [B, S, H, r] f32
 #
 # Token s sees key t when t <= pos_base[b] + s and t < kv_lens[b]; scores
-# (q_eff·c + q_rot·k_rot)·scale, value c; a token that sees no key gets
-# zeros (ROADMAP C1). The output is f32 because every caller continues in
+# (q_eff·c + q_rot·k_rot)·scale over the first prl rope columns (q_rot's
+# width: the engine's pad past the rope dimension need not be read; the
+# kernel takes a multiple of 64 up to pr), value c; a token that sees no
+# key gets zeros (ROADMAP C1). The output is f32 because every caller continues in
 # f32 (the JAX package casts the kernel's output to f32 at once).
 
 
@@ -233,7 +235,7 @@ def flash_mla_prefill_ref(q_eff, q_rot, c, k_rot, pos_base, kv_lens, *,
         cb = c[b].float()
         s = (torch.einsum("shr,tr->hst", q_eff[b].float(), cb)
              + torch.einsum("shd,td->hst", q_rot[b].float(),
-                            k_rot[b].float())) * scale
+                            k_rot[b, :, :q_rot.shape[-1]].float())) * scale
         s = s.masked_fill(~mask, _NEG)
         e = torch.exp(s - s.amax(-1, keepdim=True)) * mask
         p = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
@@ -266,7 +268,7 @@ def _mla_kernel():
     undeclared, ctypes would pass each pointer as a 32-bit int and cut it."""
     fn = _build.load("mla_prefill").dtt_mla_prefill
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -290,9 +292,8 @@ def flash_mla_prefill_paged(q_eff, q_rot, latent, rope, block_tables,
     check_pages(q_eff, q_rot, latent, rope, c_scales, r_scales,
                 scale_slot_base, block_tables, kv_lens)
     if q_eff.dim() != 4:
-        raise ValueError("q_eff/q_rot must be [B, S, H, r]/[B, S, H, pr]")
+        raise ValueError("q_eff/q_rot must be [B, S, H, r]/[B, S, H, prl]")
     B, S, H, r = q_eff.shape
-    pr = q_rot.shape[3]
     if (pos_base.dtype != torch.int32 or tuple(pos_base.shape) != (B,)
             or pos_base.device != q_eff.device
             or not pos_base.is_contiguous()):
@@ -307,7 +308,8 @@ def flash_mla_prefill_paged(q_eff, q_rot, latent, rope, block_tables,
         c_scales.data_ptr() if c_scales is not None else None,
         r_scales.data_ptr() if r_scales is not None else None,
         int(scale_slot_base), block_tables.data_ptr(), pos_base.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(), B, S, H, r, pr,
+        kv_lens.data_ptr(), out.data_ptr(), B, S, H, r, rope.shape[1],
+        q_rot.shape[3],
         block_tables.shape[1], block_size, float(scale),
         PAGE_KINDS[latent.dtype],
         torch.cuda.current_stream(q_eff.device).cuda_stream)
@@ -325,11 +327,11 @@ def flash_mla_prefill(q_eff, q_rot, c, k_rot, pos_base, kv_lens, *,
                       scale: float):
     """MLA flash prefill over dense keys, the JAX ``flash_mla_prefill``
     contract: q_eff [B,S,H,r], q_rot [B,S,H,pr], c [B,T,r], k_rot [B,T,pr]
-    → [B,S,H,r] f32. CPU tensors take :func:`flash_mla_prefill_ref`. On the
-    card the dense keys are a paged cache of one T-slot page a row (table
-    [[0], [1], ...], block size T), so :func:`flash_mla_prefill_paged`
-    launches the kernel on them without a copy; queries of another float
-    type become f32 first."""
+    → [B,S,H,r] f32 (q_rot [B,S,H,prl], prl <= pr). CPU tensors take
+    :func:`flash_mla_prefill_ref`. On the card the dense keys are a paged
+    cache of one T-slot page a row (table [[0], [1], ...], block size T),
+    so :func:`flash_mla_prefill_paged` launches the kernel on them without
+    a copy; queries of another float type become f32 first."""
     if q_eff.device.type == "cpu":
         return flash_mla_prefill_ref(q_eff, q_rot, c, k_rot, pos_base,
                                      kv_lens, scale=scale)

@@ -5,13 +5,15 @@ Port of ``dynamo_tpu/ops/paged_attention.py``'s Pallas kernel
 branch. Contract, per layer:
 
   q_eff         [B, H, R] f32    queries absorbed through W_UK
-  q_rot         [B, H, PR] f32   post-RoPE query part, zero-padded to PR
+  q_rot         [B, H, PRL] f32  post-RoPE query part, zero-padded to PRL
   latent_cache  [slots, R]       normalised latent c per slot (bf16, f32 or
                                  int8)
-  rope_cache    [slots, PR]      post-RoPE k_rot per slot, zero-padded
+  rope_cache    [slots, PR]      post-RoPE k_rot per slot, zero-padded;
+                                 only its first PRL columns (q_rot's
+                                 width, PRL <= PR) enter the scores
   block_tables  [B, W] int32     per row (block 0 is the null block)
   kv_lens       [B] int32        keys of each row
-  scale         float            softmax scale, folded into the queries
+  scale         float            softmax scale of the scores
   c_scales,     [sc_slots] or    int8 pages only: f32 scales of each
   r_scales      [sc_slots, 1]    stream, slot s at s - scale_slot_base
   → out         [B, H, R] f32    softmax(scale·(q_eff·c + q_rot·k_rot))·c
@@ -36,13 +38,13 @@ import torch
 from dynamo_tpu_torch.ops import _build
 
 _NEG = -1e30
-#: heads one CTA holds (the MMA's M); H must be a multiple of it
+#: heads one CTA holds (16 of the MMA's rows); H must be a multiple of it
 HEAD_TILE = 16
 #: largest latent rank and rope width the kernel takes (multiples of 64)
 MAX_RANK = 512
 MAX_ROPE = 256
-#: bf16 and int8 pages: the kernel rounds q·scale and P (int8: p·c_scale)
-#: to bf16 for the tensor cores where the plain version keeps both in f32.
+#: bf16 and int8 pages: the kernel rounds q and P (int8: p·c_scale) to
+#: fp16 for the tensor cores where the plain version keeps both in f32.
 #: Each row's output agrees with the plain version's within this share of
 #: the row's largest magnitude: the output is a softmax-weighted mean of
 #: latents, whose scale falls as the row grows, so one absolute limit
@@ -52,12 +54,13 @@ BF16_ROW_RTOL = 1e-2
 PAGE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def geometry_error(H: int, R: int, PR: int):
+def geometry_error(H: int, R: int, PR: int, PRL=None):
     """Why the MLA kernels (decode and prefill) cannot take H heads, latent
-    rank R and rope width PR, or None."""
+    rank R, rope page width PR and q_rot width PRL (None: PR), or None."""
     if H % HEAD_TILE:
         return f"H {H} is not a multiple of {HEAD_TILE}"
-    for name, v, top in (("R", R, MAX_RANK), ("PR", PR, MAX_ROPE)):
+    for name, v, top in (("R", R, MAX_RANK), ("PR", PR, MAX_ROPE),
+                         ("q_rot width", PR if PRL is None else PRL, PR)):
         if v % 64 or not 64 <= v <= top:
             return f"{name} {v} is not a multiple of 64 in [64, {top}]"
     return None
@@ -92,7 +95,8 @@ def mla_paged_decode_ref(q_eff, q_rot, latent_cache, rope_cache,
     c, kr = gather_latent(latent_cache, rope_cache, slot_idx, c_scales,
                           r_scales, scale_slot_base)  # [B, T, R], [B, T, PR]
     s = (torch.einsum("bhr,btr->bht", q_eff.float() * scale, c)
-         + torch.einsum("bhd,btd->bht", q_rot.float() * scale, kr))
+         + torch.einsum("bhd,btd->bht", q_rot.float() * scale,
+                        kr[..., :q_rot.shape[-1]]))
     mask = (torch.arange(T, device=dev)[None, :]
             < kv_lens.long()[:, None])[:, None, :]  # [B, 1, T]
     s = s.masked_fill(~mask, _NEG)
@@ -110,7 +114,7 @@ def _kernel():
     lib = _build.load("mla_decode")
     fn = lib.dtt_mla_paged_decode
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     size = lib.dtt_mla_decode_scratch_floats
@@ -122,7 +126,7 @@ def _kernel():
 def check_pages(q_eff, q_rot, latent_cache, rope_cache, c_scales, r_scales,
                 scale_slot_base: int, block_tables, kv_lens) -> None:
     """Raise for operands the MLA kernels do not take: q_eff/q_rot f32
-    [..., H, R]/[..., H, PR] on one device with contiguous pages of one
+    [..., H, R]/[..., H, PRL] on one device with contiguous pages of one
     dtype (bf16, f32, or int8 with both streams' scales), int32 tables
     [B, W] and kv_lens [B]."""
     dev = q_eff.device
@@ -158,12 +162,11 @@ def check_pages(q_eff, q_rot, latent_cache, rope_cache, c_scales, r_scales,
     if latent_cache.dim() != 2 or rope_cache.dim() != 2:
         raise ValueError("the caches must be [slots, R] and [slots, PR]")
     H, R = q_eff.shape[-2:]
-    PR = q_rot.shape[-1]
+    PR = rope_cache.shape[1]
     if (q_rot.shape[:-1] != q_eff.shape[:-1] or latent_cache.shape[1] != R
-            or rope_cache.shape[1] != PR
             or rope_cache.shape[0] != latent_cache.shape[0]):
         raise ValueError("q and cache shapes disagree")
-    why = geometry_error(H, R, PR)
+    why = geometry_error(H, R, PR, q_rot.shape[-1])
     if why:
         raise ValueError(f"MLA kernel geometry: {why}")
     if block_tables.dtype != torch.int32 or kv_lens.dtype != torch.int32:
@@ -190,9 +193,8 @@ def mla_paged_decode(q_eff, q_rot, latent_cache, rope_cache, block_tables,
     check_pages(q_eff, q_rot, latent_cache, rope_cache, c_scales, r_scales,
                 scale_slot_base, block_tables, kv_lens)
     if q_eff.dim() != 3:
-        raise ValueError("q_eff/q_rot must be [B, H, R]/[B, H, PR]")
+        raise ValueError("q_eff/q_rot must be [B, H, R]/[B, H, PRL]")
     B, H, R = q_eff.shape
-    PR = q_rot.shape[2]
     W = block_tables.shape[1]
     out = torch.empty((B, H, R), dtype=torch.float32, device=q_eff.device)
     if B == 0:
@@ -209,7 +211,8 @@ def mla_paged_decode(q_eff, q_rot, latent_cache, rope_cache, block_tables,
         r_scales.data_ptr() if r_scales is not None else None,
         int(scale_slot_base), block_tables.data_ptr(), kv_lens.data_ptr(),
         out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-        B, H, R, PR, W, block_size, float(scale),
+        B, H, R, rope_cache.shape[1], q_rot.shape[2], W, block_size,
+        float(scale),
         PAGE_KINDS[latent_cache.dtype],
         torch.cuda.current_stream(q_eff.device).cuda_stream)
     if err != 0:

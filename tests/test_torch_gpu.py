@@ -204,8 +204,8 @@ def mla_pages(rng, nb, bs, R, PR, dtype):
 
 
 def assert_mla_close(got, want, dtype):
-    """f32 within 1e-4; bf16 and int8 pages (q·scale and P rounded to bf16
-    for the tensor cores) each row within BF16_ROW_RTOL of its own largest
+    """f32 within 1e-4; bf16 and int8 pages (q and P rounded to fp16 for
+    the tensor cores) each row within BF16_ROW_RTOL of its own largest
     magnitude, the limit chip_smoke.py holds the kernels to; a row of zeros
     (no visible key) exactly zeros."""
     if dtype == torch.float32:
@@ -429,3 +429,154 @@ def test_paged_decode_tile_edges_on_card(G, pages):
         torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                    rtol=2e-2)
         assert not got[7].float().any()  # kv_len 0: zeros
+
+
+# ------------------------------------------ tile edges of the MLA wgmma body
+#
+# The MLA bf16/int8 body attends 4 tokens x 16 heads (64 rows) a CTA over
+# key tiles of 64 keys (32 when R + q_rot's width exceed 576), two
+# warpgroups each taking half of a tile's scores and half of the output's
+# columns; decode rows split their keys over CTAs by the table width.
+
+#: MLA decode kv_lens: no key, one key, around a 64-key tile (63, 64, 65),
+#: a page and one, two tiles and two keys, and rows long enough to split
+#: beside rows that do not, in one launch
+MLA_EDGE_KV = [0, 1, 17, 63, 64, 65, 130, 2000, 3000]
+#: MLA prefill rows (pos_base, kv_len) of S = 45 tokens (not a multiple of
+#: the 4-token query tile): a fresh row of 45 keys, a chunk deep into its
+#: context, a row that sees no key, a row whose kv_len 131 ends inside its
+#: query tiles (tokens 31-44 past it), a row that sees one key
+MLA_EDGE_PREFILL = [(0, 45), (255, 300), (0, 0), (100, 131), (0, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", [None, 64])
+@pytest.mark.parametrize("pages", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("geometry", [(16, 512, 128), (32, 128, 64),
+                                      (16, 192, 64), (16, 64, 128)])
+def test_mla_tile_edges_on_card(geometry, pages, live):
+    """MLA decode (B5/B5b) and MLA prefill (B3m, paged and dense) at every
+    tile edge of the wgmma body (MLA_EDGE_KV, MLA_EDGE_PREFILL): one and
+    two head tiles; R 512 / PR 128, R 128 / PR 64, and the latent ranks
+    that split the output's 64-column blocks unevenly over the two
+    warpgroups (R 192: two and one; R 64: one and none); bf16 pages and
+    int8 pages behind a rebased scale table. With ``live`` q_rot is that
+    narrow while the rope pages' columns past it are nonzero: the kernel
+    must equal the plain version on q_rot zero-padded to the pages' width.
+    Without it q_rot has the pages' whole width."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    H, R, PR = geometry
+    rng = np.random.default_rng(60 + H + R + (live or 0))
+    bs, nb, W = 16, 700, 256
+    lat, rope, off, kw = mla_pages(rng, nb, bs, R, PR, pages)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+
+    def zero_pad(q_rot):
+        return torch.nn.functional.pad(q_rot, (0, PR - q_rot.shape[-1]))
+
+    def table(kv_lens):
+        bt = np.zeros((len(kv_lens), W), np.int32)
+        for b, n in enumerate(kv_lens):
+            used = -(-n // bs)
+            bt[b, :used] = rng.choice(np.arange(1, nb), used, replace=False)
+        return torch.from_numpy(bt + off).cuda()
+
+    B = len(MLA_EDGE_KV)
+    q_eff, q_rot = t(B, H, R), t(B, H, live or PR)
+    bt = table(MLA_EDGE_KV)
+    kl = torch.tensor(MLA_EDGE_KV, dtype=torch.int32).cuda()
+    got = mla_paged_decode(q_eff, q_rot, lat, rope, bt, kl, block_size=bs,
+                           scale=0.0722, **kw)
+    want = mla_paged_decode_ref(q_eff, zero_pad(q_rot), lat, rope, bt, kl,
+                                block_size=bs, scale=0.0722, **kw)
+    assert_mla_close(got, want, pages)
+    assert not got[0].any()  # kv_len 0: zeros
+
+    S = 45
+    B = len(MLA_EDGE_PREFILL)
+    q_eff, q_rot = t(B, S, H, R), t(B, S, H, live or PR)
+    pb = torch.tensor([p for p, _ in MLA_EDGE_PREFILL],
+                      dtype=torch.int32).cuda()
+    kl = torch.tensor([k for _, k in MLA_EDGE_PREFILL],
+                      dtype=torch.int32).cuda()
+    bt = table([k for _, k in MLA_EDGE_PREFILL])
+    got = flash_mla_prefill_paged(q_eff, q_rot, lat, rope, bt, pb, kl,
+                                  block_size=bs, scale=0.0722, **kw)
+    want = flash_mla_prefill_paged_ref(q_eff, zero_pad(q_rot), lat, rope, bt,
+                                       pb, kl, block_size=bs, scale=0.0722,
+                                       **kw)
+    assert_mla_close(got.flatten(0, 1), want.flatten(0, 1), pages)
+    assert not got[2].any()  # kv_len 0: zeros
+    if pages == torch.int8:
+        return
+    # the dense entry: T keys a row, no table
+    T = 300
+    c, kr = t(B, T, R).to(pages), t(B, T, PR).to(pages)
+    got = flash_mla_prefill(q_eff, q_rot, c, kr, pb, kl, scale=0.0722)
+    want = flash_mla_prefill_ref(q_eff, zero_pad(q_rot), c, kr, pb, kl,
+                                 scale=0.0722)
+    assert_mla_close(got.flatten(0, 1), want.flatten(0, 1), pages)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("magnitude", ["large", "small"])
+@pytest.mark.parametrize("pages", [torch.bfloat16, torch.int8])
+def test_mla_fp16_range_on_card(pages, magnitude):
+    """The MLA wgmma body takes fp16 operands, whose range (6.1e-5 to
+    65504 at full precision) is narrower than the f32 queries' and the
+    bf16 pages': queries of magnitude ~4e5 and pages of ~1e5 (large), or
+    queries of ~4e-5 and pages of ~4e-4 (small, with int8 c scales of
+    ~3e-6), with the softmax scale set so the scores are of order one.
+    Decode (B5/B5b) and prefill (B3m) must equal their plain versions
+    within BF16_ROW_RTOL, row by row, with no inf or NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    H, R, PR = 16, 512, 128
+    aq, ak = (1e5, 3e4) if magnitude == "large" else (1e-5, 1e-4)
+    rng = np.random.default_rng(90)
+    bs, nb, W = 16, 300, 128
+    lat, rope = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32) * ak).cuda() for shape in ((nb * bs, R), (nb * bs, PR)))
+    rope[:, 64:] = 0
+    kw = {}
+    if pages == torch.int8:
+        cq, cs = quantize_kv(lat[:, None])
+        rq, rs = quantize_kv(rope[:, None])
+        lat, rope = cq[:, 0], rq[:, 0]
+        kw = dict(c_scales=cs, r_scales=rs)
+    else:
+        lat, rope = lat.to(pages), rope.to(pages)
+    scale = 0.0722 / (aq * ak)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * aq).cuda()
+
+    kv_lens = [1, 65, 700, 2000]
+    bt = np.zeros((len(kv_lens), W), np.int32)
+    for b, n in enumerate(kv_lens):
+        used = -(-n // bs)
+        bt[b, :used] = rng.choice(np.arange(1, nb), used, replace=False)
+    bt = torch.from_numpy(bt).cuda()
+    kl = torch.tensor(kv_lens, dtype=torch.int32).cuda()
+    q_eff, q_rot = t(len(kv_lens), H, R), t(len(kv_lens), H, 64)
+    got = mla_paged_decode(q_eff, q_rot, lat, rope, bt, kl, block_size=bs,
+                           scale=scale, **kw)
+    want = mla_paged_decode_ref(q_eff, q_rot, lat, rope, bt, kl,
+                                block_size=bs, scale=scale, **kw)
+    assert bool(got.isfinite().all())
+    assert_mla_close(got, want, pages)
+
+    S = 40
+    pb = torch.tensor([0, 25, 660, 1960], dtype=torch.int32).cuda()
+    q_eff, q_rot = t(len(kv_lens), S, H, R), t(len(kv_lens), S, H, 64)
+    got = flash_mla_prefill_paged(q_eff, q_rot, lat, rope, bt, pb, kl,
+                                  block_size=bs, scale=scale, **kw)
+    want = flash_mla_prefill_paged_ref(q_eff, q_rot, lat, rope, bt, pb, kl,
+                                       block_size=bs, scale=scale, **kw)
+    assert bool(got.isfinite().all())
+    assert_mla_close(got.flatten(0, 1), want.flatten(0, 1), pages)

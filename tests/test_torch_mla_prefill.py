@@ -166,3 +166,48 @@ def test_mla_embed_matches_jax():
     assert got.shape == (B, cfg.hidden_size)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
     assert not got[2].any()
+
+
+@pytest.mark.parametrize("entry", ["prefill", "decode"])
+def test_narrow_q_rot_reads_its_rope_columns(entry):
+    """A q_rot narrower than the rope pages (the engine passes
+    qk_rope_head_dim rounded up to 64: 64 of DeepSeek-V2-Lite's 128 cache
+    columns, and of mla_tiny's): the MLA wrappers on CPU tensors read only
+    its width of the rope keys, whose columns past it are nonzero here.
+    The prefill wrapper equals JAX ``flash_mla_prefill(interpret=True)``
+    and the decode wrapper JAX ``mla_paged_decode(interpret=True)``, each
+    on q_rot zero-padded to the pages' width (atol 1e-5)."""
+    from dynamo_tpu.ops.paged_attention import (
+        mla_paged_decode as jax_mla_decode,
+    )
+    from dynamo_tpu_torch.ops.mla_decode import mla_paged_decode
+
+    rng = np.random.default_rng(11)
+    B, H, r, pr, live = 2, 4, 32, 128, 64
+    q_eff = _rand(rng, B, 5, H, r)
+    q_rot = _rand(rng, B, 5, H, live)
+    padded = np.pad(q_rot, ((0, 0),) * 3 + ((0, pr - live),))
+    if entry == "prefill":
+        c, kr = _rand(rng, B, 12, r), _rand(rng, B, 12, pr)
+        pb, kl = np.asarray([0, 7], np.int32), np.asarray([5, 12], np.int32)
+        want = np.asarray(jax_flash_mla(
+            *(jnp.asarray(x) for x in (q_eff, padded, c, kr, pb, kl)),
+            scale=0.2, interpret=True))
+        got = P.flash_mla_prefill(
+            *(torch.from_numpy(x) for x in (q_eff, q_rot, c, kr, pb, kl)),
+            scale=0.2)
+    else:
+        lat, rope = _rand(rng, 64, r), _rand(rng, 64, pr)
+        bt = np.asarray([[1, 2], [3, 0]], np.int32)
+        kl = np.asarray([20, 9], np.int32)
+        want = np.asarray(jax_mla_decode(
+            *(jnp.asarray(x) for x in (q_eff[:, 0], padded[:, 0], lat, rope,
+                                       bt, kl)),
+            block_size=16, scale=0.2, interpret=True))
+        got = mla_paged_decode(
+            *(torch.from_numpy(np.ascontiguousarray(x)) for x in (
+                q_eff[:, 0], q_rot[:, 0], lat, rope, bt, kl)),
+            block_size=16, scale=0.2)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    assert TM.mla_rope_live(get_model_config("deepseek_v2_lite")) == 64
+    assert TM.mla_rope_live(get_model_config("mla_tiny")) == 64
