@@ -44,9 +44,16 @@ prints any result:
      where the same three planted wrong outputs must fail the row check.
 3. Serving: ``AsyncTorchEngine`` with the llama3_8b preset at full width
    and depth on random weights from a seeded generator, eight concurrent
-   greedy requests after one warm-up request. The kernels' launch counts
-   are set to 0 just before and read just after; the ragged kernel must
-   have launched 32 times a step.
+   greedy requests after one warm-up request, on the depth-2 pipelined
+   decode loop (the default). The kernels' launch counts are set to 0 just
+   before and read just after; the ragged kernel must have launched 32
+   times a step. Then, on the same engine and an emptied prefix cache
+   each time, the same requests on the serial loop, whose eight streams
+   must equal the pipelined run's, and two of the prompts each served
+   alone on both loops, whose tokens must agree; TTFT, ITL, tok/s and the
+   decode step wall of both loops are printed. Every later serving run
+   (phases 7, 9 and 10) compares its eight streams across the two loops
+   in the same way.
 4. Full-width step: one packed ragged step through the kernel against the
    same step through the plain attention; logits must agree.
 5. Step profile: a decode-only and a prefill step at full width, timed on
@@ -57,12 +64,33 @@ prints any result:
 6. Embeddings: ``AsyncTorchEngine.embed`` of 8 inputs of 100-2048 tokens
    at full width through the flash prefill kernel (32 launches a call):
    unit norm, padding invariance, and agreement with the same embeddings
-   through the plain attention.
+   through the plain attention. Then the engine's weights are written as
+   an HF-layout checkpoint (safetensors shards, ``config.json``,
+   ``generation_config.json``) into ``.smoke_ckpt/`` beside this script
+   (the depth cut, and printed, if the disk cannot hold it), and read back:
+   ``ModelConfig.from_pretrained`` must equal the preset field by field
+   and ``load_hf_params`` the weights bit for bit.
 7. int8 KV serving: the eight requests again on an engine with
    ``kv_cache_dtype="int8"`` (the ragged kernel's int8 pages must launch),
    its pool beside the bf16 one's, one full-width int8 step against the
    plain version, and the step profile of phase 5 on int8 pages.
-8. DeepSeek-V2-Lite serving (the Llama engines released first: the two
+8. The worker, once the Llama engines are released: the port's
+   ``ControlPlaneServer``, ``python -m dynamo_tpu_torch.engine.main
+   --model-path .smoke_ckpt`` spawned with ``DYN_CONTROL_PLANE`` set, and
+   a port ``Client`` on a second runtime (responses over the TCP response
+   plane): the eight requests concurrently (TTFT, ITL, tok/s beside the
+   direct engine's, and the requests running and waiting after each of
+   the first steps, read from the worker's load metrics on the plane,
+   beside the engine's; none may wait for the runtime's request timeout,
+   the mark of a dispatch the worker never answered), the two solo
+   prompts (tokens equal to phase 3's), the KV stored events on the
+   plane's stream (the solo prompts' blocks under the direct engine's
+   hashes), one embedding (cosine against the direct engine's),
+   ``clear_kv_blocks``; then SIGTERM: exit 0 within
+   ``WORKER_EXIT_S`` and no instance left in discovery. The worker reports
+   its kernel launches at exit: the ragged kernel 32 times a step, the
+   flash prefill kernel 32 times for the embedding, nothing else.
+9. DeepSeek-V2-Lite serving (the Llama engines released first: the two
    models never share the card): ``AsyncTorchEngine`` with the
    deepseek_v2_lite preset at full width and depth (MLA + MoE, random
    seeded weights), the eight requests of phase 3 (79-881 prompt tokens
@@ -72,7 +100,7 @@ prints any result:
    through the kernels against the same step through their plain
    versions, the step profile, and one embedding call (2 inputs of up to
    1024 tokens) through the MLA prefill kernel against the plain attention.
-9. DeepSeek-V2-Lite from an int8 latent pool, on the same weights: the
+10. DeepSeek-V2-Lite from an int8 latent pool, on the same weights: the
    eight requests again (both MLA kernels on int8 pages, the same launch
    rule), the pool's blocks beside the bf16 pool's, one full-width int8
    step against its plain version, and the step profile.
@@ -86,11 +114,17 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import functools
 import gc
 import json
 import math
+import os
+import pathlib
+import shutil
+import signal
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -102,8 +136,9 @@ import torch.nn.functional as F
 from dynamo_tpu_torch.engine.cache import (
     allocate_device_cache, kv_block_bytes, quantize_kv,
 )
-from dynamo_tpu_torch.engine.config import EngineArgs
+from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+from dynamo_tpu_torch.engine.loader import load_hf_params
 from dynamo_tpu_torch.engine.model import (
     make_embed_fn, make_forward_fn, make_ragged_step_fn, mla_attention_seg,
 )
@@ -124,7 +159,12 @@ from dynamo_tpu_torch.ops.paged_attention import (
 from dynamo_tpu_torch.ops.ragged_attention import (
     ragged_attention_ref, ragged_paged_attention,
 )
-from dynamo_tpu_torch.protocols import PreprocessedRequest, StopConditions
+from dynamo_tpu_torch.protocols import (
+    LLMEngineOutput, PreprocessedRequest, StopConditions,
+)
+from dynamo_tpu_torch.router.protocols import KV_METRICS_SUBJECT, RouterEvent
+from dynamo_tpu_torch.router.publisher import parse_load_event
+from dynamo_tpu_torch.runtime.codec import unpackb
 
 #: DeepSeek-V2-Lite's softmax scale, qk_head_dim 192 to the -1/2
 MLA_SCALE = 1.0 / float(np.sqrt(192))
@@ -1114,11 +1154,90 @@ def mla_kernel_phase(seed: int) -> dict:
 # ------------------------------------------------------------------ phase 3
 
 
-async def serve(engine, model, prompts, max_tokens):
+class StepClock:
+    """Records each ``_execute`` of an engine: its start and end on the host
+    clock, the steps it ran (the pipelined loop runs many in one), whether
+    its plan held prefill chunks, and the requests running and waiting
+    after it (as the engine's load metrics report them)."""
+
+    def __init__(self, engine):
+        self.records = []
+        #: executes running now (the engine counts a step when one returns)
+        self.inflight = 0
+        run = engine._execute
+
+        async def timed(plan):
+            s0, t0 = engine.steps, time.perf_counter()
+            self.inflight += 1
+            try:
+                await run(plan)
+            finally:
+                self.inflight -= 1
+            # _run adds the last step after _execute returns
+            self.records.append((t0, time.perf_counter(),
+                                 engine.steps - s0 + 1, bool(plan.prefill),
+                                 len(engine.scheduler.running),
+                                 engine.scheduler.num_waiting()))
+
+        engine._execute = timed
+
+    def decode_step_ms(self) -> tuple[float, int]:
+        """Host wall of the run's last stretch of decode-only steps (from
+        the first one's start to the last one's end, the loop's work
+        between them included) over its steps: the decode step wall under
+        serving, pipelined or not."""
+        stretch = []
+        for rec in reversed(self.records):
+            if rec[3]:
+                break
+            stretch.append(rec)
+        if not stretch:
+            raise AssertionError("the run had no decode-only step")
+        steps = sum(r[2] for r in stretch)
+        return (stretch[0][1] - stretch[-1][0]) / steps * 1e3, steps
+
+    def admission(self, n: int = 4) -> list:
+        """(running, waiting) after each of the run's first ``n`` steps:
+        the requests admitted, and those that had arrived and waited."""
+        return [tuple(r[4:6]) for r in self.records[:n]]
+
+
+def serving_stats(res, wall: float) -> dict:
+    ttft = [st[0] - t0 for t0, st, _, _ in res]
+    itl = [b - a for _, st, _, _ in res for a, b in zip(st, st[1:])]
+    return {"ttft_mean": statistics.mean(ttft) * 1e3,
+            "ttft_max": max(ttft) * 1e3,
+            "itl_mean": statistics.mean(itl) * 1e3,
+            "itl_p50": statistics.median(itl) * 1e3,
+            "tok_s": sum(len(r[2]) for r in res) / wall, "wall": wall}
+
+
+def stats_line(st: dict) -> str:
+    line = (f"TTFT mean {st['ttft_mean']:.2f} ms max {st['ttft_max']:.2f} "
+            f"ms; ITL mean {st['itl_mean']:.2f} ms p50 {st['itl_p50']:.2f} "
+            f"ms; {st['tok_s']:.2f} tok/s over {st['wall']:.2f} s")
+    if "step_ms" in st:
+        line += (f"; decode step wall {st['step_ms']:.3f} ms "
+                 f"({st['step_n']} decode-only steps)")
+    return line
+
+
+async def serve(engine, model, prompts, max_tokens, events=None,
+                solo=()):
     """One short warm-up request (cuBLAS handles, allocator growth), then
     the kernels' counts set to 0 and the prompts served concurrently;
-    returns the streams, the wall time, the steps of the measured run and
-    those of them with chunk tokens."""
+    returns the streams, the wall time, the steps of the measured run, those
+    of them with chunk tokens, the launches of each kernel wrapper in it,
+    and the run's stats (with the requests running and waiting after its
+    first steps).
+
+    Then the prompts again on the serial loop (``pipeline_decode`` off) on
+    an emptied prefix cache: each of the streams must equal the pipelined
+    run's (the plans, the packing and so every step's shapes are the
+    same). ``solo`` (indices into ``prompts``) adds each solo prompt served
+    alone on both loops, each run on an emptied prefix cache; the KV
+    blocks the pipelined solo runs store are returned with them (from
+    ``events``)."""
     async def one(p, n):
         req = PreprocessedRequest(
             model=model, token_ids=p,
@@ -1131,26 +1250,86 @@ async def serve(engine, model, prompts, max_tokens):
             reason = out.finish_reason or reason
         return t0, stamps, toks, reason
 
-    try:
-        await one(list(range(1, 17)), 2)  # shares no prefix with prompts
-        steps0, chunk_steps0 = engine.steps, engine.chunk_steps
-        reset_counts()
+    clock = StepClock(engine)
+
+    async def run(pipeline: bool):
+        engine.args.pipeline_decode = pipeline
+        engine.pool.clear()  # every run computes its prompts
+        clock.records.clear()
         t0 = time.perf_counter()
         res = await asyncio.gather(*(one(p, max_tokens) for p in prompts))
-        return (res, time.perf_counter() - t0, engine.steps - steps0,
-                engine.chunk_steps - chunk_steps0)
+        st = serving_stats(res, time.perf_counter() - t0)
+        st["step_ms"], st["step_n"] = clock.decode_step_ms()
+        return res, st
+
+    async def settle():
+        """Until the engine's loop has counted its last step: a stream ends
+        at the commit that finished it, and the pipelined loop then commits
+        the step it launched behind that one."""
+        while clock.inflight or engine.scheduler.has_work:
+            await asyncio.sleep(0.001)
+
+    try:
+        await one(list(range(1, 17)), 2)  # shares no prefix with prompts
+        await settle()
+        steps0, chunk_steps0 = engine.steps, engine.chunk_steps
+        reset_counts()
+        res, st = await run(True)
+        await settle()
+        launches = {k["wrapper"]: k["wrapper"].launches for k in KERNELS}
+        st["admission"] = clock.admission()
+        out = {"res": res, "stats": st, "steps": engine.steps - steps0,
+               "chunk_steps": engine.chunk_steps - chunk_steps0,
+               "launches": launches}
+        res_off, out["stats_serial"] = await run(False)
+        await settle()
+        for i, (on, off) in enumerate(zip(res, res_off)):
+            if on[2] != off[2]:
+                raise AssertionError(
+                    f"stream {i}: the pipelined loop gave {on[2]}, the "
+                    f"serial loop {off[2]}")
+        if solo:
+            streams = {}
+            for pipeline in (True, False):
+                engine.args.pipeline_decode = pipeline
+                for i in solo:
+                    engine.pool.clear()
+                    n0 = len(events)
+                    streams[pipeline, i] = (await one(prompts[i],
+                                                      max_tokens))[2]
+                    if pipeline:
+                        out.setdefault("solo_hashes", set()).update(
+                            b.block_hash for e in events[n0:]
+                            for b in e.stored_blocks)
+            engine.args.pipeline_decode = True
+            for i in solo:
+                if streams[True, i] != streams[False, i]:
+                    raise AssertionError(
+                        f"solo prompt {i}: the pipelined loop gave "
+                        f"{streams[True, i]}, the serial loop "
+                        f"{streams[False, i]}")
+            out["solo"] = [(prompts[i], streams[True, i]) for i in solo]
+        return out
     finally:
         await engine.close()
 
 
+#: the phase 3 prompts served alone on both decode loops, whose streams the
+#: worker phase must reproduce
+SOLO = (0, 5)
+
+
 def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
-                  model: str = "llama3_8b", params=None):
+                  model: str = "llama3_8b", params=None,
+                  solo: bool = False):
     """Eight concurrent greedy requests at full width (on ``params``, or
     weights drawn from ``seed``); returns the engine, its attention
-    kernels' launches in the run by wrapper name, and the streams. The
-    ragged kernel (GQA), or the MLA decode kernel, must launch once a layer
-    every step; an MLA model's prefill kernel once a layer in every step
-    with chunk tokens; no other kernel at all."""
+    kernels' launches in the run by wrapper name, the streams, and what
+    ``serve`` returns (the serial loop's stats, and with ``solo`` the solo
+    streams). The pipelined and the serial loop must give the same
+    streams. The ragged kernel (GQA), or the MLA decode kernel, must
+    launch once a layer every step; an MLA model's prefill kernel once a
+    layer in every step with chunk tokens; no other kernel at all."""
     cfg = get_model_config(model)
     args = EngineArgs(block_size=16, max_num_seqs=8,
                       max_num_batched_tokens=2048, max_model_len=4096,
@@ -1179,20 +1358,19 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
         f"{engine.num_blocks * block_bytes / 1e9:.2f} GB, "
         f"{engine.num_blocks * args.block_size} tokens), set up in "
         f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(seed)
-    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
-               for n in rng.integers(64, 1025, 8)]
+    prompts = serving_prompts(cfg, seed)
     max_tokens = 32
-    res, wall, steps, chunk_steps = asyncio.run(serve(engine, model, prompts,
-                                                      max_tokens))
+    out = asyncio.run(serve(engine, model, prompts, max_tokens, events,
+                            SOLO if solo else ()))
+    res, steps, chunk_steps = out["res"], out["steps"], out["chunk_steps"]
     # launches each attention wrapper must show: one a layer per step (per
     # step with chunk tokens for the MLA prefill kernel), none elsewhere
     L = cfg.num_layers
     want = ({mla_paged_decode: L * steps,
              flash_mla_prefill_paged: L * chunk_steps} if cfg.is_mla
             else {ragged_paged_attention: L * steps})
-    launches = {w.__name__: w.launches for w in want}
-    other = {k["name"]: k["wrapper"].launches for k in KERNELS
+    launches = {w.__name__: out["launches"][w] for w in want}
+    other = {k["name"]: out["launches"][k["wrapper"]] for k in KERNELS
              if k["wrapper"] not in want}
 
     for i, (_t0, _st, toks, reason) in enumerate(res):
@@ -1201,28 +1379,36 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
                                  f"{len(toks)} tokens, want length/"
                                  f"{max_tokens}")
     for w, n in want.items():
-        if n == 0 or w.launches != n:
-            raise AssertionError(f"{w.__name__} launched {w.launches} times "
-                                 f"in {steps} steps ({chunk_steps} with "
-                                 f"chunk tokens), want {n}")
+        if n == 0 or out["launches"][w] != n:
+            raise AssertionError(f"{w.__name__} launched "
+                                 f"{out['launches'][w]} times in {steps} "
+                                 f"steps ({chunk_steps} with chunk tokens), "
+                                 f"want {n}")
     if any(other.values()):
         raise AssertionError(f"serving launched other kernels: {other}")
     stored = sum(len(e.stored_blocks) for e in events)
     if stored == 0:
         raise AssertionError("no KV stored events")
-    ttft = [st[0] - t0 for t0, st, _, _ in res]
-    itl = [b - a for _, st, _, _ in res for a, b in zip(st, st[1:])]
-    n_tok = sum(len(r[2]) for r in res)
     log(f"  [{smi}] {label}: 8 streams x {max_tokens} tokens, prompts "
         f"{sorted(len(p) for p in prompts)} (after a warm-up request): "
         f"{steps} ragged steps ({chunk_steps} with chunk tokens), "
         f"launches {launches}, {stored} KV blocks stored")
-    log(f"  [{smi}] {label}: TTFT mean {statistics.mean(ttft) * 1e3:.2f} ms "
-        f"max {max(ttft) * 1e3:.2f} ms; ITL mean "
-        f"{statistics.mean(itl) * 1e3:.2f} ms p50 "
-        f"{statistics.median(itl) * 1e3:.2f} ms; {n_tok / wall:.2f} tok/s "
-        f"over {wall:.2f} s")
-    return engine, launches, [r[2] for r in res]
+    log(f"  [{smi}] {label}, pipelined decode loop: "
+        f"{stats_line(out['stats'])}")
+    log(f"  [{smi}] {label}, serial decode loop: "
+        f"{stats_line(out['stats_serial'])}")
+    log("  the 8 streams are the same on both loops")
+    if solo:
+        log(f"  solo prompts {[len(p) for p, _ in out['solo']]} tokens: the "
+            f"same {max_tokens} tokens on both loops; "
+            f"{len(out['solo_hashes'])} KV blocks stored")
+    return engine, launches, [r[2] for r in res], out
+
+
+def serving_prompts(cfg, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
+            for n in rng.integers(64, 1025, 8)]
 
 
 def _leaves(tree):
@@ -1524,7 +1710,7 @@ def embedding_phase(engine, seed: int, smi: str) -> int:
 def int8_phase(seed: int, smi: str, bf16_blocks: int, bf16_streams):
     """Serving with an int8 KV pool and one full-width int8 step; returns
     the ragged kernel's launches in the serving run."""
-    engine, launches, streams = serving_phase(seed, smi, "int8")
+    engine, launches, streams, _ = serving_phase(seed, smi, "int8")
     launches = launches["ragged_paged_attention"]
     same = sum(a == b for a, b in zip(streams, bf16_streams))
     log(f"  int8 KV pool {engine.num_blocks} blocks vs bf16 pool "
@@ -1536,7 +1722,7 @@ def int8_phase(seed: int, smi: str, bf16_blocks: int, bf16_streams):
     return launches
 
 
-# ------------------------------------------------------------------ phase 8
+# ------------------------------------------------------------- phases 9-10
 
 
 def mla_embedding(engine, seed: int, smi: str) -> int:
@@ -1599,7 +1785,7 @@ def mla_phase(seed: int, smi: str) -> dict:
     the bf16 one's, the full-width int8 step and its profile. Returns the
     MLA kernels' launches in the two serving runs by KERNELS name."""
     model = "deepseek_v2_lite"
-    engine, served, streams = serving_phase(seed, smi, model=model)
+    engine, served, streams, _ = serving_phase(seed, smi, model=model)
     launches = {"mla_paged_decode": served["mla_paged_decode"],
                 "flash_mla_prefill": served["flash_mla_prefill_paged"]}
     full_width_step(engine, model, seed)
@@ -1609,8 +1795,8 @@ def mla_phase(seed: int, smi: str) -> dict:
     _release(engine)
     del engine
     # the int8 latent pool takes the freed pool's memory; same weights
-    engine, served, streams8 = serving_phase(seed, smi, "int8", model=model,
-                                             params=params)
+    engine, served, streams8, _ = serving_phase(seed, smi, "int8",
+                                                model=model, params=params)
     del params
     launches["mla_paged_decode_int8"] = served["mla_paged_decode"]
     same = sum(a == b for a, b in zip(streams8, streams))
@@ -1623,6 +1809,422 @@ def mla_phase(seed: int, smi: str) -> dict:
     full_width_step(engine, model, seed)
     step_profile(engine, model, seed)
     _release(engine)
+    return launches
+
+
+# ------------------------------------------------- phases 6 (end) and 8
+
+
+#: where the worker phase writes its checkpoint: inside the checkout (a
+#: directory .gitignore lists), removed when the phase ends
+CKPT_DIR = pathlib.Path(__file__).resolve().parent / ".smoke_ckpt"
+#: the name the worker registers its model under
+WORKER_MODEL = "llama3-8b-smoke"
+#: seconds the worker has to exit after SIGTERM, and to register
+WORKER_EXIT_S = 60
+WORKER_READY_S = 600
+#: Llama-3's special token ids, for the checkpoint's config files
+LLAMA3_BOS, LLAMA3_EOS = 128000, [128001, 128009]
+_ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16",
+              torch.float32: "F32"}
+
+
+def write_safetensors(path, tensors) -> int:
+    """One ``.safetensors`` file: the 8-byte little-endian header length,
+    the JSON header (padded with spaces to 8 bytes), then each tensor's
+    bytes in order. ``tensors`` is [(name, fn)], ``fn()`` giving the
+    tensor (a view), so only one tensor at a time is copied and crosses to
+    the host. Returns the bytes of tensor data written."""
+    header, off = {}, 0
+    for name, fn in tensors:
+        t = fn()  # a view: no copy yet
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for name, fn in tensors:
+            host = fn().contiguous().cpu()
+            f.write(host.view(torch.uint8).numpy().data)
+    return off
+
+
+def llama_hf_tensors(params: dict, layers) -> list:
+    """[(HF name, fn)] of a Llama params dict's layers ``layers`` (and, for
+    layer 0 / the last layer, the embedding / the final norm and the LM
+    head), in HF's [out, in] layout."""
+    lw = params["layers"]
+    out = []
+    first, last = layers[0] == 0, layers[-1] == lw["wq"].shape[0] - 1
+    if first:
+        out.append(("model.embed_tokens.weight", lambda: params["embed"]))
+    for i in layers:
+        pre = f"model.layers.{i}"
+        out += [
+            (f"{pre}.input_layernorm.weight", lambda i=i: lw["attn_norm"][i]),
+            (f"{pre}.post_attention_layernorm.weight",
+             lambda i=i: lw["mlp_norm"][i])]
+        for key, name in (("wq", "self_attn.q_proj"),
+                          ("wk", "self_attn.k_proj"),
+                          ("wv", "self_attn.v_proj"),
+                          ("wo", "self_attn.o_proj"),
+                          ("w_gate", "mlp.gate_proj"),
+                          ("w_up", "mlp.up_proj"),
+                          ("w_down", "mlp.down_proj")):
+            out.append((f"{pre}.{name}.weight",
+                        lambda i=i, key=key: lw[key][i].T))
+    if last:
+        out.append(("model.norm.weight", lambda: params["final_norm"]))
+        out.append(("lm_head.weight", lambda: params["lm_head"].T))
+    return out
+
+
+def write_llama_checkpoint(cfg, params: dict, path) -> int:
+    """An HF-layout Llama checkpoint of ``params`` (``cfg``'s depth):
+    safetensors shards of eight layers, their index, ``config.json`` and
+    ``generation_config.json``. Returns the bytes of weights written."""
+    path.mkdir(parents=True, exist_ok=True)
+    L = cfg.num_layers
+    groups = [list(range(k, min(k + 8, L))) for k in range(0, L, 8)]
+    total, weight_map = 0, {}
+    for k, layers in enumerate(groups):
+        name = f"model-{k + 1:05d}-of-{len(groups):05d}.safetensors"
+        tensors = llama_hf_tensors(params, layers)
+        total += write_safetensors(path / name, tensors)
+        weight_map.update({t: name for t, _ in tensors})
+    (path / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size,
+        "num_hidden_layers": L, "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "rope_theta": cfg.rope_theta, "rope_scaling": cfg.rope_scaling,
+        "rms_norm_eps": cfg.rms_norm_eps,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": cfg.tie_word_embeddings,
+        "torch_dtype": cfg.dtype, "hidden_act": "silu",
+        "bos_token_id": LLAMA3_BOS, "eos_token_id": LLAMA3_EOS}, indent=1))
+    (path / "generation_config.json").write_text(json.dumps(
+        {"bos_token_id": LLAMA3_BOS, "eos_token_id": LLAMA3_EOS}))
+    return total
+
+
+def _layer_bytes(params: dict) -> tuple[int, int]:
+    """(bytes of the per-layer stacks for one layer, bytes of the rest)."""
+    lw = params["layers"]
+    per = sum(t[0].numel() * t.element_size() for t in lw.values())
+    rest = sum(t.numel() * t.element_size() for k, t in params.items()
+               if k != "layers")
+    return per, rest
+
+
+def checkpoint_phase(engine, seed: int, smi: str, ref: dict) -> dict:
+    """Write the Llama-3-8B engine's weights as an HF checkpoint (its KV
+    pool freed first), then check that the port reads it back: the config
+    field by field against the preset, the weights bit for bit. When the
+    disk cannot hold the whole model, the checkpoint keeps the first
+    layers that fit (the width is never cut), and the worker phase's
+    reference streams come from a direct engine over those layers.
+    Releases the engine. Returns what the worker phase checks against."""
+    engine.k_cache = engine.v_cache = None
+    engine._embed_cache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = engine.cfg, engine.params
+    per, rest = _layer_bytes(params)
+    need = rest + cfg.num_layers * per
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CKPT_DIR).free
+    margin = 2 << 30
+    L = cfg.num_layers
+    if free < need + margin:
+        L = (free - margin - rest) // per
+        if L < 1:
+            raise AssertionError(f"{free / 1e9:.1f} GB free on the disk: "
+                                 "not enough for one layer's checkpoint")
+        log(f"  checkpoint: {free / 1e9:.1f} GB free on the disk for "
+            f"{need / 1e9:.2f} GB: depth cut to {L} of {cfg.num_layers} "
+            "layers, width kept")
+    ckpt_cfg = dataclasses.replace(cfg, num_layers=L)
+    cut = {**params, "layers": {k: t[:L] for k, t in
+                                params["layers"].items()}}
+    t0 = time.perf_counter()
+    nbytes = write_llama_checkpoint(ckpt_cfg, cut, CKPT_DIR)
+    write_s = time.perf_counter() - t0
+    got_cfg = ModelConfig.from_pretrained(str(CKPT_DIR))
+    if dataclasses.asdict(got_cfg) != dataclasses.asdict(ckpt_cfg):
+        raise AssertionError(f"from_pretrained: {got_cfg} != {ckpt_cfg}")
+    t0 = time.perf_counter()
+    loaded = load_hf_params(got_cfg, str(CKPT_DIR), "cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want, got = dict(_named(cut)), dict(_named(loaded))
+    if sorted(want) != sorted(got):
+        raise AssertionError(f"loaded {sorted(got)}, want {sorted(want)}")
+    for name, t in want.items():
+        if got[name].dtype != t.dtype or not torch.equal(got[name], t):
+            raise AssertionError(f"checkpoint weight {name} differs")
+    del loaded, got
+    log(f"  [{smi}] checkpoint: {nbytes / 1e9:.2f} GB of weights, {L} "
+        f"layers, in {len(list(CKPT_DIR.glob('*.safetensors')))} "
+        f"safetensors shards written in {write_s:.1f} s; from_pretrained "
+        f"equals the preset field by field; load_hf_params read it back "
+        f"in {load_s:.1f} s, bit-equal ({len(want)} tensors)")
+    if L < cfg.num_layers:
+        ref = direct_reference(ckpt_cfg, cut, seed, ref)
+    _release(engine)
+    del params, cut, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**ref, "layers": L}
+
+
+def direct_reference(cfg, params, seed: int, ref: dict) -> dict:
+    """The worker phase's references from a direct engine over ``params``
+    (a depth-cut checkpoint's): the solo streams, the KV blocks they store
+    and the reference embedding."""
+    events = []
+    engine = AsyncTorchEngine(cfg, EngineArgs(
+        block_size=16, max_num_seqs=8, max_num_batched_tokens=2048,
+        max_model_len=4096, seed=seed), params=params,
+        event_cb=events.append)
+
+    async def run():
+        solo, hashes = [], set()
+        try:
+            for prompt, _ in ref["solo"]:
+                engine.pool.clear()
+                n0 = len(events)
+                toks = []
+                async for o in engine.generate(PreprocessedRequest(
+                        model=WORKER_MODEL, token_ids=prompt,
+                        stop_conditions=StopConditions(
+                            max_tokens=len(ref["solo"][0][1]),
+                            ignore_eos=True))):
+                    toks.extend(o.token_ids)
+                solo.append((prompt, toks))
+                hashes.update(b.block_hash for e in events[n0:]
+                              for b in e.stored_blocks)
+            vec = (await engine.embed([ref["embed"][0]]))[0]
+        finally:
+            await engine.close()
+        return solo, hashes, vec
+
+    solo, hashes, vec = asyncio.run(run())
+    _release(engine)
+    return {**ref, "streams": None, "solo": solo, "solo_hashes": hashes,
+            "embed": (ref["embed"][0], vec)}
+
+
+def _named(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+async def _worker_run(ref: dict, smi: str) -> dict:
+    """The worker phase on an event loop: the port's hub, the worker
+    process, a client runtime; every check of the phase."""
+    from dynamo_tpu_torch.runtime import ControlPlaneServer, DistributedRuntime
+
+    hub = ControlPlaneServer()
+    addr = await hub.start()
+    log_path = CKPT_DIR / "worker.log"
+    t_spawn = time.perf_counter()
+    with open(log_path, "w") as wlog:
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "dynamo_tpu_torch.engine.main",
+            "--model-path", str(CKPT_DIR), "--model", WORKER_MODEL,
+            "--block-size", "16", "--max-num-seqs", "8",
+            "--max-num-batched-tokens", "2048", "--max-model-len", "4096",
+            stdout=asyncio.subprocess.PIPE, stderr=wlog,
+            env={**os.environ, "DYN_CONTROL_PLANE": addr},
+            cwd=str(pathlib.Path(__file__).resolve().parent))
+    rt = await DistributedRuntime.create(address=addr)
+    try:
+        deadline = time.perf_counter() + WORKER_READY_S
+        while not await rt.plane.kv_get_prefix(f"models/{WORKER_MODEL}/"):
+            if proc.returncode is not None:
+                raise AssertionError(f"the worker exited with "
+                                     f"{proc.returncode} before registering")
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"the worker did not register within "
+                                     f"{WORKER_READY_S} s")
+            await asyncio.sleep(0.2)
+        ready_s = time.perf_counter() - t_spawn
+        ns = rt.namespace("dynamo").component("backend")
+        gen = await ns.endpoint("generate").client().start()
+        (lease,) = await gen.wait_for_instances()
+        events = await rt.plane.stream_subscribe("kv_events")
+        stored = set()
+
+        async def drain_events():
+            async for _seq, payload in events:
+                ev = RouterEvent.from_wire(unpackb(payload))
+                if ev.worker_id == lease:
+                    stored.update(b.block_hash
+                                  for b in ev.event.stored_blocks)
+
+        drain = asyncio.get_running_loop().create_task(drain_events())
+
+        async def one(prompt, n):
+            t0 = time.perf_counter()
+            stamps, toks, reason = [], [], None
+            async for frame in await gen.generate(PreprocessedRequest(
+                    model=WORKER_MODEL, token_ids=prompt,
+                    stop_conditions=StopConditions(
+                        max_tokens=n, ignore_eos=True)).to_wire()):
+                out = LLMEngineOutput.from_wire(frame)
+                stamps.append(time.perf_counter())
+                toks.extend(out.token_ids)
+                reason = out.finish_reason or reason
+            return t0, stamps, toks, reason
+
+        async def ask(endpoint, request):
+            client = await ns.endpoint(endpoint).client().start()
+            await client.wait_for_instances()
+            async for frame in await client.generate(request):
+                await client.stop()
+                return frame
+            raise AssertionError(f"{endpoint}: no answer")
+
+        max_tokens = len(ref["solo"][0][1])
+        await one(list(range(1, 17)), 2)  # the same warm-up as phase 3
+        # the load metrics the worker publishes after each step: the
+        # requests running and waiting there, read for the burst's first
+        # steps (after the warm-up's last report has landed)
+        await asyncio.sleep(0.5)
+        loads = await rt.plane.subscribe(KV_METRICS_SUBJECT)
+        admission = []
+
+        async def drain_loads():
+            async for _subject, payload in loads:
+                worker, m = parse_load_event(payload)
+                if worker == lease:
+                    admission.append((m.worker_stats.request_active_slots,
+                                      m.worker_stats.num_requests_waiting))
+
+        drain_l = asyncio.get_running_loop().create_task(drain_loads())
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*(one(p, max_tokens)
+                                     for p in ref["prompts"]))
+        st = serving_stats(res, time.perf_counter() - t0)
+        drain_l.cancel()
+        await loads.cancel()
+        st["admission"] = admission[:4]
+        # a request whose dispatch went unanswered is retried by the client
+        # after the request timeout: it streams correctly, but late
+        if st["ttft_max"] >= rt.config.request_timeout * 1e3:
+            raise AssertionError(
+                f"a worker request waited {st['ttft_max']:.0f} ms for its "
+                f"first token: its dispatch went unanswered for the "
+                f"{rt.config.request_timeout} s request timeout")
+        for i, (_t, _s, toks, reason) in enumerate(res):
+            if reason != "length" or len(toks) != max_tokens:
+                raise AssertionError(f"worker stream {i}: {reason!r} after "
+                                     f"{len(toks)} tokens")
+        # each solo prompt alone on an emptied prefix cache, as in phase 3
+        for prompt, want in ref["solo"]:
+            cleared = await ask("clear_kv_blocks", {})
+            if not cleared.get("ok"):
+                raise AssertionError(f"clear_kv_blocks answered {cleared}")
+            got = (await one(prompt, max_tokens))[2]
+            if got != want:
+                raise AssertionError(f"worker solo stream {got} != the "
+                                     f"direct engine's {want}")
+        ids, want_vec = ref["embed"]
+        frame = await ask("embed", {"token_ids": [ids]})
+        cos = _cos(frame["embeddings"][0], want_vec)
+        if cos < EMBED_COS:
+            raise AssertionError(f"worker embedding cosine {cos}")
+        for _ in range(100):
+            if ref["solo_hashes"] <= stored:
+                break
+            await asyncio.sleep(0.05)
+        if not ref["solo_hashes"] <= stored:
+            raise AssertionError(
+                f"{len(ref['solo_hashes'] - stored)} of the direct engine's "
+                f"{len(ref['solo_hashes'])} solo-prompt blocks missing from "
+                "the worker's KV events")
+        # SIGTERM: a clean exit, and the instance leaves discovery
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = await asyncio.wait_for(proc.wait(), WORKER_EXIT_S)
+        exit_s = time.perf_counter() - t0
+        stdout = (await proc.stdout.read()).decode()
+        if rc != 0:
+            raise AssertionError(f"the worker exited with {rc}")
+        for _ in range(100):
+            if not gen.instance_ids():
+                break
+            await asyncio.sleep(0.05)
+        left = await rt.plane.kv_get_prefix(f"models/{WORKER_MODEL}/")
+        if gen.instance_ids() or left:
+            raise AssertionError(f"the worker is still in discovery: "
+                                 f"{gen.instance_ids()} {sorted(left)}")
+        drain.cancel()
+        await gen.stop()
+        report = json.loads(stdout.split("WORKER_EXIT ", 1)[1].splitlines()[0])
+        same = (sum(r[2] == want for r, want in zip(res, ref["streams"]))
+                if ref["streams"] else None)
+        return {"stats": st, "ready_s": ready_s, "exit_s": exit_s,
+                "cos": cos, "report": report, "lease": lease,
+                "blocks": len(stored), "same": same}
+    except BaseException:
+        log(f"worker log (tail):\n{log_path.read_text()[-4000:]}")
+        raise
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+        await rt.shutdown()
+        await hub.stop()
+
+
+def worker_phase(ref: dict, smi: str, direct: dict) -> dict:
+    """The worker: ``python -m dynamo_tpu_torch.engine.main`` on the
+    checkpoint the checkpoint phase wrote, behind the port's own hub,
+    driven by a port ``Client`` over the TCP response plane. Returns the
+    worker's kernel launches by wrapper name."""
+    try:
+        out = asyncio.run(_worker_run(ref, smi))
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    L, report = ref["layers"], out["report"]
+    launches = report["launches"]
+    want = {"ragged_paged_attention": L * report["steps"],
+            "flash_prefill": L}  # the one embed call
+    for name, n in launches.items():
+        if n != want.get(name, 0) or (name in want and n == 0):
+            raise AssertionError(f"worker launches {launches}, want {want} "
+                                 f"({report['steps']} steps)")
+    log(f"  [{smi}] worker: registered {out['ready_s']:.1f} s after spawn "
+        f"(load included), instance {out['lease']:x}; {report['steps']} "
+        f"engine steps ({report['pipelined_steps']} pipelined), launches "
+        f"{launches}; {out['blocks']} KV blocks stored on the event stream")
+    log(f"  [{smi}] worker over TCP, 8 streams x "
+        f"{len(ref['solo'][0][1])} tokens: {stats_line(out['stats'])}")
+    log(f"  [{smi}] direct engine, same requests: {stats_line(direct)}")
+    log(f"  (running, waiting) requests after each of the first steps: "
+        f"worker {out['stats']['admission']}, direct engine "
+        f"{direct['admission']}")
+    if out["same"] is not None:
+        # not a gate: the requests reach the worker at other times, so its
+        # steps hold other rows and shapes than the engine's
+        log(f"  {out['same']} of the worker's 8 streams equal the direct "
+            f"engine's")
+    log(f"  worker: solo streams equal the direct engine's; embedding cosine "
+        f"{out['cos']:.6f} (>= {EMBED_COS}); clear_kv_blocks ok; exit 0 "
+        f"{out['exit_s']:.2f} s after SIGTERM (<= {WORKER_EXIT_S} s), "
+        f"discovery empty")
     return launches
 
 
@@ -1642,7 +2244,8 @@ def main() -> int:
     main_case = kernel_phase(a.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    engine, served, streams = serving_phase(a.seed, smi)
+    engine, served, streams, phase3 = serving_phase(a.seed, smi,
+                                                    solo=True)
     launches = {"ragged_paged_attention": served["ragged_paged_attention"]}
     full_width_step(engine, "llama3_8b", a.seed)
     step_profile(engine, "llama3_8b", a.seed)
@@ -1650,10 +2253,17 @@ def main() -> int:
                                                            smi)
     launches["flash_prefill"] = embedding_phase(engine, a.seed, smi)
     bf16_blocks = engine.num_blocks
-    _release(engine)
+    prompts = serving_prompts(engine.cfg, a.seed)
+    embed_vec = asyncio.run(engine.embed([prompts[1]]))[0]
+    ref = checkpoint_phase(engine, a.seed, smi, {
+        "prompts": prompts, "streams": streams, "solo": phase3["solo"],
+        "solo_hashes": phase3["solo_hashes"],
+        "embed": (prompts[1], embed_vec)})  # releases the engine
     del engine
     launches["ragged_paged_attention_int8"] = int8_phase(
         a.seed, smi, bf16_blocks, streams)
+    # the parent holds no model: the worker sizes its pool from what is free
+    worker_phase(ref, smi, phase3["stats"])
     # the Llama engines are gone: DeepSeek-V2-Lite has the card to itself
     launches.update(mla_phase(a.seed, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")

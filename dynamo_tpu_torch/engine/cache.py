@@ -44,7 +44,8 @@ class BlockPool:
     """Refcounted block allocator with an inactive LRU prefix cache.
 
     ``on_removed(seq_hashes)`` fires when cached blocks are evicted (reused
-    for new data); ``on_freed()`` fires whenever release() returns
+    for new data), ``on_removed(None)`` when ``clear()`` drops them all;
+    ``on_freed()`` fires whenever release() returns
     capacity to the pool.
     """
 
@@ -146,6 +147,20 @@ class BlockPool:
                 self._meta.pop(bid)
                 self._free.append(bid)
         if freed and self.on_freed:
+            self.on_freed()
+
+    def clear(self) -> None:
+        """Drop the entire prefix cache (the admin ``clear_kv_blocks``):
+        every cached block not held by a sequence goes back to the free
+        list, and ``on_removed(None)`` reports the whole cache cleared."""
+        for h, bid in list(self._lru.items()):
+            self._meta.pop(bid, None)
+            self._by_hash.pop(h, None)
+            self._free.append(bid)
+        self._lru.clear()
+        if self.on_removed:
+            self.on_removed(None)  # None = cleared-all sentinel
+        if self.on_freed:
             self.on_freed()
 
 

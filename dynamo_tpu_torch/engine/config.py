@@ -10,6 +10,7 @@ one of them fails loudly instead of being ignored.
 
 from __future__ import annotations
 
+import json
 import math
 import os
 from dataclasses import dataclass
@@ -125,6 +126,132 @@ class ModelConfig:
                 (self.num_kv_heads, self.head_dim))
 
     @staticmethod
+    def from_hf_config(d: dict) -> "ModelConfig":
+        """Map a HuggingFace ``config.json`` dict onto ModelConfig, field
+        for field as the JAX package does (its ``from_hf_config``). The
+        families the port's forward lacks come out with their switches set,
+        and ``check_supported`` refuses them."""
+        arch = (d.get("architectures") or [""])[0].lower()
+        is_deepseek = "deepseek" in arch
+        is_gpt_oss = "gptoss" in arch
+        is_gemma2 = "gemma2" in arch
+        is_gemma = "gemma" in arch  # gemma-1 OR gemma-2
+        if "gemma3" in arch:
+            raise NotImplementedError(
+                "Gemma-3 (dual-base rope, plus-one qk-norm) is not "
+                "supported yet; Gemma 1/2 are")
+        is_phi3 = "phi3" in arch  # Phi-3 family AND Phi-4 (same arch class)
+        if is_phi3:
+            if float(d.get("partial_rotary_factor") or 1.0) != 1.0:
+                raise NotImplementedError(
+                    "partial rotary (phi-4-mini style) is not supported")
+            sc = d.get("rope_scaling")
+            if sc and sc.get("rope_type", sc.get("type")) == "longrope":
+                # longrope factors live in the scaling dict but the window
+                # sizes live on the top-level config — carry them together
+                # (rope_params reads only the dict)
+                sc = dict(sc)
+                sc["max_position_embeddings"] = d.get(
+                    "max_position_embeddings", 4096)
+                sc["original_max_position_embeddings"] = d.get(
+                    "original_max_position_embeddings",
+                    sc.get("original_max_position_embeddings",
+                           sc["max_position_embeddings"]))
+                d = {**d, "rope_scaling": sc}
+        if "qwen3moe" in arch:
+            # the uniform layer stack requires every non-prefix
+            # layer to be MoE; refuse irregular sparsity loudly rather than
+            # serving a silently-wrong forward
+            if d.get("mlp_only_layers") or d.get("decoder_sparse_step", 1) != 1:
+                raise ValueError(
+                    "Qwen3-MoE checkpoints with mlp_only_layers or "
+                    "decoder_sparse_step != 1 interleave dense layers mid-"
+                    "stack, which the stacked-layer forward does not support")
+        mla = is_deepseek and d.get("kv_lora_rank") is not None
+        layer_windows = None
+        if is_gemma2:
+            # HF Gemma2: sliding attention on EVEN layer indices
+            # (Gemma2DecoderLayer: is_sliding = not bool(layer_idx % 2))
+            L = d.get("num_hidden_layers", 26)
+            w = d.get("sliding_window", 4096)
+            layer_windows = tuple(w if i % 2 == 0 else 0 for i in range(L))
+        if is_gpt_oss:
+            L = d.get("num_hidden_layers", 36)
+            types = d.get("layer_types") or [
+                "sliding_attention" if i % 2 == 0 else "full_attention"
+                for i in range(L)]
+            layer_windows = tuple(
+                d.get("sliding_window", 128) if t == "sliding_attention" else 0
+                for t in types)
+        return ModelConfig(
+            vocab_size=d.get("vocab_size", 32000),
+            hidden_size=d.get("hidden_size", 4096),
+            intermediate_size=d.get("intermediate_size", 11008),
+            num_layers=d.get("num_hidden_layers", 32),
+            num_heads=d.get("num_attention_heads", 32),
+            num_kv_heads=d.get("num_key_value_heads", d.get("num_attention_heads", 32)),
+            head_dim=d.get("head_dim") if not is_deepseek else None,
+            embed_scale=is_gemma,
+            norm_plus_one=is_gemma,
+            hidden_activation=("gelu_tanh" if is_gemma else "silu"),
+            attn_logit_softcap=(d.get("attn_logit_softcapping") or 0.0)
+            if is_gemma2 else 0.0,
+            final_logit_softcap=(d.get("final_logit_softcapping") or 0.0)
+            if is_gemma2 else 0.0,
+            sandwich_norms=is_gemma2,
+            query_pre_attn_scalar=(d.get("query_pre_attn_scalar")
+                                   if is_gemma2 else None),
+            rope_theta=d.get("rope_theta", 10000.0),
+            rope_scaling=d.get("rope_scaling"),
+            rms_norm_eps=d.get("rms_norm_eps", 1e-5),
+            max_position_embeddings=d.get("max_position_embeddings", 8192),
+            tie_word_embeddings=d.get("tie_word_embeddings", False),
+            num_experts=(d.get("num_local_experts")       # mixtral
+                         or d.get("n_routed_experts")      # deepseek
+                         or d.get("num_experts", 0)        # qwen3-moe
+                         or 0),
+            num_experts_per_tok=d.get("num_experts_per_tok", 2),
+            moe_intermediate_size=d.get("moe_intermediate_size"),
+            n_shared_experts=d.get("n_shared_experts", 0) or 0,
+            first_k_dense_replace=d.get("first_k_dense_replace", 0) or 0,
+            scoring_func=d.get("scoring_func",
+                               "sigmoid" if "deepseekv3" in arch else "softmax"),
+            # Mixtral and gpt-oss renormalize their top-k gates (their HF
+            # configs have no such key); DeepSeek carries the flag explicitly
+            norm_topk_prob=d.get("norm_topk_prob",
+                                 "mixtral" in arch or is_gpt_oss),
+            routed_scaling_factor=d.get("routed_scaling_factor", 1.0),
+            n_group=d.get("n_group", 1) or 1,
+            topk_group=d.get("topk_group", 1) or 1,
+            kv_lora_rank=d.get("kv_lora_rank", 0) if mla else 0,
+            q_lora_rank=d.get("q_lora_rank") if mla else None,
+            qk_nope_head_dim=d.get("qk_nope_head_dim", 128),
+            qk_rope_head_dim=d.get("qk_rope_head_dim", 64),
+            v_head_dim=d.get("v_head_dim", 128),
+            qkv_bias=("qwen2" in arch
+                      or (is_gpt_oss and d.get("attention_bias", True))),
+            qk_norm="qwen3" in arch,
+            o_bias=is_gpt_oss and d.get("attention_bias", True),
+            layer_windows=layer_windows,
+            attention_sinks=is_gpt_oss,
+            moe_activation="swiglu_oss" if is_gpt_oss else "swiglu",
+            router_logit_bias=is_gpt_oss,
+            # qwen2 writes sliding_window but gates it behind
+            # use_sliding_window, whose HF default is False; mistral-style
+            # configs apply the window unconditionally; gpt-oss windows are
+            # per-layer (layer_windows above)
+            sliding_window=(d.get("sliding_window")
+                            if not is_gpt_oss
+                            and d.get("use_sliding_window",
+                                      "qwen2" not in arch) else None),
+        )
+
+    @staticmethod
+    def from_pretrained(path: str) -> "ModelConfig":
+        with open(os.path.join(path, "config.json")) as f:
+            return ModelConfig.from_hf_config(json.load(f))
+
+    @staticmethod
     def tiny(vocab_size: int = 256) -> "ModelConfig":
         return ModelConfig(
             vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
@@ -160,7 +287,6 @@ UNPORTED_KNOBS = {
     "pp_size": (1, "A11"),
     "use_pallas_attention": (False, "B1: the port's kernel is always on"),
     "multi_step_decode": (1, "A7"),
-    "pipeline_decode": (False, "A3"),
     "warmup_buckets": (False, "A7"),
     "speculative_tokens": (0, "A7"),
     "kvbm_host_bytes": (0, "A8"),
@@ -205,13 +331,16 @@ class EngineArgs:
     #: None / "auto" = the model dtype; "int8" = int8 pages with f32 scales
     #: per (slot, kv-head), about half the bytes (engine/cache.py)
     kv_cache_dtype: Optional[str] = None
+    #: depth-2 pipelining of single-step decode: step N+1 is launched with
+    #: step N's sampled tokens fed device to device, so the host's copy,
+    #: commit and emission of step N overlap step N+1
+    pipeline_decode: bool = True
     # knobs of the JAX package not ported yet (UNPORTED_KNOBS)
     tp_size: int = 1
     dp_size: int = 1
     pp_size: int = 1
     use_pallas_attention: bool = False
     multi_step_decode: int = 1
-    pipeline_decode: bool = False
     warmup_buckets: bool = False
     speculative_tokens: int = 0
     kvbm_host_bytes: int = 0

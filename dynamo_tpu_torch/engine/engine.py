@@ -9,9 +9,14 @@ scheduler plans as packed ragged steps,
 with the same ``generate(req, ctx)`` contract, the same packing and the same
 KV stored/removed events, so a torch worker and a JAX worker produce the
 same greedy streams and block hashes. Every plan goes through the one
-packed launch. The depth-2 pipelined decode loop and the multi-step and
-speculative fast paths are not ported yet (ROADMAP A3, A7), and requests
-that need anything but greedy sampling are refused at ``generate()``.
+packed launch. While every running sequence decodes, the depth-2
+pipelined loop (``EngineArgs.pipeline_decode``, on by default as in the
+JAX package) launches step N+1 with step N's greedy tokens fed on the
+device before step N's tokens reach the host. Each step's operands cross
+to the card as one non-blocking copy out of pinned staging memory, and its
+tokens come back the same way. The multi-step and speculative fast paths
+are not ported yet (ROADMAP A7), and requests that need anything but greedy
+sampling are refused at ``generate()``.
 
 Models: Llama-family GQA, and DeepSeek MLA with its MoE (the latent KV
 pool is sized from ``ModelConfig.kv_cache_spec``; MLA decode rows go
@@ -28,7 +33,11 @@ rope pages of both MLA kernels.
 
 The engine runs on the card: ``device=None`` means "cuda" and raises when
 CUDA is missing. Only an explicit ``device="cpu"`` runs on the CPU, where
-attention takes its plain PyTorch version.
+attention takes its plain PyTorch version. Every launch, copy and event of
+a step is issued on the device's default stream, from whichever thread
+runs it (a worker thread for the serial loop's steps, the event loop's
+thread for the pipelined loop's), so a step, the token feed into the next
+step and the tokens' copy to the host stay in issue order.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from __future__ import annotations
 import asyncio
 import itertools
 import logging
+import math
 import threading
 from typing import AsyncIterator, Callable, Optional
 
@@ -150,6 +160,10 @@ class AsyncTorchEngine:
         #: them whose plan held prefill chunks (an MLA model's chunk grid)
         self.steps = 0
         self.chunk_steps = 0
+        #: decode steps run by the depth-2 pipelined loop
+        self.pipelined_steps = 0
+        self._staging = (_Staging(args, self.device)
+                         if self.device.type == "cuda" else None)
         # embeddings: one forward fn and ONE scratch cache, replaced when
         # the (B, S) bucket changes, apart from the serving pool
         self._embed_fn = make_embed_fn(cfg, args.block_size)
@@ -278,7 +292,7 @@ class AsyncTorchEngine:
                     pass
                 continue
             try:
-                await self._run_ragged(plan)
+                await self._execute(plan)
             except Exception:
                 logger.exception("engine step failed; failing in-flight seqs")
                 for s in list(self.scheduler.running):
@@ -291,6 +305,13 @@ class AsyncTorchEngine:
             if self.metrics_cb:
                 self.metrics_cb(self._metrics())
             await asyncio.sleep(0)  # let ingress / cancellation run
+
+    async def _execute(self, plan: StepPlan) -> None:
+        if (not plan.prefill and plan.decode
+                and self._can_pipeline(plan.decode)):
+            if await self._run_decode_pipelined(plan.decode):
+                return
+        await self._run_ragged(plan)
 
     def pack(self, plan: StepPlan):
         """The plan's packed operands (numpy), with the JAX engine's layout:
@@ -344,38 +365,176 @@ class AsyncTorchEngine:
         """Execute the whole plan — decode rows and prefill chunks — as one
         packed ragged launch."""
         operands, rows = self.pack(plan)
-        dev = self.device
+        # launches off the event loop: on the CPU the step computes here, on
+        # the card the launches take host time
+        out = await asyncio.to_thread(self._step, operands, bool(plan.prefill))
 
-        def forward():
-            tensors = [torch.from_numpy(a).to(dev) for a in operands]
-            if not plan.prefill:
-                tensors[2] = None  # no chunk tokens: MLA skips the grid
-            logits, _, _ = self.step_fn(self.params, *tensors, self.k_cache,
-                                        self.v_cache)
-            return logits
-
-        # off the event loop: on the CPU the step computes here, on the
-        # card the launches take host time
-        logits = await asyncio.to_thread(forward)
-
-        # commit BEFORE sampling, as the JAX engine does
+        # commit BEFORE the tokens reach the host, as the JAX engine commits
+        # before sampling
         for w in plan.prefill:
             self.scheduler.commit_computed(w.seq, w.start + w.chunk)
         for s in plan.decode:
             self.scheduler.commit_computed(s, len(s.tokens))
 
-        sample_rows = [(i, seq) for i, (seq, smp, _w) in enumerate(rows)
-                       if smp]
-        idx = [i for i, _ in sample_rows]
+        toks, logps = await self._host_tokens(out)
+        for i, (seq, smp, _w) in enumerate(rows):
+            if smp:
+                self._deliver(seq, int(toks[i]), float(logps[i]))
 
-        def sample():
-            sel = logits[torch.tensor(idx, device=dev)] if idx else logits
-            toks, logps = sampling.greedy(sel)
-            return toks.tolist(), logps.tolist()  # waits for the step
+    def _step(self, operands, chunks: bool, feed=None) -> dict:
+        """One packed step on the device; runs in a worker thread. Stages the
+        operands, substitutes ``feed`` (the previous step's tokens on the
+        device, [n] for the first n rows) into the token column, launches
+        the step and the greedy argmax of every row, and starts the copy of
+        the tokens to the host. Returns the tokens on the device, their host
+        copies and the event that marks the copy done (None on the CPU)."""
+        if self._staging is not None:
+            tensors = self._staging.put(operands)
+        else:
+            tensors = [torch.from_numpy(a) for a in operands]
+        ints5, rows3, grid_rows, bt = tensors
+        if feed is not None:
+            ints5[0, :feed.shape[0]].copy_(feed)
+        if not chunks:
+            grid_rows = None  # no chunk tokens: MLA skips the grid
+        logits, _, _ = self.step_fn(self.params, ints5, rows3, grid_rows, bt,
+                                    self.k_cache, self.v_cache)
+        toks, logps = sampling.greedy(logits)
+        if self._staging is None:
+            return {"toks": toks, "host": (toks, logps), "copied": None}
+        host = (torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True),
+                torch.empty(logps.shape, dtype=logps.dtype, pin_memory=True))
+        host[0].copy_(toks, non_blocking=True)
+        host[1].copy_(logps, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record()
+        return {"toks": toks, "host": host, "copied": copied}
 
-        toks, logps = await asyncio.to_thread(sample)
-        for j, (_i, seq) in enumerate(sample_rows):
-            self._deliver(seq, toks[j], logps[j])
+    @staticmethod
+    async def _host_tokens(out: dict):
+        """The step's tokens and log-probabilities as host lists, once their
+        copy has landed (waited for off the event loop if it has not)."""
+        copied = out["copied"]
+        if copied is not None and not copied.query():
+            await asyncio.to_thread(copied.synchronize)
+        toks, logps = out["host"]
+        return toks.tolist(), logps.tolist()
+
+    # ------------------------------------------------- pipelined decode loop
+
+    #: re-plan (admission, preemption, metrics) at least this often even
+    #: when the pipeline could keep running
+    PIPELINE_REPLAN_STEPS = 64
+
+    def _can_pipeline(self, seqs: list[SeqState]) -> bool:
+        """True when the decode batch qualifies for the depth-2 pipelined
+        loop: every running sequence decodes in this batch and nothing
+        waits for admission. (The JAX engine also keeps requests that need
+        logprobs, logit edits or host-side guided decoding on the serial
+        loop; the port refuses those at ``generate()``.)"""
+        if not self.args.pipeline_decode or self.scheduler.waiting:
+            return False
+        # a running seq still mid-prefill needs plan() interleaving
+        return len(seqs) == len(self.scheduler.running)
+
+    def _decode_operands(self, seqs: list[SeqState], off: int):
+        """Packed operands of a decode-only step over ``seqs``, with ``off``
+        tokens per sequence still in flight (their ids unknown to the host:
+        positions, slots and tables need only the counts). None when block
+        allocation fails."""
+        args = self.args
+        bs = args.block_size
+        for s in seqs:
+            # this step writes KV at position len(s.tokens) - 1 + off
+            if not self.scheduler._ensure_blocks(s, len(s.tokens) + off):
+                return None
+        T = args.bucket_ragged_tokens(len(seqs))
+        R = args.ragged_rows(T)
+        W = args.max_blocks_per_seq
+        C, _ = ragged_grid_shape(T)
+        ints5 = np.zeros((5, T), np.int32)
+        ints5[3] = C  # every token is decode: the grid's dump tile
+        rows3 = np.zeros((R, 3), np.int32)
+        bt = np.full((R, W), NULL_BLOCK, np.int32)
+        for i, s in enumerate(seqs):
+            pos = len(s.tokens) - 1 + off
+            ints5[0, i] = s.tokens[-1]  # replaced on the device when off
+            ints5[1, i] = pos
+            ints5[2, i] = s.block_table[pos // bs] * bs + pos % bs
+            rows3[i] = (i, 1, pos + 1)
+            n = min(len(s.block_table), W)
+            bt[i, :n] = s.block_table[:n]
+        return ints5, rows3, np.zeros((C,), np.int32), bt
+
+    async def _dispatch_decode_step(self, seqs: list[SeqState], feed=None):
+        """Launch ONE decode step without waiting for the previous one's
+        tokens on the host: ``feed`` is the previous (uncommitted) step's
+        handle, whose tokens on the device fill this step's token column.
+        The launches run on the event loop's thread, as the JAX engine
+        dispatches: a worker thread launching beside the loop's commit
+        contends for the interpreter lock, and measured slower than the
+        serial loop on the card (PERF.md). Returns a handle for
+        _commit_decode_step, or None when block allocation fails (the caller
+        drains and falls back to plan(), which preempts)."""
+        operands = self._decode_operands(seqs, 1 if feed is not None else 0)
+        if operands is None:
+            return None
+        prev = feed["out"]["toks"][:len(seqs)] if feed is not None else None
+        return {"seqs": list(seqs), "out": self._step(operands, False, prev)}
+
+    async def _commit_decode_step(self, handle) -> None:
+        """Land one launched step: wait for its tokens' copy, then commit +
+        emit. Rows of sequences that finished at an earlier step are
+        overshoot: their KV write targeted a block that no sequence holds
+        registered, and is discarded."""
+        toks, logps = await self._host_tokens(handle["out"])
+        for i, s in enumerate(handle["seqs"]):
+            if s.finished is not None:
+                continue
+            self.scheduler.commit_computed(s, len(s.tokens))
+            self._deliver(s, int(toks[i]), float(logps[i]))
+        self.pipelined_steps += 1
+
+    async def _run_decode_pipelined(self, seqs: list[SeqState]) -> bool:
+        """Depth-2 software pipeline over single-step decode.
+
+        Serial loop per token: launch → device compute → host copy →
+        commit/emit → plan. Pipelined: step N+1 is launched (token column
+        fed device to device from step N's argmax) BEFORE step N's tokens
+        are awaited, so step N's copy, commit and emission overlap step
+        N+1's device time. Greedy-invariant: positions and commits are
+        exactly the serial loop's.
+
+        Drains (commits every launched step) and returns whenever the
+        steady state breaks: a sequence finished, was cancelled or ran out
+        of time, new work arrived, allocation failed, or
+        PIPELINE_REPLAN_STEPS elapsed. Returns True when at least one step
+        ran.
+        """
+        prev = None
+        done = 0
+        while True:
+            handle = await self._dispatch_decode_step(seqs, feed=prev)
+            if handle is None:
+                break  # allocation failure: plan() handles preemption
+            done += 1
+            committed, prev = prev, handle
+            if committed is not None:
+                await self._commit_decode_step(committed)
+            await asyncio.sleep(0)  # the streams take their tokens
+            if (done >= self.PIPELINE_REPLAN_STEPS or self._closed
+                    or self.scheduler.waiting
+                    or any(s.finished is not None for s in seqs)
+                    or any(getattr(s.ctx, "cancelled", False)
+                           or getattr(s.ctx, "expired", False)
+                           for s in seqs)):
+                break
+        if prev is not None:
+            await self._commit_decode_step(prev)
+        # _run adds 1 per _execute; top up so self.steps counts every
+        # committed pipelined step exactly once
+        self.steps += max(0, done - 1)
+        return done > 0
 
     def _deliver(self, seq: SeqState, token: int, logp: float) -> None:
         self.scheduler.append_token(seq, token)
@@ -397,7 +556,11 @@ class AsyncTorchEngine:
                                               parent_hash, blocks))
 
     def _on_removed(self, seq_hashes) -> None:
-        if self.event_cb is not None:
+        if self.event_cb is None:
+            return
+        if seq_hashes is None:  # BlockPool.clear()
+            self.event_cb(KvCacheEvent.clear(next(self._event_id)))
+        else:
             self.event_cb(KvCacheEvent.removed(next(self._event_id),
                                                list(seq_hashes)))
 
@@ -415,6 +578,42 @@ class AsyncTorchEngine:
                 gpu_prefix_cache_hit_rate=(
                     sched.prefix_hit_tokens / sched.prefix_query_tokens
                     if sched.prefix_query_tokens else 0.0)))
+
+
+class _Staging:
+    """Host-to-device operand staging through pinned memory. A step's four
+    int32 operands are written into one pinned buffer and cross in ONE
+    non-blocking copy; the device tensors are views of that copy. Two
+    buffers are used in turn, and a buffer is rewritten only after the
+    event recorded behind its last copy has completed, so a copy in flight
+    never reads a buffer that is being rewritten."""
+
+    def __init__(self, args: EngineArgs, device: torch.device):
+        T = args.ragged_token_buckets[-1]
+        R = args.ragged_rows(T)
+        C, _ = ragged_grid_shape(T)
+        n = 5 * T + 3 * R + C + R * args.max_blocks_per_seq
+        self.device = device
+        self._bufs = [torch.empty(n, dtype=torch.int32, pin_memory=True)
+                      for _ in range(2)]
+        self._done: list = [None, None]
+        self._turn = 0
+
+    def put(self, arrays) -> list:
+        i, self._turn = self._turn, self._turn ^ 1
+        if self._done[i] is not None:
+            self._done[i].synchronize()
+        buf = self._bufs[i]
+        host = buf.numpy()
+        spans, off = [], 0
+        for a in arrays:
+            host[off:off + a.size] = a.ravel()
+            spans.append((off, a.shape))
+            off += a.size
+        dev = buf[:off].to(self.device, non_blocking=True)
+        self._done[i] = torch.cuda.Event()
+        self._done[i].record()
+        return [dev[o:o + math.prod(shape)].view(shape) for o, shape in spans]
 
 
 def ragged_grid_shape(t_bucket: int) -> tuple[int, int]:

@@ -1,0 +1,341 @@
+"""``python -m dynamo_tpu_torch.engine.main`` — run a torch engine worker.
+
+The port of ``dynamo_tpu/engine/main.py`` in the aggregated role: it builds
+the engine (from a checkpoint directory, or a preset with random weights),
+joins the control plane, serves ``generate``, ``embed`` and
+``clear_kv_blocks``, publishes KV events and load metrics, registers the
+model card, and on SIGTERM or SIGINT drains, revokes its lease and leaves
+discovery. The JAX package's frontend and router find it as they find a
+JAX worker.
+
+It takes the JAX worker's command line. The flags of what the port does
+not serve yet (the decode and prefill roles, every ``EngineArgs`` knob in
+``UNPORTED_KNOBS``, KVBM, multimodal encode, multi-host, profiling) are
+refused with the ROADMAP id that ports them. One flag is the port's own:
+``--device`` (default "cuda"; "cpu" only when asked for). The model dtype
+is the checkpoint config's, as the JAX worker reads it.
+
+The worker prints ``WORKER_READY`` once registered, and at exit a line
+``WORKER_EXIT {json}`` with its engine steps and the launches of each
+attention kernel wrapper in this process.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import logging
+import os
+import signal
+
+from dynamo_tpu_torch.disagg.handlers import DecodeWorkerHandler
+from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+from dynamo_tpu_torch.llm.model_card import (
+    ModelDeploymentCard, register_llm, resolve_eos_token_ids,
+)
+from dynamo_tpu_torch.router.publisher import (
+    KvEventPublisher, WorkerMetricsPublisher,
+)
+from dynamo_tpu_torch.runtime import DistributedRuntime
+from dynamo_tpu_torch.runtime.config import setup_logging
+
+logger = logging.getLogger("dynamo_torch.engine.main")
+
+#: flags of the JAX worker the port does not serve yet: dest → (the value
+#: that means "off", the ROADMAP item that ports it). Any other value is
+#: refused at startup. (EngineArgs refuses its own UNPORTED_KNOBS.)
+REFUSED_FLAGS = {
+    "dp_rank": (None, "A11"),
+    "num_ranks": (1, "A11"),
+    "speculative_draft_layers": (0, "A7"),
+    "warmup_seq_lens": (None, "A7"),
+    "structured_table_mb": (None, "A7"),
+    "kv_layer_groups": (4, "A8"),
+    "kvbm_g4_gb": (0.0, "A8"),
+    "kvbm_distributed": (False, "A8"),
+    "kvbm_leader_workers": (0, "A8"),
+    "profile_dir": (None, "A12"),
+    "mm_encode": (False, "A9"),
+    "mm_vision_model": (None, "A9"),
+    "mm_projector": (None, "A9"),
+    "jax_coordinator": (None, "A11"),
+    "jax_num_processes": (None, "A11"),
+    "jax_process_id": (None, "A11"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="dynamo-tpu torch engine worker")
+    ap.add_argument("--model", default="torch-model", help="served model name")
+    ap.add_argument("--model-path", default=None,
+                    help="HF checkpoint dir (config.json + safetensors); "
+                         "omit for random weights (testing)")
+    ap.add_argument("--arch", default=None,
+                    help="architecture preset when no --model-path (see "
+                         "dynamo_tpu_torch.models.PRESETS)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; the worker runs on the card unless "
+                         "given cpu")
+    ap.add_argument("--namespace", default="dynamo")
+    ap.add_argument("--component", default=None, help="default: backend")
+    ap.add_argument("--role", default="aggregated",
+                    choices=["aggregated", "decode", "prefill"],
+                    help="only aggregated is ported (decode and prefill: "
+                         "ROADMAP A8)")
+    # the decode role's knobs: accepted, unused in the aggregated role
+    ap.add_argument("--prefill-component", default="prefill")
+    ap.add_argument("--prefill-queue", action="store_true", default=True)
+    ap.add_argument("--no-prefill-queue", dest="prefill_queue",
+                    action="store_false")
+    ap.add_argument("--max-local-prefill-length", type=int, default=512)
+    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--num-blocks", type=int, default=None)
+    ap.add_argument("--max-num-seqs", type=int, default=64)
+    ap.add_argument("--max-num-batched-tokens", type=int, default=2048)
+    ap.add_argument("--max-model-len", type=int, default=4096)
+    ap.add_argument("--tp-size", type=int, default=1)
+    ap.add_argument("--pp-size", type=int, default=1)
+    ap.add_argument("--dp-size", type=int, default=1)
+    ap.add_argument("--kv-cache-dtype", default=None,
+                    choices=["auto", "int8"])
+    ap.add_argument("--dp-rank", type=int, default=None)
+    ap.add_argument("--num-ranks", type=int, default=1)
+    ap.add_argument("--use-pallas-attention", action="store_true")
+    ap.add_argument("--quantization", default=None)
+    ap.add_argument("--speculative-method", default="prompt_lookup",
+                    choices=["prompt_lookup", "draft_layers"])
+    ap.add_argument("--speculative-draft-layers", type=int, default=0)
+    ap.add_argument("--speculative-tokens", type=int, default=0)
+    ap.add_argument("--multi-step-decode", type=int, default=1)
+    ap.add_argument("--warmup-buckets", action="store_true")
+    ap.add_argument("--warmup-seq-lens", default=None)
+    ap.add_argument("--no-pipeline-decode", dest="pipeline_decode",
+                    action="store_false", default=True,
+                    help="disable the depth-2 pipelined decode loop")
+    # on by default in the JAX worker, not ported: the flags that turn them
+    # off are accepted, and they are off
+    ap.add_argument("--no-structured-device", dest="structured_device",
+                    action="store_false", default=False)
+    ap.add_argument("--no-preempt-swap", dest="preempt_swap",
+                    action="store_false", default=False)
+    ap.add_argument("--structured-table-mb", type=float, default=None)
+    ap.add_argument("--kv-layer-groups", type=int, default=4)
+    ap.add_argument("--no-prefix-caching", action="store_true")
+    ap.add_argument("--tool-call-parser", default=None,
+                    choices=["hermes", "llama3_json", "mistral", "phi4",
+                             "pythonic", "nemotron_deci", "deepseek_v3_1",
+                             "harmony"])
+    ap.add_argument("--reasoning-parser", default=None,
+                    choices=["deepseek_r1", "qwen3", "basic", "granite",
+                             "gpt_oss"])
+    ap.add_argument("--eos-token-ids", default=None,
+                    help="comma-separated EOS ids (default: read from "
+                         "generation_config.json next to --model-path)")
+    ap.add_argument("--tokenizer", default=None,
+                    help="tokenizer dir for the model card (default: "
+                         "--model-path)")
+    ap.add_argument("--allow-test-metadata", action="store_true",
+                    help="permit the toy tokenizer + eos=[2] defaults when "
+                         "no --model-path is given (tests only)")
+    ap.add_argument("--migration-limit", type=int, default=None)
+    ap.add_argument("--swap-host-gb", type=float, default=None)
+    ap.add_argument("--kvbm-host-gb", type=float, default=0.0)
+    ap.add_argument("--kvbm-disk-dir", default=None)
+    ap.add_argument("--kvbm-disk-gb", type=float, default=0.0)
+    ap.add_argument("--kvbm-g4-gb", type=float, default=0.0)
+    ap.add_argument("--kvbm-distributed", action="store_true")
+    ap.add_argument("--kvbm-leader-workers", type=int, default=0)
+    ap.add_argument("--profile-dir", default=None)
+    ap.add_argument("--profile-seconds", type=float, default=30.0)
+    ap.add_argument("--mm-vision-model", default=None)
+    ap.add_argument("--mm-projector", default=None)
+    ap.add_argument("--mm-encode", action="store_true")
+    ap.add_argument("--jax-coordinator", default=None)
+    ap.add_argument("--jax-num-processes", type=int, default=None)
+    ap.add_argument("--jax-process-id", type=int, default=None)
+    return ap
+
+
+def configure(cli) -> tuple[ModelConfig, EngineArgs, list[int], str]:
+    """Everything the command line decides, checked before any heavy work:
+    (model config, engine args, EOS ids, tokenizer reference). Raises
+    SystemExit naming what is wrong or not ported."""
+    if cli.role != "aggregated":
+        raise SystemExit(f"--role {cli.role}: the torch worker serves the "
+                         "aggregated role only (ROADMAP A8)")
+    for dest, (off, item) in REFUSED_FLAGS.items():
+        if getattr(cli, dest) != off:
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"{flag}={getattr(cli, dest)!r} is not "
+                             f"supported by the torch worker yet (ROADMAP "
+                             f"{item})")
+    if cli.model_path:
+        if not os.path.isfile(os.path.join(cli.model_path, "config.json")):
+            raise SystemExit(f"--model-path {cli.model_path}: no config.json "
+                             "there (the torch worker loads local HF "
+                             "checkpoint directories only)")
+        cfg = ModelConfig.from_pretrained(cli.model_path)
+    else:
+        from dynamo_tpu_torch.models import get_model_config
+        cfg = get_model_config(cli.arch or "tiny")
+
+    eos: list[int] = []
+    if cli.eos_token_ids:
+        try:
+            eos = [int(x) for x in cli.eos_token_ids.split(",") if x.strip()]
+        except ValueError:
+            raise SystemExit(f"--eos-token-ids must be comma-separated ints, "
+                             f"got {cli.eos_token_ids!r}")
+    elif cli.model_path:
+        try:
+            eos = resolve_eos_token_ids(cli.model_path)
+        except ValueError as e:
+            raise SystemExit(f"{e}; pass --eos-token-ids")
+    elif cli.allow_test_metadata:
+        eos = [2]
+    if not eos:
+        raise SystemExit("no EOS ids: pass --model-path (reads "
+                         "generation_config.json), --eos-token-ids, or "
+                         "--allow-test-metadata for tests")
+    tokenizer_ref = cli.tokenizer or cli.model_path
+    if not tokenizer_ref:
+        if not cli.allow_test_metadata:
+            raise SystemExit(
+                "no --model-path given: refusing to register with test-only "
+                "tokenizer/EOS metadata. Pass --model-path, or "
+                "--eos-token-ids plus --tokenizer, or --allow-test-metadata "
+                "for tests.")
+        tokenizer_ref = "test"
+
+    try:
+        args = EngineArgs(
+            block_size=cli.block_size, num_blocks=cli.num_blocks,
+            max_num_seqs=cli.max_num_seqs,
+            max_num_batched_tokens=cli.max_num_batched_tokens,
+            max_model_len=cli.max_model_len,
+            enable_prefix_caching=not cli.no_prefix_caching,
+            tp_size=cli.tp_size, dp_size=cli.dp_size, pp_size=cli.pp_size,
+            use_pallas_attention=cli.use_pallas_attention,
+            multi_step_decode=cli.multi_step_decode,
+            speculative_tokens=cli.speculative_tokens,
+            kvbm_host_bytes=int(cli.kvbm_host_gb * (1 << 30)),
+            kvbm_disk_dir=cli.kvbm_disk_dir,
+            kvbm_disk_bytes=int(cli.kvbm_disk_gb * (1 << 30)),
+            preempt_swap=cli.preempt_swap,
+            swap_host_bytes=(int(cli.swap_host_gb * (1 << 30))
+                             if cli.swap_host_gb is not None else None),
+            quantization=cli.quantization,
+            kv_cache_dtype=cli.kv_cache_dtype,
+            pipeline_decode=cli.pipeline_decode,
+            structured_device=cli.structured_device,
+            warmup_buckets=cli.warmup_buckets)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    return cfg, args, eos, tokenizer_ref
+
+
+def build_engine(cli, cfg: ModelConfig, args: EngineArgs):
+    """Construct the engine BEFORE joining the control plane: loading the
+    weights and allocating the pool block the event loop long enough to
+    starve the lease keepalive."""
+    from dynamo_tpu_torch.engine.engine import AsyncTorchEngine, resolve_device
+
+    device = resolve_device(cli.device)
+    params = None
+    if cli.model_path:
+        from dynamo_tpu_torch.engine.loader import load_hf_params
+        params = load_hf_params(cfg, cli.model_path, device)
+    return AsyncTorchEngine(cfg, args, params=params, device=device)
+
+
+def kernel_launches() -> dict:
+    """Launches of each attention kernel wrapper in this process."""
+    from dynamo_tpu_torch.ops.flash_prefill import (
+        flash_mla_prefill_paged, flash_prefill,
+    )
+    from dynamo_tpu_torch.ops.mla_decode import mla_paged_decode
+    from dynamo_tpu_torch.ops.paged_attention import paged_attention_decode
+    from dynamo_tpu_torch.ops.ragged_attention import ragged_paged_attention
+
+    return {w.__name__: w.launches for w in (
+        ragged_paged_attention, flash_prefill, paged_attention_decode,
+        mla_paged_decode, flash_mla_prefill_paged)}
+
+
+async def serve(cli, engine, args: EngineArgs, eos: list[int],
+                tokenizer_ref: str, stop: asyncio.Event) -> dict:
+    """Join the plane, serve until ``stop`` is set, then drain and leave.
+    Returns the exit report (engine steps, kernel launches)."""
+    runtime = await DistributedRuntime.create()
+    try:
+        lease = await runtime.primary_lease()
+        kv_pub = KvEventPublisher(runtime.plane, worker_id=lease,
+                                  kv_block_size=args.block_size)
+        await kv_pub.start_resync_responder()
+        engine.event_cb = kv_pub.publish_sync
+        engine.metrics_cb = WorkerMetricsPublisher(
+            runtime.plane, worker_id=lease).publish_sync
+
+        component = cli.component or "backend"
+        ns = runtime.namespace(cli.namespace)
+        ep = ns.component(component).endpoint("generate")
+        handle = await ep.serve_endpoint(DecodeWorkerHandler(engine).generate,
+                                         lease_id=lease)
+        embed_handle = await ns.component(component).endpoint(
+            "embed").serve_endpoint(engine.embed_handler, lease_id=lease)
+
+        async def clear_kv_handler(request, ctx):
+            """Admin flush: the device prefix cache."""
+            engine.pool.clear()
+            yield {"ok": True, "message": "KV cache cleared"}
+
+        clear_handle = await ns.component(component).endpoint(
+            "clear_kv_blocks").serve_endpoint(clear_kv_handler,
+                                              lease_id=lease)
+        card = ModelDeploymentCard(
+            display_name=cli.model, kv_cache_block_size=args.block_size,
+            eos_token_ids=eos, tokenizer_ref=tokenizer_ref)
+        card.runtime_config.total_kv_blocks = engine.num_blocks
+        card.runtime_config.max_num_seqs = args.max_num_seqs
+        card.runtime_config.max_num_batched_tokens = \
+            args.max_num_batched_tokens
+        if cli.migration_limit is not None:
+            card.migration_limit = cli.migration_limit
+        card.runtime_config.tool_call_parser = cli.tool_call_parser
+        card.runtime_config.reasoning_parser = cli.reasoning_parser
+        await register_llm(runtime, ep, card, lease_id=lease)
+
+        print("WORKER_READY", flush=True)
+        await stop.wait()
+        await embed_handle.stop(graceful=False)
+        await clear_handle.stop(graceful=False)
+        await handle.stop(graceful=True, timeout=runtime.config.drain_timeout)
+        await kv_pub.stop()
+        await engine.close()
+    finally:
+        await runtime.shutdown()
+    return {"steps": engine.steps, "pipelined_steps": engine.pipelined_steps,
+            "launches": kernel_launches()}
+
+
+async def amain(argv=None) -> None:
+    cli = build_parser().parse_args(argv)
+    # command-line mistakes fail in milliseconds, not after the load
+    cfg, args, eos, tokenizer_ref = configure(cli)
+    engine = build_engine(cli, cfg, args)
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    report = await serve(cli, engine, args, eos, tokenizer_ref, stop)
+    print("WORKER_EXIT " + json.dumps(report), flush=True)
+
+
+def main():
+    setup_logging()
+    asyncio.run(amain())
+
+
+if __name__ == "__main__":
+    main()

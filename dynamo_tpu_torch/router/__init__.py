@@ -1,1 +1,1 @@
-"""Router-facing wire types the engine emits."""
+"""Router-facing wire types and the worker-side publishers."""

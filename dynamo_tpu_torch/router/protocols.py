@@ -1,6 +1,7 @@
-"""KV-router wire types an engine emits, the port's copy of the part of
-``dynamo_tpu/router/protocols.py`` the engine needs: KV cache events and
-per-step load metrics. Hashes:
+"""KV-router wire types a worker emits, the port's copy of the part of
+``dynamo_tpu/router/protocols.py`` the engine and its publishers need: KV
+cache events (attributed to a worker as ``RouterEvent`` on the
+``kv_events`` stream) and per-step load metrics. Hashes:
 
 - ``tokens_hash``: salted xxh3 of the block's tokens (the radix edge key);
 - ``block_hash``: the engine's chained sequence hash (the removal key).
@@ -10,6 +11,13 @@ from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field, fields
 from typing import Optional
+
+#: durable stream carrying RouterEvents
+KV_EVENTS_STREAM = "kv_events"
+#: pub/sub subject carrying ForwardPassMetrics
+KV_METRICS_SUBJECT = "kv_metrics"
+#: subject prefix a gapped router publishes on to ask workers to re-announce
+KV_RESYNC_SUBJECT = "kv_resync"
 
 
 @dataclass
@@ -37,6 +45,10 @@ class KvCacheEvent:
     @staticmethod
     def removed(event_id: int, hashes: list[int]) -> "KvCacheEvent":
         return KvCacheEvent(event_id=event_id, removed_hashes=hashes)
+
+    @staticmethod
+    def clear(event_id: int) -> "KvCacheEvent":
+        return KvCacheEvent(event_id=event_id, cleared=True)
 
     def to_wire(self) -> dict:
         d: dict = {"event_id": self.event_id}
@@ -66,6 +78,21 @@ class KvCacheEvent:
         elif d.get("cleared"):
             ev.cleared = True
         return ev
+
+
+@dataclass
+class RouterEvent:
+    """A KvCacheEvent attributed to a worker."""
+
+    worker_id: int
+    event: KvCacheEvent
+
+    def to_wire(self) -> dict:
+        return {"worker_id": self.worker_id, "event": self.event.to_wire()}
+
+    @staticmethod
+    def from_wire(d: dict) -> "RouterEvent":
+        return RouterEvent(d["worker_id"], KvCacheEvent.from_wire(d["event"]))
 
 
 @dataclass

@@ -2,7 +2,10 @@
 
 - No module of ``dynamo_tpu_torch`` and nothing in ``chip_smoke.py``
   imports ``jax`` (or ``jaxlib``, ...) or the ``dynamo_tpu`` package: the
-  port keeps its own copies, and runs where JAX is not installed.
+  port keeps its own copies, and runs where JAX is not installed. Nor do
+  they import ``msgpack``, ``safetensors`` or ``aiohttp``, and the worker
+  entry point imports in an interpreter where those, ``jinja2``,
+  ``tokenizers`` and ``transformers`` cannot be imported.
 - The port's pure-Python XXH3-64 gives the JAX package's (xxhash) block and
   sequence hashes bit for bit, the KV identity a mixed fleet shares.
 """
@@ -48,6 +51,16 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_wire_package_imports(path):
+    """The port keeps its own msgpack and safetensors reader, and serves no
+    HTTP: the card's machine need not have these packages."""
+    bad = sorted(m for m in _imports(path)
+                 if m.split(".")[0] in ("msgpack", "safetensors", "aiohttp"))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_forbidden_rule():
     assert _forbidden("jax.numpy") and _forbidden("jaxlib")
     assert _forbidden("dynamo_tpu") and _forbidden("dynamo_tpu.tokens")
@@ -82,3 +95,37 @@ def test_xxh3_every_short_length():
 def test_xxh3_refuses_long_input():
     with pytest.raises(ValueError, match="240"):
         tokens.xxh3_64(bytes(241))
+
+
+#: packages the card's machine need not have; the worker's import closure
+#: must load none of them
+ABSENT_ON_CARD = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "safetensors",
+                  "aiohttp", "jinja2", "tokenizers", "transformers")
+
+
+def test_worker_imports_with_jax_and_wire_packages_blocked():
+    """In a fresh interpreter where importing any of ABSENT_ON_CARD fails,
+    the worker entry point, its loader and engine, and chip_smoke.py
+    import, and the worker parses and checks a command line."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        f"for name in {ABSENT_ON_CARD!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import dynamo_tpu_torch.engine.main as m\n"
+        "import dynamo_tpu_torch.engine.loader, dynamo_tpu_torch.engine.engine\n"
+        "import chip_smoke\n"
+        "cli = m.build_parser().parse_args(['--arch', 'tiny', '--device',\n"
+        "    'cpu', '--allow-test-metadata'])\n"
+        "cfg, args, eos, tk = m.configure(cli)\n"
+        "assert args.pipeline_decode and eos == [2] and tk == 'test'\n"
+        "loaded = [n for n in sys.modules if n.split('.')[0] in\n"
+        f"          {ABSENT_ON_CARD!r} and sys.modules[n] is not None]\n"
+        "assert not loaded, loaded\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")

@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""Where a decode step's host time goes under serving, on one CUDA card.
+
+    python3 tune_decode_loop.py [--model llama3_8b] [--tokens 64]
+                                [--rounds 2] [--profile N] [--seed N]
+
+Builds one ``AsyncTorchEngine`` of the preset at full width and depth on
+random weights from the seed, and serves ``chip_smoke.py``'s eight
+concurrent greedy requests (after one warm-up request) on the serial
+decode loop (``pipeline_decode`` off: each step's launches in a worker
+thread, then the wait for its tokens, then the commit) and on the
+engine's depth-2 pipelined loop, in the order serial, pipelined,
+pipelined, serial, ``--rounds`` times, on an emptied prefix cache each
+time. Each run prints TTFT, ITL, tok/s and the decode step wall
+(``chip_smoke.StepClock``). Before the runs it times one decode step's
+parts: the host time of its launches (``_step``), the wait for its
+tokens, and the device time between two events around it.
+
+``--profile N`` then serves the requests once more on the pipelined loop
+under ``cProfile`` and prints the N functions with the most time of their
+own (cProfile slows every Python call and no native one, so it finds
+candidates; the loop runs measure what they cost).
+
+The card's name and power limit come first; every number is this run's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import cProfile
+import io
+import pstats
+import statistics
+import sys
+import time
+
+import torch
+
+import chip_smoke
+from dynamo_tpu_torch.engine.config import EngineArgs
+from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+from dynamo_tpu_torch.engine import sampling
+from dynamo_tpu_torch.engine.scheduler import SeqState
+from dynamo_tpu_torch.models import get_model_config
+from dynamo_tpu_torch.protocols import PreprocessedRequest, StopConditions
+
+
+#: name -> pipeline_decode
+LOOPS = {"serial": False, "pipelined": True}
+
+
+def step_parts(engine, n: int = 20) -> str:
+    """Median host ms of one 8-row decode step's launches, of the wait for
+    its tokens after them, and its device ms (events around the step); and
+    the host ms of the same step launched as before the staging buffers
+    (four pageable copies, the step, the argmax, ``.tolist()``)."""
+    cfg, args = engine.cfg, engine.args
+    seqs = []
+    for i in range(8):
+        s = SeqState(request_id=f"p{i}", req=PreprocessedRequest(
+            model="x", token_ids=[1] * 1000), ctx=None, sink=None)
+        s.tokens = [1 + i] * (1000 + i)
+        engine.scheduler._ensure_blocks(s, len(s.tokens))
+        seqs.append(s)
+    ops = engine._decode_operands(seqs, 0)
+    host, wait, dev = [], [], []
+    for _ in range(n + 3):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        out = engine._step(ops, False)
+        e1.record()
+        t1 = time.perf_counter()
+        out["copied"].synchronize()
+        t2 = time.perf_counter()
+        host.append((t1 - t0) * 1e3)
+        wait.append((t2 - t1) * 1e3)
+        torch.cuda.synchronize()
+        dev.append(e0.elapsed_time(e1))
+    pageable = []
+    for _ in range(n + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t = [torch.from_numpy(a).to(engine.device) for a in ops]
+        logits, _, _ = engine.step_fn(engine.params, t[0], t[1], None, t[3],
+                                      engine.k_cache, engine.v_cache)
+        sampling.greedy(logits)[0].tolist()
+        pageable.append((time.perf_counter() - t0) * 1e3)
+    for s in seqs:
+        engine.pool.release(s.block_table)
+    med = lambda xs: statistics.median(xs[3:])  # noqa: E731
+    return (f"one decode step, 8 rows at kv ~1000: launches {med(host):.3f} "
+            f"ms of host, then {med(wait):.3f} ms waiting for its tokens; "
+            f"device {med(dev):.3f} ms; with pageable operand copies and a "
+            f"synchronous copy of the tokens {med(pageable):.3f} ms of wall "
+            f"(medians of {n})")
+
+
+async def serve_loops(engine, prompts, tokens: int, order,
+                      profile: int = 0) -> list:
+    clock = chip_smoke.StepClock(engine)
+
+    async def one(p, n):
+        t0 = time.perf_counter()
+        stamps, toks = [], []
+        async for out in engine.generate(PreprocessedRequest(
+                model="m", token_ids=p,
+                stop_conditions=StopConditions(max_tokens=n,
+                                               ignore_eos=True))):
+            stamps.append(time.perf_counter())
+            toks.extend(out.token_ids)
+        return t0, stamps, toks, None
+
+    results = []
+    try:
+        await one(list(range(1, 17)), 2)
+        for name in order:
+            engine.args.pipeline_decode = LOOPS[name]
+            engine.pool.clear()
+            clock.records.clear()
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*(one(p, tokens) for p in prompts))
+            st = chip_smoke.serving_stats(res, time.perf_counter() - t0)
+            st["step_ms"], st["step_n"] = clock.decode_step_ms()
+            results.append((name, st, [r[2] for r in res]))
+        if profile:
+            engine.args.pipeline_decode = True
+            engine.pool.clear()
+            prof = cProfile.Profile()
+            prof.enable()
+            await asyncio.gather(*(one(p, tokens) for p in prompts))
+            prof.disable()
+            out = io.StringIO()
+            pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(
+                profile)
+            results.append(("profile", out.getvalue(), None))
+    finally:
+        await engine.close()
+    return results
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="llama3_8b")
+    ap.add_argument("--tokens", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--profile", type=int, default=0, metavar="N")
+    a = ap.parse_args()
+    smi, _kind = chip_smoke.device_phase()
+    cfg = get_model_config(a.model)
+    engine = AsyncTorchEngine(cfg, EngineArgs(
+        block_size=16, max_num_seqs=8, max_num_batched_tokens=2048,
+        max_model_len=4096, seed=a.seed))
+    print(f"[{smi}] {a.model}: {step_parts(engine)}", flush=True)
+    order = ["serial", "pipelined", "pipelined", "serial"] * a.rounds
+    prompts = chip_smoke.serving_prompts(cfg, a.seed)
+    results = asyncio.run(serve_loops(engine, prompts, a.tokens, order,
+                                         a.profile))
+    first = results[0][2]
+    for name, st, streams in results:
+        if name == "profile":
+            print(f"[{smi}] {a.model}, pipelined loop under cProfile, the "
+                  f"{a.profile} functions with the most own time:\n{st}")
+            continue
+        same = "" if streams == first else " (streams differ from run 1)"
+        print(f"[{smi}] {a.model}, 8 streams x {a.tokens} tokens, {name}: "
+              f"{chip_smoke.stats_line(st)}{same}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
