@@ -41,7 +41,12 @@ prints any result:
      tile straddles kv_len, int8 pages on a rebased scale table, and the
      DeepSeek-V2-Lite geometry: a dense 2 x 1024-token prefill and a chunk
      grid of 68 tiles x 32 tokens at kv up to 3000 (bf16 and int8 pages),
-     where the same three planted wrong outputs must fail the row check.
+     where the same three planted wrong outputs must fail the row check;
+   - the seeded Gumbel draw (no TPU kernel behind it): jax.random's known
+     answers (``SAMPLE_KNOWN``: the plain version's threefry words and
+     uniforms, the kernel's tokens of an [8, 128256] draw), then the
+     kernel against its plain version on [8, 128256] logits with the
+     top-k/top-p cuts of a mixed batch: the tokens must be equal.
 3. Serving: ``AsyncTorchEngine`` with the llama3_8b preset at full width
    and depth on random weights from a seeded generator, eight concurrent
    greedy requests after one warm-up request, on the depth-2 pipelined
@@ -53,7 +58,15 @@ prints any result:
    alone on both loops, whose tokens must agree; TTFT, ITL, tok/s and the
    decode step wall of both loops are printed. Every later serving run
    (phases 7, 9 and 10) compares its eight streams across the two loops
-   in the same way.
+   in the same way. Then sampling on the same engine: eight seeded
+   sampled requests (mixed temperature, top-k, top-p) on both loops,
+   whose streams must be equal (the draw kernel's launches counted in the
+   pipelined run), with the decode step wall and ITL beside the greedy
+   run's; a logprobs, a penalties and a logit_bias request on the serial
+   loop (top logprobs finite and sorted); and a json_schema request over a
+   synthetic alphabet of 128256 entries, whose device-FSM stream must
+   match the schema's pattern (``CharDfa.fullmatch``) and equal the host
+   oracle's.
 4. Full-width step: one packed ragged step through the kernel against the
    same step through the plain attention; logits must agree.
 5. Step profile: a decode-only and a prefill step at full width, timed on
@@ -96,7 +109,8 @@ prints any result:
    seeded weights), the eight requests of phase 3 (79-881 prompt tokens
    from the same seed); the MLA decode kernel must launch 27 times a step,
    the MLA prefill kernel 27 times in each step with chunk tokens, and no
-   other attention kernel at all. Then one full-width MLA ragged step
+   other attention kernel at all; then the eight seeded sampled requests
+   on both loops, streams equal. Then one full-width MLA ragged step
    through the kernels against the same step through their plain
    versions, the step profile, and one embedding call (2 inputs of up to
    1024 tokens) through the MLA prefill kernel against the plain attention.
@@ -133,6 +147,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dynamo_tpu_torch.engine import sampling
 from dynamo_tpu_torch.engine.cache import (
     allocate_device_cache, kv_block_bytes, quantize_kv,
 )
@@ -159,8 +174,12 @@ from dynamo_tpu_torch.ops.paged_attention import (
 from dynamo_tpu_torch.ops.ragged_attention import (
     ragged_attention_ref, ragged_paged_attention,
 )
+from dynamo_tpu_torch.ops.sample import (
+    gumbel_argmax, gumbel_argmax_ref, random_bits_ref, uniform_ref,
+)
 from dynamo_tpu_torch.protocols import (
-    LLMEngineOutput, PreprocessedRequest, StopConditions,
+    LLMEngineOutput, OutputOptions, PreprocessedRequest, SamplingOptions,
+    StopConditions,
 )
 from dynamo_tpu_torch.router.protocols import KV_METRICS_SUBJECT, RouterEvent
 from dynamo_tpu_torch.router.publisher import parse_load_event
@@ -243,7 +262,61 @@ KERNELS = [{
     "replaces": "dynamo_tpu/ops/flash_prefill.py:46",
     "build": "mla_prefill",
     "wrapper": flash_mla_prefill_paged,
+}, {
+    # no TPU kernel stands behind the draw: the JAX package leaves
+    # jax.random.categorical (``_cat``) to XLA
+    "name": "gumbel_argmax",
+    "route": "cuda",
+    "source": "dynamo_tpu_torch/ops/csrc/sample.cu",
+    "replaces": "dynamo_tpu/engine/sampling.py:82",
+    "build": "sample",
+    "wrapper": gumbel_argmax,
 }]
+
+#: jax.random's answers (jax 0.9.0, threefry2x32, jax_threefry_partitionable)
+#: for fixed keys (seed, step): the first 8 words of ``jax.random.bits``,
+#: the bits of the first 8 ``jax.random.uniform``s, and the tokens of the
+#: JAX package's ``sample`` on :func:`known_draw_inputs`. This script
+#: imports no JAX; ``tests/test_torch_sampling.py`` recomputes them.
+SAMPLE_KNOWN = {
+    "bits": {
+        (0, 0): [4070199207, 4202968722, 1427181096, 2012915765,
+                 2447653815, 710830403, 1332275837, 2961296638],
+        (7, 123): [3480654396, 142690056, 4241128056, 3337712547,
+                   2846293478, 39586046, 315257592, 924206494],
+        (2**31 - 1, 2**32 - 1): [1546250463, 1420535966, 2636973641,
+                                 3128703886, 4076704060, 2873412253,
+                                 3490362789, 2649989376],
+    },
+    "uniform": {
+        (0, 0): [1064475214, 1064993846, 1051337244, 1055913296,
+                 1058137146, 1042905504, 1050595796, 1060143564],
+        (7, 123): [1062172306, 1023939680, 1065142906, 1061613938,
+                   1059694332, 1008140800, 1033261968, 1046239504],
+        (2**31 - 1, 2**32 - 1): [1052267472, 1051285328, 1058876678,
+                                 1060797498, 1064500624, 1059800266,
+                                 1062210228, 1058927520],
+    },
+    "tokens": [109589, 61445, 48174, 47814, 121282, 105863, 36378, 5134],
+}
+#: 32-bit operations of the draw for each element, from csrc/sample.cu:
+#: threefry2x32 72 (20 rounds of add, funnel shift and xor; 5 key
+#: injections of 2 adds; the first add; the final xor), the uniform 5
+#: (shift, or, subtract, add, max), the Gumbel noise 4 (two logs, two
+#: negations), the division, the cut's compare and select, the add and
+#: the running maximum's 2 compares: 87
+SAMPLE_OPS_PER_ELEMENT = 87
+
+
+def known_draw_inputs():
+    """[8, 128256] float32 logits, temperatures and keys of the known
+    answers' draw (numpy, seed 20261017)."""
+    rng = np.random.default_rng(20261017)
+    lg = rng.standard_normal((8, 128256)).astype(np.float32)
+    temp = np.asarray([0.5, 0.8, 1.0, 1.2, 0.7, 1.5, 0.9, 1.1], np.float32)
+    keys = sampling.make_keys([0, 1, 7, 2**31 - 1, 12345, 99, 3, 2024],
+                              [0, 1, 500, 2**32 - 1, 77, 4096, 65, 1])
+    return lg, temp, keys
 
 
 def log(msg: str) -> None:
@@ -1151,6 +1224,70 @@ def mla_kernel_phase(seed: int) -> dict:
     return main
 
 
+# seeded draw -------------------------------------------------------------
+
+
+def _draw_operands(temp, keys):
+    """The draw kernel's per-row operands on the card: temperature floored
+    at 1e-6 (as the sampler divides), and the key words as int32 bits."""
+    k = torch.from_numpy(np.ascontiguousarray(keys).view(np.int32))
+    return (torch.from_numpy(np.maximum(temp, 1e-6)).cuda(),
+            k[:, 0].contiguous().cuda(), k[:, 1].contiguous().cuda())
+
+
+def sample_kernel_phase(seed: int) -> dict:
+    """The seeded draw: jax.random's known answers (the plain version's
+    threefry words and uniforms, the kernel's tokens), then the kernel
+    against its plain version at the serving shape [8, 128256] with the
+    top-k/top-p cuts of a mixed batch, and its time beside its bound."""
+    log("kernel phase: gumbel_argmax vs gumbel_argmax_ref and jax.random")
+    dev = "cuda"
+    for (sd, st), words in SAMPLE_KNOWN["bits"].items():
+        bits = random_bits_ref(torch.tensor([sd], device=dev),
+                               torch.tensor([st], device=dev), len(words))[0]
+        u = uniform_ref(bits).view(torch.int32)
+        if (bits.tolist() != words
+                or u.tolist() != SAMPLE_KNOWN["uniform"][sd, st]):
+            raise AssertionError(f"threefry words or uniforms of key "
+                                 f"({sd}, {st}) differ from jax.random's")
+    lg, temp, keys = known_draw_inputs()
+    t, sd, st = _draw_operands(temp, keys)
+    lg = torch.from_numpy(lg).cuda()
+    ninf = torch.full((8,), float("-inf"), device=dev)
+    got = gumbel_argmax(lg, t, ninf, sd, st).tolist()
+    if got != SAMPLE_KNOWN["tokens"]:
+        raise AssertionError(f"kernel tokens {got}, jax.random's "
+                             f"{SAMPLE_KNOWN['tokens']}")
+    log(f"  known answers: the threefry words and uniforms of "
+        f"{len(SAMPLE_KNOWN['bits'])} keys and the 8 tokens of an "
+        f"[8, 128256] draw equal jax.random's")
+
+    rng = np.random.default_rng(seed + 91)
+    B, V = 8, 128256
+    lg = torch.from_numpy((rng.standard_normal((B, V)) * 2).astype(
+        np.float32)).cuda()
+    temp = np.asarray([0.6, 0.8, 1.0, 1.2, 0.7, 0.9, 1.1, 1.3], np.float32)
+    top_k = torch.tensor([0, 40, 0, 64, 0, 5, 0, 20], dtype=torch.int32,
+                         device=dev)
+    top_p = torch.tensor([1.0, 1.0, 0.9, 1.0, 0.5, 1.0, 0.95, 0.8],
+                         device=dev)
+    keys = sampling.make_keys(rng.integers(0, 2**31, B),
+                              rng.integers(0, 4096, B))
+    t, sd, st = _draw_operands(temp, keys)
+    scaled = lg / t[:, None]
+    cut = sampling._mask_top_k(scaled, top_k, ninf)
+    masked = torch.where(scaled >= cut[:, None], scaled, float("-inf"))
+    cut = torch.maximum(cut, sampling._mask_top_p(masked, top_p, cut))
+    nbytes = B * V * 4 + B * 4 * 4 + B * 8
+    bound = bound_of(nbytes, B * V * SAMPLE_OPS_PER_ELEMENT, torch.float32)
+    res = measure("gumbel_argmax [8, 128256], top-k and top-p cuts on 6 of "
+                  "8 rows (tokens must be equal)",
+                  lambda: gumbel_argmax(lg, t, cut, sd, st),
+                  lambda: gumbel_argmax_ref(lg, t, cut, sd, st),
+                  None, bound, 0.0, iters=50)
+    return {"gumbel_argmax": res}
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -1223,7 +1360,7 @@ def stats_line(st: dict) -> str:
 
 
 async def serve(engine, model, prompts, max_tokens, events=None,
-                solo=()):
+                solo=(), extra=None):
     """One short warm-up request (cuBLAS handles, allocator growth), then
     the kernels' counts set to 0 and the prompts served concurrently;
     returns the streams, the wall time, the steps of the measured run, those
@@ -1237,7 +1374,10 @@ async def serve(engine, model, prompts, max_tokens, events=None,
     same). ``solo`` (indices into ``prompts``) adds each solo prompt served
     alone on both loops, each run on an emptied prefix cache; the KV
     blocks the pipelined solo runs store are returned with them (from
-    ``events``)."""
+    ``events``).
+
+    ``extra``, an async function of (engine, clock, settle), runs last, on
+    the same engine and loop; what it returns is ``out["extra"]``."""
     async def one(p, n):
         req = PreprocessedRequest(
             model=model, token_ids=p,
@@ -1309,6 +1449,8 @@ async def serve(engine, model, prompts, max_tokens, events=None,
                         f"{streams[True, i]}, the serial loop "
                         f"{streams[False, i]}")
             out["solo"] = [(prompts[i], streams[True, i]) for i in solo]
+        if extra is not None:
+            out["extra"] = await extra(engine, clock, settle)
         return out
     finally:
         await engine.close()
@@ -1321,7 +1463,7 @@ SOLO = (0, 5)
 
 def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
                   model: str = "llama3_8b", params=None,
-                  solo: bool = False):
+                  solo: bool = False, extra=None):
     """Eight concurrent greedy requests at full width (on ``params``, or
     weights drawn from ``seed``); returns the engine, its attention
     kernels' launches in the run by wrapper name, the streams, and what
@@ -1361,7 +1503,7 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     prompts = serving_prompts(cfg, seed)
     max_tokens = 32
     out = asyncio.run(serve(engine, model, prompts, max_tokens, events,
-                            SOLO if solo else ()))
+                            SOLO if solo else (), extra))
     res, steps, chunk_steps = out["res"], out["steps"], out["chunk_steps"]
     # launches each attention wrapper must show: one a layer per step (per
     # step with chunk tokens for the MLA prefill kernel), none elsewhere
@@ -1403,6 +1545,162 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
             f"same {max_tokens} tokens on both loops; "
             f"{len(out['solo_hashes'])} KV blocks stored")
     return engine, launches, [r[2] for r in res], out
+
+
+#: the sampled requests: (temperature, top_k, top_p), each with its own
+#: seed
+SAMPLED = [(0.6, 0, 1.0), (0.8, 40, 1.0), (1.0, 0, 0.9), (1.2, 64, 1.0),
+           (0.7, 0, 0.5), (0.9, 5, 1.0), (1.1, 0, 0.95), (1.3, 20, 0.8)]
+#: the guided request's schema: bounded, so every stream ends at "}"
+GUIDED_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "tag": {"enum": ["red", "green", "blue"]},
+    "n": {"enum": [1, 2, 3]}}}
+
+
+async def stream(engine, model, tokens, n, sampling=None, output=None,
+                 eos=(), frames=None):
+    """One request; (start, token arrival stamps, tokens, finish reason),
+    its output frames appended to ``frames``."""
+    req = PreprocessedRequest(
+        model=model, token_ids=tokens,
+        sampling_options=sampling or SamplingOptions(),
+        output_options=output or OutputOptions(),
+        stop_conditions=StopConditions(max_tokens=n, ignore_eos=not eos),
+        eos_token_ids=list(eos))
+    t0 = time.perf_counter()
+    stamps, toks, reason = [], [], None
+    async for out in engine.generate(req):
+        stamps.append(time.perf_counter())
+        toks.extend(out.token_ids)
+        reason = out.finish_reason or reason
+        if frames is not None:
+            frames.append(out)
+    return t0, stamps, toks, reason
+
+
+def synthetic_vocab(V: int, seed: int) -> list:
+    """A guided alphabet of V entries (no tokenizer file is in the
+    repository): the printable ASCII characters, a few JSON pieces, random
+    lowercase words of 2-6 letters, and "" for Llama-3's EOS ids."""
+    rng = np.random.default_rng(seed + 5)
+    vocab = [chr(32 + i) for i in range(95)]
+    vocab += ['{"', '":', '",', '"}', "true", "false", "ok", "tag", "red",
+              "green", "blue"]
+    n = V - len(vocab)
+    letters = rng.integers(97, 123, (n, 6), dtype=np.uint8)
+    lens = rng.integers(2, 7, n)
+    vocab += [bytes(row[:k]).decode() for row, k in zip(letters, lens)]
+    for e in LLAMA3_EOS:
+        vocab[e] = ""
+    return vocab
+
+
+async def sampled_serving(engine, model, prompts, clock, settle,
+                          smi: str, seed: int, host_and_guided: bool):
+    """Eight seeded sampled requests (SAMPLED) on the pipelined loop, the
+    draw kernel's launches counted, then on the serial loop: the streams
+    must be equal and every request must finish. With
+    ``host_and_guided``, then the requests that need the host (logprobs,
+    penalties, logit_bias; the serial loop) and a json_schema request over
+    a synthetic alphabet of the vocabulary's width, on the device FSM and
+    on the host oracle. Returns the kernel's launches and the two loops'
+    stats."""
+    opts = [SamplingOptions(temperature=t, top_k=k or None, top_p=p,
+                            seed=seed * 8 + i + 1)
+            for i, (t, k, p) in enumerate(SAMPLED)]
+
+    async def run(pipeline: bool):
+        engine.args.pipeline_decode = pipeline
+        engine.pool.clear()
+        clock.records.clear()
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*(stream(engine, model, p, 32, o)
+                                     for p, o in zip(prompts, opts)))
+        st = serving_stats(res, time.perf_counter() - t0)
+        st["step_ms"], st["step_n"] = clock.decode_step_ms()
+        await settle()
+        return res, st
+
+    reset_counts()
+    steps0 = engine.steps
+    res, st = await run(True)
+    launches, steps = gumbel_argmax.launches, engine.steps - steps0
+    res_s, st_s = await run(False)
+    engine.args.pipeline_decode = True
+    for i, (on, off) in enumerate(zip(res, res_s)):
+        if on[3] != "length" or len(on[2]) != 32 or on[2] != off[2]:
+            raise AssertionError(f"sampled stream {i}: pipelined {on[2]} "
+                                 f"({on[3]}), serial {off[2]} ({off[3]})")
+    if launches < 32:
+        raise AssertionError(f"gumbel_argmax launched {launches} times in "
+                             f"{steps} steps of 8 sampled requests")
+    log(f"  [{smi}] {model}: 8 seeded sampled streams x 32 tokens "
+        f"(temperature, top_k, top_p {SAMPLED}) equal on both loops; "
+        f"gumbel_argmax launched {launches} times in {steps} steps")
+    log(f"  [{smi}] {model}, sampled, pipelined decode loop: "
+        f"{stats_line(st)}")
+    log(f"  [{smi}] {model}, sampled, serial decode loop: "
+        f"{stats_line(st_s)}")
+    out = {"launches": launches, "stats": st, "stats_serial": st_s}
+    if not host_and_guided:
+        return out
+
+    pipelined0 = engine.pipelined_steps
+    frames = []
+    lp = await stream(engine, model, prompts[0], 16, SamplingOptions(
+        temperature=0.8, seed=5), OutputOptions(logprobs=5), frames=frames)
+    for f in frames:
+        (top,) = f.top_logprobs
+        vals = [v for _, v in top]
+        if (len(top) != 5 or not all(map(math.isfinite, vals + f.log_probs))
+                or vals != sorted(vals, reverse=True)
+                or f.log_probs[0] > vals[0] + 1e-6):
+            raise AssertionError(f"bad logprobs frame {f}")
+    pen = await stream(engine, model, prompts[1], 16, SamplingOptions(
+        temperature=0.9, seed=6, presence_penalty=0.5,
+        frequency_penalty=0.3, repetition_penalty=1.2))
+    biased = prompts[2][0]
+    bias = await stream(engine, model, prompts[2], 16, SamplingOptions(
+        logit_bias={str(biased): 100.0}))
+    if (lp[3] != "length" or pen[3] != "length" or len(pen[2]) != 16
+            or bias[2] != [biased] * 16):
+        raise AssertionError(f"host requests: logprobs {lp[2:]}, penalties "
+                             f"{pen[2:]}, logit_bias {bias[2:]}")
+    if engine.pipelined_steps != pipelined0:
+        raise AssertionError("a request that needs the host rode the "
+                             "pipelined loop")
+    log(f"  host requests on the serial loop: logprobs (5 top a token, "
+        f"finite, sorted), penalties and logit_bias served, 16 tokens each")
+
+    from dynamo_tpu_torch.llm.guided import CharDfa, guided_pattern
+    from dynamo_tpu_torch.structured import (
+        StructuredRuntime, arena_states, table_budget_bytes,
+    )
+    V = engine.cfg.vocab_size
+    vocab = synthetic_vocab(V, seed)
+    engine.guided_vocab = vocab
+    engine.structured = StructuredRuntime(
+        V, arena_states(V, table_budget_bytes()), engine.device)
+    guided = {"json": GUIDED_SCHEMA}
+    opt = SamplingOptions(temperature=0.7, seed=9, guided=guided)
+    t0 = time.perf_counter()
+    dev = await stream(engine, model, prompts[3], 48, opt, eos=LLAMA3_EOS)
+    dev_s = time.perf_counter() - t0
+    rows = engine.structured.stats()
+    engine.structured = None  # the host oracle from here on
+    host = await stream(engine, model, prompts[3], 48, opt, eos=LLAMA3_EOS)
+    engine.guided_vocab = None
+    text = "".join(vocab[t] for t in dev[2] if t not in LLAMA3_EOS)
+    if (dev[2] != host[2] or dev[3] != "stop" or rows["rows_device"] != 1
+            or not CharDfa(guided_pattern(guided)).fullmatch(text)):
+        raise AssertionError(f"guided: device {dev[2:]} ({text!r}), host "
+                             f"oracle {host[2:]}, arena {rows}")
+    json.loads(text)
+    log(f"  [{smi}] guided json_schema over a synthetic alphabet of {V}: "
+        f"{text!r}, {len(dev[2])} tokens, equal on the device FSM "
+        f"({rows['states_used']} of {rows['states_cap']} arena states; "
+        f"{dev_s:.2f} s with the compile) and the host oracle")
+    return out
 
 
 def serving_prompts(cfg, seed: int) -> list:
@@ -1778,6 +2076,14 @@ def mla_embedding(engine, seed: int, smi: str) -> int:
     return launches
 
 
+def sampled_extra(model: str, seed: int, smi: str, host_and_guided: bool):
+    """The ``extra`` of ``serve`` that runs :func:`sampled_serving` on the
+    serving run's prompts."""
+    prompts = serving_prompts(get_model_config(model), seed)
+    return lambda engine, clock, settle: sampled_serving(
+        engine, model, prompts, clock, settle, smi, seed, host_and_guided)
+
+
 def mla_phase(seed: int, smi: str) -> dict:
     """DeepSeek-V2-Lite at full width: serving, one full-width MLA step
     against its plain version, the step profile and an embedding call; then
@@ -1785,7 +2091,8 @@ def mla_phase(seed: int, smi: str) -> dict:
     the bf16 one's, the full-width int8 step and its profile. Returns the
     MLA kernels' launches in the two serving runs by KERNELS name."""
     model = "deepseek_v2_lite"
-    engine, served, streams, _ = serving_phase(seed, smi, model=model)
+    engine, served, streams, _ = serving_phase(
+        seed, smi, model=model, extra=sampled_extra(model, seed, smi, False))
     launches = {"mla_paged_decode": served["mla_paged_decode"],
                 "flash_mla_prefill": served["flash_mla_prefill_paged"]}
     full_width_step(engine, model, seed)
@@ -2242,11 +2549,22 @@ def main() -> int:
     t_start = time.perf_counter()
     smi, kind = device_phase()
     main_case = kernel_phase(a.seed)
+    main_case.update(sample_kernel_phase(a.seed))
     gc.collect()
     torch.cuda.empty_cache()
-    engine, served, streams, phase3 = serving_phase(a.seed, smi,
-                                                    solo=True)
-    launches = {"ragged_paged_attention": served["ragged_paged_attention"]}
+    engine, served, streams, phase3 = serving_phase(
+        a.seed, smi, solo=True, extra=sampled_extra("llama3_8b", a.seed, smi,
+                                                    True))
+    launches = {"ragged_paged_attention": served["ragged_paged_attention"],
+                "gumbel_argmax": phase3["extra"]["launches"]}
+    greedy, drawn = phase3["stats"], phase3["extra"]["stats"]
+    log(f"  [{smi}] llama3_8b, pipelined loop, greedy vs seeded sampled "
+        f"batch (8 x 32 tokens, same call): decode step wall "
+        f"{greedy['step_ms']:.3f} vs {drawn['step_ms']:.3f} ms, ITL mean "
+        f"{greedy['itl_mean']:.2f} vs {drawn['itl_mean']:.2f} ms, p50 "
+        f"{greedy['itl_p50']:.2f} vs {drawn['itl_p50']:.2f} ms; the draw "
+        f"kernel {main_case['gumbel_argmax']['ms']:.4f} ms a step against "
+        f"its bound {main_case['gumbel_argmax']['bound_ms']:.5f} ms")
     full_width_step(engine, "llama3_8b", a.seed)
     step_profile(engine, "llama3_8b", a.seed)
     launches["paged_attention_decode"] = dense_decode_step(engine, a.seed,

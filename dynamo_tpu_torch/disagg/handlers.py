@@ -11,10 +11,11 @@ references through an encoder. The port has none of these yet:
   served by recomputing its prompt locally, which is the JAX handler's own
   outcome when no peer can be pulled from ("recomputed"); KV pulls wait
   for ROADMAP A8;
-- a request the engine cannot serve (multimodal references, sampling
-  other than greedy: ``engine.refusal``) is rejected as an invalid
-  request, a terminal error the frontend answers with a 400 instead of
-  migrating it to a worker that would refuse it again.
+- a request the engine cannot serve (multimodal input:
+  ``engine.refusal``) is rejected as an invalid request, a terminal error
+  the frontend answers with a 400 instead of migrating it to a worker that
+  would refuse it again; so is a guided constraint that no token sequence
+  over the vocabulary can satisfy.
 """
 
 from __future__ import annotations

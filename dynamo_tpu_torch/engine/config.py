@@ -296,7 +296,6 @@ UNPORTED_KNOBS = {
     "swap_host_bytes": (None, "A8"),
     "quantization": (None, "A5"),
     "kv_transfer_direct": (False, "A8"),
-    "structured_device": (False, "A7"),
 }
 
 
@@ -335,6 +334,16 @@ class EngineArgs:
     #: step N's sampled tokens fed device to device, so the host's copy,
     #: commit and emission of step N overlap step N+1
     pipeline_decode: bool = True
+    #: structured decoding: compile guided-decoding constraints into dense
+    #: device tables and run the FSM inside the sampling step, so
+    #: constrained rows ride the ragged step and the pipelined loop with no
+    #: host sync. False keeps every constraint on the host oracle. Also
+    #: gated by DYN_STRUCTURED=0 at run time.
+    structured_device: bool = True
+    #: byte budget (MiB) of the device FSM arena (the next-state table
+    #: costs 4·vocab bytes a state); None = DYN_STRUCTURED_TABLE_MB, or 64.
+    #: Constraints whose state closure does not fit use the host oracle.
+    structured_table_mb: Optional[float] = None
     # knobs of the JAX package not ported yet (UNPORTED_KNOBS)
     tp_size: int = 1
     dp_size: int = 1
@@ -350,7 +359,6 @@ class EngineArgs:
     swap_host_bytes: Optional[int] = None
     quantization: Optional[str] = None
     kv_transfer_direct: bool = False
-    structured_device: bool = False
 
     def __post_init__(self):
         for name, (off, item) in UNPORTED_KNOBS.items():

@@ -4,19 +4,25 @@ The port of ``AsyncJaxEngine``'s main path: the engine loop executes
 scheduler plans as packed ragged steps,
 
     plan() → one packed ragged launch (prefill chunks + decode rows) →
-    commit → greedy sample → emit LLMEngineOutput per sequence → KV events
+    commit → sample → emit LLMEngineOutput per sequence → KV events
 
-with the same ``generate(req, ctx)`` contract, the same packing and the same
-KV stored/removed events, so a torch worker and a JAX worker produce the
-same greedy streams and block hashes. Every plan goes through the one
-packed launch. While every running sequence decodes, the depth-2
-pipelined loop (``EngineArgs.pipeline_decode``, on by default as in the
-JAX package) launches step N+1 with step N's greedy tokens fed on the
-device before step N's tokens reach the host. Each step's operands cross
-to the card as one non-blocking copy out of pinned staging memory, and its
-tokens come back the same way. The multi-step and speculative fast paths
-are not ported yet (ROADMAP A7), and requests that need anything but greedy
-sampling are refused at ``generate()``.
+with the same ``generate(req, ctx)`` contract, the same packing, the same
+sampling and the same KV stored/removed events, so a torch worker and a
+JAX worker produce the same streams (greedy, and seeded draws bit for
+bit) and block hashes. Sampling (``engine/sampling.py``) takes each row's
+temperature, top-k, top-p, key (seed, absolute position) and FSM state;
+the sparse logit edits of penalties, ``logit_bias`` and host-oracle
+guided rows are applied to the step's logits first, and logprob rows get
+their top logprobs from the same edited logits. Every plan goes through
+the one packed launch. While every running sequence decodes and none
+needs a host round trip (logprobs, logit edits, host-oracle guided rows),
+the depth-2 pipelined loop (``EngineArgs.pipeline_decode``, on by default
+as in the JAX package) launches step N+1 with step N's tokens and FSM
+states fed on the device before step N's tokens reach the host. Each
+step's operands, sampling operands included, cross to the card as one
+non-blocking copy out of pinned staging memory, and its tokens come back
+the same way. The multi-step and speculative fast paths are not ported
+yet (ROADMAP A7), and multimodal requests are refused at ``generate()``.
 
 Models: Llama-family GQA, and DeepSeek MLA with its MoE (the latent KV
 pool is sized from ``ModelConfig.kv_cache_spec``; MLA decode rows go
@@ -46,6 +52,7 @@ import asyncio
 import itertools
 import logging
 import math
+import secrets
 import threading
 from typing import AsyncIterator, Callable, Optional
 
@@ -73,6 +80,34 @@ from dynamo_tpu_torch.router.protocols import (
 
 logger = logging.getLogger("dynamo_torch.engine")
 
+#: most top logprobs a row may ask for (OpenAI's limit); the top-k pass
+#: always computes this many and each row keeps its own count
+TOP_LOGPROBS = 20
+
+
+def _has_penalties(s) -> bool:
+    """True when the sequence asks for a sampling penalty (OpenAI presence
+    and frequency over the generated text, HF repetition over prompt and
+    generated): they need the host's token history every step."""
+    so = s.req.sampling_options
+    return bool(so.presence_penalty or so.frequency_penalty
+                or (so.repetition_penalty not in (None, 1.0)))
+
+
+def _guided_fsm(s):
+    """The sequence's device FSM cursor (structured.FsmCursor), or None for
+    unconstrained rows and host-oracle rows."""
+    gs = s.guided_state
+    return gs if gs is not None and getattr(gs, "device", False) else None
+
+
+def _guided_host_only(s) -> bool:
+    """True when the sequence's constraint runs on the host oracle (tables
+    over budget, min_tokens, no device arena): its mask is a host edit
+    every step, and its advance a walk of the oracle."""
+    gs = s.guided_state
+    return gs is not None and not getattr(gs, "device", False)
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` → the card. A CUDA device without CUDA raises: the port
@@ -85,26 +120,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def refusal(req: PreprocessedRequest) -> Optional[str]:
-    """Why the port cannot serve ``req`` yet, or None. Only greedy decoding
-    of token prompts is ported."""
-    so = req.sampling_options
-    if so.temperature:
-        return "temperature > 0 (seeded sampling, ROADMAP A6)"
-    if so.top_k:
-        return "top_k (ROADMAP A6)"
-    if so.top_p is not None and so.top_p < 1.0:
-        return "top_p (ROADMAP A6)"
-    if so.seed is not None:
-        return "seed (ROADMAP A6)"
-    if req.output_options.logprobs is not None:
-        return "logprobs (ROADMAP A6)"
-    if (so.presence_penalty or so.frequency_penalty
-            or so.repetition_penalty not in (None, 1.0)):
-        return "sampling penalties (ROADMAP A6)"
-    if so.logit_bias:
-        return "logit_bias (ROADMAP A6)"
-    if so.guided:
-        return "guided decoding (ROADMAP A7)"
+    """Why the port cannot serve ``req`` yet, or None: only multimodal
+    input is not ported."""
     if req.mm_embeds or req.mm_refs:
         return "multimodal input (ROADMAP A9)"
     return None
@@ -119,11 +136,14 @@ class AsyncTorchEngine:
       device: None = "cuda"; "cpu" only when asked for explicitly.
       event_cb: fn(KvCacheEvent) — KV events toward the router.
       metrics_cb: fn(ForwardPassMetrics) — per-step load metrics.
+      guided_vocab: id → the text each token contributes
+        (``llm/tokenizer.py``); None = guided requests are refused.
     """
 
     def __init__(self, cfg: ModelConfig, args: EngineArgs, params=None,
                  device=None, event_cb: Optional[Callable] = None,
-                 metrics_cb: Optional[Callable] = None):
+                 metrics_cb: Optional[Callable] = None,
+                 guided_vocab: Optional[list] = None):
         check_supported(cfg)
         self.cfg, self.args = cfg, args
         self.device = resolve_device(device)
@@ -164,6 +184,27 @@ class AsyncTorchEngine:
         self.pipelined_steps = 0
         self._staging = (_Staging(args, self.device)
                          if self.device.type == "cuda" else None)
+        self.guided_vocab = guided_vocab
+        #: the device FSM arena constraints compile into; None = every
+        #: constraint runs on the host oracle (no vocabulary,
+        #: structured_device off, DYN_STRUCTURED=0, or a byte budget too
+        #: small for this vocabulary width)
+        self.structured = None
+        if args.structured_device and guided_vocab is not None:
+            from dynamo_tpu_torch.structured import (
+                StructuredRuntime, arena_states, env_enabled,
+                table_budget_bytes,
+            )
+            if env_enabled():
+                cap = arena_states(cfg.vocab_size, table_budget_bytes(
+                    args.structured_table_mb))
+                if cap:
+                    self.structured = StructuredRuntime(
+                        cfg.vocab_size, cap, self.device)
+                else:
+                    logger.info("structured device tables disabled: the "
+                                "budget buys too few states at vocab %d",
+                                cfg.vocab_size)
         # embeddings: one forward fn and ONE scratch cache, replaced when
         # the (B, S) bucket changes, apart from the serving pool
         self._embed_fn = make_embed_fn(cfg, args.block_size)
@@ -177,12 +218,11 @@ class AsyncTorchEngine:
         """EngineFn-compatible async stream of per-token outputs."""
         why = refusal(req)
         if why is not None:
-            raise ValueError(f"the torch port serves greedy requests only; "
-                             f"this request needs {why}")
+            raise ValueError(f"the torch port cannot serve this request "
+                             f"yet: it needs {why}")
         self._ensure_loop()
         sink: asyncio.Queue = asyncio.Queue()
-        seq = SeqState(request_id=f"seq-{next(self._seq_counter)}", req=req,
-                       ctx=ctx or _NullCtx(), sink=sink)
+        seq = await self._new_seq(req, ctx, sink)
         self.scheduler.add(seq)
         self._wake.set()
         while True:
@@ -192,6 +232,34 @@ class AsyncTorchEngine:
             yield out
             if out.finish_reason is not None:
                 return
+
+    async def _new_seq(self, req: PreprocessedRequest, ctx, sink
+                       ) -> SeqState:
+        """A SeqState with its request-scoped sampling state: the guided
+        cursor (compiled off the event loop: a cold constraint walks the
+        vocabulary once per DFA state and packs its tables) and the key
+        seed of an unseeded request."""
+        seq = SeqState(request_id=f"seq-{next(self._seq_counter)}", req=req,
+                       ctx=ctx or _NullCtx(), sink=sink)
+        if req.sampling_options.seed is None:
+            # drawn once per request, so recompute preemption redraws the
+            # same keys (ROADMAP C3)
+            seq.unseeded_seed = secrets.randbits(31)
+        if req.sampling_options.guided:
+            from dynamo_tpu_torch.structured import build_guided_state
+            if self.guided_vocab is None:
+                raise ValueError(
+                    "guided decoding requested but this worker has no "
+                    "tokenizer vocabulary (engine started without "
+                    "guided_vocab)")
+            # min_tokens rows stay on the host oracle: their EOS gating
+            # depends on per-step counts the static tables cannot express
+            seq.guided_state = await asyncio.to_thread(
+                build_guided_state, req.sampling_options.guided,
+                self.guided_vocab, req.eos_token_ids or [],
+                self.structured,
+                not (req.stop_conditions.min_tokens or 0) > 0)
+        return seq
 
     async def embed(self, token_id_lists: list[list[int]]
                     ) -> list[list[float]]:
@@ -363,11 +431,15 @@ class AsyncTorchEngine:
 
     async def _run_ragged(self, plan: StepPlan) -> None:
         """Execute the whole plan — decode rows and prefill chunks — as one
-        packed ragged launch."""
+        packed ragged launch, and sample every row that reaches the end of
+        its tokens."""
         operands, rows = self.pack(plan)
+        samp = self._sampling_plan([s if smp else None
+                                    for s, smp, _w in rows])
         # launches off the event loop: on the CPU the step computes here, on
         # the card the launches take host time
-        out = await asyncio.to_thread(self._step, operands, bool(plan.prefill))
+        out = await asyncio.to_thread(self._step, operands,
+                                      bool(plan.prefill), None, samp)
 
         # commit BEFORE the tokens reach the host, as the JAX engine commits
         # before sampling
@@ -376,49 +448,143 @@ class AsyncTorchEngine:
         for s in plan.decode:
             self.scheduler.commit_computed(s, len(s.tokens))
 
-        toks, logps = await self._host_tokens(out)
+        host = await self._host_tokens(out)
+        toks, logps = host[0], host[1]
+        guided = [(s, toks[i]) for i, (s, smp, _w) in enumerate(rows)
+                  if smp and s.guided_state is not None]
+        if guided:
+            # in a worker thread: a host-oracle row's newly visited DFA
+            # state walks the vocabulary once (FsmCursor: one lookup)
+            await asyncio.to_thread(
+                lambda: [s.guided_state.advance(t) for s, t in guided])
+        tops = _top_logprobs(samp, host)
         for i, (seq, smp, _w) in enumerate(rows):
             if smp:
-                self._deliver(seq, int(toks[i]), float(logps[i]))
+                self._deliver(seq, toks[i], logps[i], tops.get(i))
 
-    def _step(self, operands, chunks: bool, feed=None) -> dict:
-        """One packed step on the device; runs in a worker thread. Stages the
-        operands, substitutes ``feed`` (the previous step's tokens on the
-        device, [n] for the first n rows) into the token column, launches
-        the step and the greedy argmax of every row, and starts the copy of
-        the tokens to the host. Returns the tokens on the device, their host
+    def _sampling_plan(self, seqs: list, off: int = 0) -> dict:
+        """The host side of a step's sampling, for logit rows ``seqs`` (None:
+        a row that does not sample): each row's temperature, top-k, top-p
+        and key (seed, step_idx + ``off``, ``off`` tokens of the sequence
+        still in flight), the rows that want top logprobs, whether device
+        FSM rows mask on the device (then their states), and whether any
+        row needs host logit edits."""
+        n = len(seqs)
+        temp = np.zeros((n,), np.float32)
+        top_k = np.zeros((n,), np.int32)
+        top_p = np.ones((n,), np.float32)
+        seeds, steps = [0] * n, [0] * n
+        want_tops: dict[int, int] = {}
+        edits = False
+        for i, s in enumerate(seqs):
+            if s is None:
+                continue
+            t, k, p, seed = s.sampling_tuple()
+            temp[i], top_k[i], top_p[i] = t, k, p
+            seeds[i] = seed if seed is not None else s.unseeded_seed
+            steps[i] = s.step_idx + off
+            lp = s.req.output_options.logprobs
+            if lp is not None:  # 0 still captures the selected token's entry
+                want_tops[i] = max(1, min(int(lp), TOP_LOGPROBS))
+            edits = edits or bool(s.req.sampling_options.logit_bias
+                                  or _has_penalties(s)
+                                  or _guided_host_only(s))
+        # a logprob row's top-k must read the same masked logits the draw
+        # saw, so device FSM rows then mask by host edits too
+        fsm = [(i, c) for i, s in enumerate(seqs)
+               if s is not None and (c := _guided_fsm(s)) is not None]
+        states = None
+        if fsm and not want_tops:
+            states = np.zeros((n,), np.int32)
+            for i, c in fsm:
+                states[i] = c.state
+        return {"seqs": seqs, "temp": temp, "top_k": top_k, "top_p": top_p,
+                "keys": sampling.make_keys(seeds, steps),
+                "want_tops": want_tops, "states": states,
+                "edits": edits or bool(fsm and want_tops)}
+
+    def _step(self, operands, chunks: bool, feed, samp: dict,
+              feed_states=None) -> dict:
+        """One packed step on the device; runs in a worker thread (serial
+        loop) or on the event loop's thread (pipelined loop). Stages the
+        operands (with ``samp``'s sampling operands: one pinned copy),
+        substitutes ``feed`` (the previous step's tokens on the device, [n]
+        for the first n rows) into the token column and ``feed_states``
+        for the FSM states, launches the step, samples the rows as ``samp``
+        (:meth:`_sampling_plan`) says and starts the copy of the tokens (and
+        top logprobs) to the host.
+        Returns the tokens and next FSM states on the device, their host
         copies and the event that marks the copy done (None on the CPU)."""
+        operands = list(operands) + [sampling.pack_rows(
+            samp["temp"], samp["top_k"], samp["top_p"], samp["keys"])]
+        if samp["states"] is not None and feed_states is None:
+            operands.append(samp["states"])
         if self._staging is not None:
             tensors = self._staging.put(operands)
         else:
             tensors = [torch.from_numpy(a) for a in operands]
-        ints5, rows3, grid_rows, bt = tensors
+        ints5, rows3, grid_rows, bt = tensors[:4]
         if feed is not None:
             ints5[0, :feed.shape[0]].copy_(feed)
         if not chunks:
             grid_rows = None  # no chunk tokens: MLA skips the grid
         logits, _, _ = self.step_fn(self.params, ints5, rows3, grid_rows, bt,
                                     self.k_cache, self.v_cache)
-        toks, logps = sampling.greedy(logits)
+        fsm = None
+        if samp["states"] is not None:
+            fsm = feed_states if feed_states is not None else tensors[5]
+        toks, states, host = self._sample(logits, samp, tensors[4], fsm)
         if self._staging is None:
-            return {"toks": toks, "host": (toks, logps), "copied": None}
-        host = (torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True),
-                torch.empty(logps.shape, dtype=logps.dtype, pin_memory=True))
-        host[0].copy_(toks, non_blocking=True)
-        host[1].copy_(logps, non_blocking=True)
+            return {"toks": toks, "states": states, "host": host,
+                    "copied": None}
+        pinned = []
+        for t in host:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            pinned.append(h)
         copied = torch.cuda.Event()
         copied.record()
-        return {"toks": toks, "host": host, "copied": copied}
+        return {"toks": toks, "states": states, "host": pinned,
+                "copied": copied}
+
+    def _sample(self, logits, samp: dict, rows=None, states=None):
+        """Sample the first ``len(samp["seqs"])`` rows of ``logits`` as
+        ``samp`` (:meth:`_sampling_plan`) says: the logit edits, then the
+        draw (FSM-masked from ``states`` when the plan has device FSM
+        rows), then the top logprobs. ``rows`` and ``states`` are the
+        staged operands on the device (None: copied here). Returns (tokens,
+        next FSM states or None, the tensors for the host: tokens,
+        logprobs, and top ids, top logprobs and selected logprobs when a
+        row asked for them)."""
+        lg = logits[:len(samp["seqs"])]
+        if samp["edits"]:
+            lg = _apply_edits(lg, _build_edits(samp["seqs"], lg.shape[-1],
+                                               bool(samp["want_tops"])))
+        args = (lg, samp["temp"], samp["top_k"], samp["top_p"], samp["keys"])
+        new_states = None
+        if samp["states"] is not None:
+            if states is None:
+                states = torch.from_numpy(samp["states"]).to(lg.device)
+            mask_t, next_t = self.structured.device_tables()
+            toks, logps, new_states = sampling.sample_masked(
+                *args, states, mask_t, next_t, rows=rows)
+        else:
+            toks, logps = sampling.sample(*args, rows=rows)
+        host = [toks, logps]
+        if samp["want_tops"]:
+            host += sampling.topk_logprobs(lg, toks, TOP_LOGPROBS)
+        return toks, new_states, host
 
     @staticmethod
-    async def _host_tokens(out: dict):
-        """The step's tokens and log-probabilities as host lists, once their
-        copy has landed (waited for off the event loop if it has not)."""
+    async def _host_tokens(out: dict) -> list:
+        """The step's host copies as lists (tokens, logprobs, then the top
+        ids, top logprobs and selected logprobs when asked for), once
+        their copy has landed (waited for off the event loop if it has
+        not)."""
         copied = out["copied"]
         if copied is not None and not copied.query():
             await asyncio.to_thread(copied.synchronize)
-        toks, logps = out["host"]
-        return toks.tolist(), logps.tolist()
+        return [t.tolist() for t in out["host"]]
 
     # ------------------------------------------------- pipelined decode loop
 
@@ -428,14 +594,22 @@ class AsyncTorchEngine:
 
     def _can_pipeline(self, seqs: list[SeqState]) -> bool:
         """True when the decode batch qualifies for the depth-2 pipelined
-        loop: every running sequence decodes in this batch and nothing
-        waits for admission. (The JAX engine also keeps requests that need
-        logprobs, logit edits or host-side guided decoding on the serial
-        loop; the port refuses those at ``generate()``.)"""
+        loop: every running sequence decodes in this batch, nothing waits
+        for admission, and no row needs a host round trip between its draw
+        and its emission (logprob capture, logit edits, host-oracle guided
+        rows; device FSM rows ride the loop, their mask and advance inside
+        the sampling step)."""
         if not self.args.pipeline_decode or self.scheduler.waiting:
             return False
         # a running seq still mid-prefill needs plan() interleaving
-        return len(seqs) == len(self.scheduler.running)
+        if len(seqs) != len(self.scheduler.running):
+            return False
+        for s in seqs:
+            if (s.req.output_options.logprobs is not None
+                    or s.req.sampling_options.logit_bias
+                    or _has_penalties(s) or _guided_host_only(s)):
+                return False
+        return True
 
     def _decode_operands(self, seqs: list[SeqState], off: int):
         """Packed operands of a decode-only step over ``seqs``, with ``off``
@@ -469,30 +643,42 @@ class AsyncTorchEngine:
     async def _dispatch_decode_step(self, seqs: list[SeqState], feed=None):
         """Launch ONE decode step without waiting for the previous one's
         tokens on the host: ``feed`` is the previous (uncommitted) step's
-        handle, whose tokens on the device fill this step's token column.
-        The launches run on the event loop's thread, as the JAX engine
+        handle, whose tokens and FSM states on the device fill this step's
+        token column and states, and its keys step one position on. The
+        launches run on the event loop's thread, as the JAX engine
         dispatches: a worker thread launching beside the loop's commit
         contends for the interpreter lock, and measured slower than the
         serial loop on the card (PERF.md). Returns a handle for
         _commit_decode_step, or None when block allocation fails (the caller
         drains and falls back to plan(), which preempts)."""
-        operands = self._decode_operands(seqs, 1 if feed is not None else 0)
+        off = 1 if feed is not None else 0
+        operands = self._decode_operands(seqs, off)
         if operands is None:
             return None
-        prev = feed["out"]["toks"][:len(seqs)] if feed is not None else None
-        return {"seqs": list(seqs), "out": self._step(operands, False, prev)}
+        samp = self._sampling_plan(list(seqs), off)
+        prev = feed_states = None
+        if feed is not None:
+            prev = feed["out"]["toks"][:len(seqs)]
+            feed_states = feed["out"]["states"]
+        return {"seqs": list(seqs),
+                "out": self._step(operands, False, prev, samp, feed_states)}
 
     async def _commit_decode_step(self, handle) -> None:
         """Land one launched step: wait for its tokens' copy, then commit +
         emit. Rows of sequences that finished at an earlier step are
         overshoot: their KV write targeted a block that no sequence holds
         registered, and is discarded."""
-        toks, logps = await self._host_tokens(handle["out"])
+        toks, logps = (await self._host_tokens(handle["out"]))[:2]
         for i, s in enumerate(handle["seqs"]):
             if s.finished is not None:
                 continue
             self.scheduler.commit_computed(s, len(s.tokens))
-            self._deliver(s, int(toks[i]), float(logps[i]))
+            gs = _guided_fsm(s)
+            if gs is not None:
+                # the host mirror of the table advance on the device (one
+                # lookup), before check_finish reads done/exhausted
+                gs.advance(toks[i])
+            self._deliver(s, toks[i], logps[i])
         self.pipelined_steps += 1
 
     async def _run_decode_pipelined(self, seqs: list[SeqState]) -> bool:
@@ -500,10 +686,10 @@ class AsyncTorchEngine:
 
         Serial loop per token: launch → device compute → host copy →
         commit/emit → plan. Pipelined: step N+1 is launched (token column
-        fed device to device from step N's argmax) BEFORE step N's tokens
-        are awaited, so step N's copy, commit and emission overlap step
-        N+1's device time. Greedy-invariant: positions and commits are
-        exactly the serial loop's.
+        and FSM states fed device to device from step N's draw) BEFORE step
+        N's tokens are awaited, so step N's copy, commit and emission
+        overlap step N+1's device time. Positions, PRNG keys and commits
+        are exactly the serial loop's.
 
         Drains (commits every launched step) and returns whenever the
         steady state breaks: a sequence finished, was cancelled or ran out
@@ -536,10 +722,12 @@ class AsyncTorchEngine:
         self.steps += max(0, done - 1)
         return done > 0
 
-    def _deliver(self, seq: SeqState, token: int, logp: float) -> None:
+    def _deliver(self, seq: SeqState, token: int, logp: float,
+                 top: Optional[list] = None) -> None:
         self.scheduler.append_token(seq, token)
         reason = self.scheduler.check_finish(seq, token)
         out = LLMEngineOutput(token_ids=[token], log_probs=[logp],
+                              top_logprobs=[top] if top is not None else None,
                               finish_reason=reason)
         if reason is not None:
             self.scheduler.finish(seq, reason)
@@ -581,8 +769,10 @@ class AsyncTorchEngine:
 
 
 class _Staging:
-    """Host-to-device operand staging through pinned memory. A step's four
-    int32 operands are written into one pinned buffer and cross in ONE
+    """Host-to-device operand staging through pinned memory. A step's int32
+    operands (the four of the step, then its sampling rows and FSM states,
+    float32 and uint32 by their bits) are written into one pinned buffer
+    and cross in ONE
     non-blocking copy; the device tensors are views of that copy. Two
     buffers are used in turn, and a buffer is rewritten only after the
     event recorded behind its last copy has completed, so a copy in flight
@@ -592,7 +782,8 @@ class _Staging:
         T = args.ragged_token_buckets[-1]
         R = args.ragged_rows(T)
         C, _ = ragged_grid_shape(T)
-        n = 5 * T + 3 * R + C + R * args.max_blocks_per_seq
+        # + sampling.pack_rows' [5, R] and the FSM states [R]
+        n = 5 * T + 3 * R + C + R * args.max_blocks_per_seq + 6 * R
         self.device = device
         self._bufs = [torch.empty(n, dtype=torch.int32, pin_memory=True)
                       for _ in range(2)]
@@ -621,6 +812,116 @@ def ragged_grid_shape(t_bucket: int) -> tuple[int, int]:
     tokens, as in the JAX package."""
     width = min(RAGGED_TILE, t_bucket)
     return t_bucket // width + RAGGED_MAX_CHUNKS, width
+
+
+def _build_edits(seqs: list, V: int, want_tops: bool):
+    """The step's sparse logit edits, as the JAX engine builds them
+    (``_sample.build_triples``), never a dense [B, V] array: additive
+    (logit_bias, presence and frequency over the generated tokens),
+    multiplicative repetition (HF: a logit > 0 is divided by the penalty,
+    else multiplied, over prompt and generated tokens), and the allowed
+    ids of host-oracle guided rows (with a logprob row, of device FSM rows
+    too). Folds each sequence's new tokens into its penalty history; runs
+    where the step runs, off the event loop on the serial loop."""
+    b_rows, b_cols, b_vals = [], [], []
+    r_rows, r_cols, r_pens = [], [], []
+    g_rows = []
+    for i, s in enumerate(seqs):
+        if s is None:
+            continue
+        so = s.req.sampling_options
+        for tid, v in (so.logit_bias or {}).items():
+            t = int(tid)
+            if 0 <= t < V:
+                b_rows.append(i)
+                b_cols.append(t)
+                b_vals.append(v)
+        pres = so.presence_penalty or 0.0
+        freq = so.frequency_penalty or 0.0
+        rep = so.repetition_penalty
+        rep_on = rep is not None and rep > 0 and rep != 1.0
+        if pres or freq or rep_on:
+            for j in range(s.pen_indexed, len(s.tokens)):
+                t = s.tokens[j]
+                s.seen_tokens.add(t)
+                if j >= s.prompt_len:
+                    s.gen_counts[t] = s.gen_counts.get(t, 0) + 1
+            s.pen_indexed = len(s.tokens)
+        if pres or freq:
+            for tid, cnt in s.gen_counts.items():
+                if 0 <= tid < V:
+                    b_rows.append(i)
+                    b_cols.append(int(tid))
+                    b_vals.append(-(pres + freq * cnt))
+        if rep_on:
+            for tid in s.seen_tokens:
+                if 0 <= tid < V:
+                    r_rows.append(i)
+                    r_cols.append(int(tid))
+                    r_pens.append(float(rep))
+        if _guided_host_only(s) or (want_tops and _guided_fsm(s) is not None):
+            ids = s.guided_state.allowed_token_ids(V)
+            if (s.req.stop_conditions.min_tokens or 0) > s.generated:
+                # min_tokens: EOS leaves the allowed set, unless EOS is all
+                # the constraint has left
+                non_eos = [t for t in ids if t not in s.guided_state.eos_ids]
+                ids = non_eos or ids
+            g_rows.append((i, ids))
+    return (b_rows, b_cols, b_vals), (r_rows, r_cols, r_pens), g_rows
+
+
+def _apply_edits(lg, edits):
+    """Apply :func:`_build_edits`' edits to the step's logits in place:
+    repetition first, then the additive terms, then the guided masks
+    (fill ``FSM_MASK_FILL``). Where a token takes two additive terms (a
+    bias and a penalty) they add in list order, as XLA's scatter-add
+    applies them: one pass per occurrence, so no pass holds an index
+    twice."""
+    (b_rows, b_cols, b_vals), (r_rows, r_cols, r_pens), g_rows = edits
+    dev, dt = lg.device, lg.dtype
+    if r_rows:
+        rr = torch.tensor(r_rows, device=dev)
+        rc = torch.tensor(r_cols, device=dev)
+        rp = torch.tensor(r_pens, dtype=dt, device=dev)
+        v = lg[rr, rc]
+        lg[rr, rc] = torch.where(v > 0, v / rp, v * rp)
+    if b_rows:
+        passes: list = []
+        seen: dict = {}
+        for r, c, v in zip(b_rows, b_cols, b_vals):
+            k = seen[r, c] = seen.get((r, c), -1) + 1
+            if k == len(passes):
+                passes.append(([], [], []))
+            for lst, x in zip(passes[k], (r, c, v)):
+                lst.append(x)
+        for rows, cols, vals in passes:
+            idx = (torch.tensor(rows, device=dev),
+                   torch.tensor(cols, device=dev))
+            lg.index_put_(idx, torch.tensor(vals, dtype=dt, device=dev),
+                          accumulate=True)
+    for i, allowed in g_rows:
+        masked = torch.full((lg.shape[-1],), sampling.FSM_MASK_FILL,
+                            dtype=dt, device=dev)
+        if allowed:
+            ai = torch.tensor(allowed, device=dev)
+            masked[ai] = lg[i, ai]
+        lg[i] = masked
+    return lg
+
+
+def _top_logprobs(samp: dict, host: list) -> dict:
+    """Row → its top logprobs as [[token_id, logprob], ...] for the rows
+    that asked for them; their selected logprob (``host[1]``) is replaced
+    by the one from the same log_softmax as the alternatives."""
+    if not samp["want_tops"]:
+        return {}
+    ids, vals, sel = host[2:5]
+    tops = {}
+    for i, n in samp["want_tops"].items():
+        tops[i] = [[int(j), float(v)] for j, v in zip(ids[i][:n],
+                                                      vals[i][:n])]
+        host[1][i] = sel[i]
+    return tops
 
 
 class _NullCtx:

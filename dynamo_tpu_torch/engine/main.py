@@ -11,13 +11,14 @@ JAX worker.
 It takes the JAX worker's command line. The flags of what the port does
 not serve yet (the decode and prefill roles, every ``EngineArgs`` knob in
 ``UNPORTED_KNOBS``, KVBM, multimodal encode, multi-host, profiling) are
-refused with the ROADMAP id that ports them. One flag is the port's own:
+refused with the ROADMAP id that ports them. The guided-decoding alphabet
+comes from the tokenizer's ``tokenizer.json`` (``llm/tokenizer.py``). One flag is the port's own:
 ``--device`` (default "cuda"; "cpu" only when asked for). The model dtype
 is the checkpoint config's, as the JAX worker reads it.
 
 The worker prints ``WORKER_READY`` once registered, and at exit a line
 ``WORKER_EXIT {json}`` with its engine steps and the launches of each
-attention kernel wrapper in this process.
+kernel wrapper in this process.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import json
 import logging
 import os
 import signal
+from typing import Optional
 
 from dynamo_tpu_torch.disagg.handlers import DecodeWorkerHandler
 from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
@@ -50,7 +52,6 @@ REFUSED_FLAGS = {
     "num_ranks": (1, "A11"),
     "speculative_draft_layers": (0, "A7"),
     "warmup_seq_lens": (None, "A7"),
-    "structured_table_mb": (None, "A7"),
     "kv_layer_groups": (4, "A8"),
     "kvbm_g4_gb": (0.0, "A8"),
     "kvbm_distributed": (False, "A8"),
@@ -113,13 +114,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-pipeline-decode", dest="pipeline_decode",
                     action="store_false", default=True,
                     help="disable the depth-2 pipelined decode loop")
-    # on by default in the JAX worker, not ported: the flags that turn them
-    # off are accepted, and they are off
     ap.add_argument("--no-structured-device", dest="structured_device",
-                    action="store_false", default=False)
+                    action="store_false", default=True,
+                    help="keep guided-decoding constraints on the host "
+                         "oracle instead of compiling them into device FSM "
+                         "tables fused into the sampling step")
+    ap.add_argument("--structured-table-mb", type=float, default=None,
+                    help="byte budget (MiB) for the device FSM arena; "
+                         "default DYN_STRUCTURED_TABLE_MB or 64")
+    # on by default in the JAX worker, not ported: the flag that turns it
+    # off is accepted, and it is off
     ap.add_argument("--no-preempt-swap", dest="preempt_swap",
                     action="store_false", default=False)
-    ap.add_argument("--structured-table-mb", type=float, default=None)
     ap.add_argument("--kv-layer-groups", type=int, default=4)
     ap.add_argument("--no-prefix-caching", action="store_true")
     ap.add_argument("--tool-call-parser", default=None,
@@ -229,16 +235,34 @@ def configure(cli) -> tuple[ModelConfig, EngineArgs, list[int], str]:
             kv_cache_dtype=cli.kv_cache_dtype,
             pipeline_decode=cli.pipeline_decode,
             structured_device=cli.structured_device,
+            structured_table_mb=cli.structured_table_mb,
             warmup_buckets=cli.warmup_buckets)
     except ValueError as e:
         raise SystemExit(str(e))
     return cfg, args, eos, tokenizer_ref
 
 
-def build_engine(cli, cfg: ModelConfig, args: EngineArgs):
+def guided_vocab_for(cli, tokenizer_ref: str):
+    """The guided-decoding alphabet of the served tokenizer (read from its
+    ``tokenizer.json`` with ``json`` alone), or None: guided requests are
+    then refused. Test fleets (``--allow-test-metadata`` with no tokenizer)
+    take the test tokenizer's words, as the frontend serves with it."""
+    from dynamo_tpu_torch.llm.tokenizer import (
+        load_guided_vocab, wordlevel_test_vocab,
+    )
+    if tokenizer_ref != "test":
+        return load_guided_vocab(tokenizer_ref)
+    return wordlevel_test_vocab() if cli.allow_test_metadata else None
+
+
+def build_engine(cli, cfg: ModelConfig, args: EngineArgs,
+                 tokenizer_ref: Optional[str] = None):
     """Construct the engine BEFORE joining the control plane: loading the
     weights and allocating the pool block the event loop long enough to
-    starve the lease keepalive."""
+    starve the lease keepalive. ``tokenizer_ref`` (default: ``--tokenizer``,
+    else ``--model-path``, else the test tokenizer) gives the guided
+    alphabet."""
+    tokenizer_ref = tokenizer_ref or cli.tokenizer or cli.model_path or "test"
     from dynamo_tpu_torch.engine.engine import AsyncTorchEngine, resolve_device
 
     device = resolve_device(cli.device)
@@ -246,21 +270,23 @@ def build_engine(cli, cfg: ModelConfig, args: EngineArgs):
     if cli.model_path:
         from dynamo_tpu_torch.engine.loader import load_hf_params
         params = load_hf_params(cfg, cli.model_path, device)
-    return AsyncTorchEngine(cfg, args, params=params, device=device)
+    return AsyncTorchEngine(cfg, args, params=params, device=device,
+                            guided_vocab=guided_vocab_for(cli, tokenizer_ref))
 
 
 def kernel_launches() -> dict:
-    """Launches of each attention kernel wrapper in this process."""
+    """Launches of each kernel wrapper in this process."""
     from dynamo_tpu_torch.ops.flash_prefill import (
         flash_mla_prefill_paged, flash_prefill,
     )
     from dynamo_tpu_torch.ops.mla_decode import mla_paged_decode
     from dynamo_tpu_torch.ops.paged_attention import paged_attention_decode
     from dynamo_tpu_torch.ops.ragged_attention import ragged_paged_attention
+    from dynamo_tpu_torch.ops.sample import gumbel_argmax
 
     return {w.__name__: w.launches for w in (
         ragged_paged_attention, flash_prefill, paged_attention_decode,
-        mla_paged_decode, flash_mla_prefill_paged)}
+        mla_paged_decode, flash_mla_prefill_paged, gumbel_argmax)}
 
 
 async def serve(cli, engine, args: EngineArgs, eos: list[int],
@@ -323,7 +349,7 @@ async def amain(argv=None) -> None:
     cli = build_parser().parse_args(argv)
     # command-line mistakes fail in milliseconds, not after the load
     cfg, args, eos, tokenizer_ref = configure(cli)
-    engine = build_engine(cli, cfg, args)
+    engine = build_engine(cli, cfg, args, tokenizer_ref)
     loop = asyncio.get_running_loop()
     stop = asyncio.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):

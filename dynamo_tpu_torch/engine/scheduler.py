@@ -3,9 +3,9 @@
 The port's copy of ``dynamo_tpu/engine/scheduler.py``. Pure host logic: it
 must make the same plans as the JAX package's scheduler, or the two
 engines' streams diverge. The parts the port does not serve yet are left
-out: preempt-to-swap and KVBM onboarding (ROADMAP A8), disagg attach, and
-guided decoding. Preemption is therefore always release-and-recompute,
-which is what the JAX scheduler does when it has no swap budget.
+out: preempt-to-swap and KVBM onboarding (ROADMAP A8) and disagg attach.
+Preemption is therefore always release-and-recompute, which is what the
+JAX scheduler does when it has no swap budget.
 
 - A sequence's lifecycle: waiting → running (prefill chunks → decode
   steps) → finished.
@@ -51,7 +51,23 @@ class SeqState:
     num_computed: int = 0  # tokens whose KV is resident
     num_registered_blocks: int = 0  # blocks already registered/evented
     generated: int = 0
+    #: sampling step of the PRNG key (seed, step): the absolute token
+    #: position, so a seeded stream draws the same keys after migration
+    #: or recompute preemption as an unbroken run does
+    step_idx: int = 0
+    #: the key seed of a request that gave none, drawn at admission
+    unseeded_seed: int = 0
     finished: Optional[str] = None
+    #: sampling penalties: incrementally-folded token history (the
+    #: engine's logit edits) — ``gen_counts`` counts GENERATED tokens
+    #: (presence/frequency), ``seen_tokens`` is distinct prompt+generated
+    #: (repetition), ``pen_indexed`` the fold watermark into ``tokens``
+    gen_counts: dict = field(default_factory=dict)
+    seen_tokens: set = field(default_factory=set)
+    pen_indexed: int = 0
+    #: guided decoding cursor (llm/guided.GuidedState on the host oracle,
+    #: structured.FsmCursor on the device path), attached by the engine
+    guided_state: object = None
     #: per-request KV-event batching: stored blocks accumulated across
     #: prefill chunks, flushed as ONE chained event when the prompt
     #: completes (or at finish/preemption)
@@ -67,6 +83,15 @@ class SeqState:
     @property
     def remaining(self) -> int:
         return len(self.tokens) - self.num_computed
+
+    def sampling_tuple(self):
+        s = self.req.sampling_options
+        return (
+            float(s.temperature if s.temperature is not None else 0.0),
+            int(s.top_k if s.top_k else 0),
+            float(s.top_p if s.top_p is not None else 1.0),
+            s.seed,  # None = unseeded (seed=0 is a valid pinned seed)
+        )
 
 
 @dataclass
@@ -120,6 +145,8 @@ class Scheduler:
     def add(self, seq: SeqState) -> None:
         seq.tokens = list(seq.req.token_ids)
         seq.prompt_len = len(seq.tokens)
+        # PRNG step = ABSOLUTE token position (see SeqState.step_idx)
+        seq.step_idx = seq.prompt_len
         seq.hashes = self._new_hashes()
         self._stamp_qos(seq)
         seq.qos_enqueue_t = time.monotonic()
@@ -258,12 +285,21 @@ class Scheduler:
     def append_token(self, seq: SeqState, token: int) -> None:
         seq.tokens.append(token)
         seq.generated += 1
+        seq.step_idx += 1
 
     def check_finish(self, seq: SeqState, token: int) -> Optional[str]:
         sc = seq.req.stop_conditions
         if not sc.ignore_eos and token in (seq.req.eos_token_ids or []):
             if (sc.min_tokens or 0) < seq.generated:
                 return FinishReason.EOS
+        gs = seq.guided_state
+        if gs is not None and (gs.done or gs.exhausted):
+            # the constraint completed (or hit a token-level dead end):
+            # stop even without EOS ids or with ignore_eos. min_tokens
+            # delays only the DONE stop; an exhausted machine has every
+            # next token masked, so it stops regardless
+            if gs.exhausted or (sc.min_tokens or 0) <= seq.generated:
+                return FinishReason.STOP
         if sc.max_tokens is not None and seq.generated >= sc.max_tokens:
             return FinishReason.LENGTH
         if seq.num_computed + 1 >= self.args.max_model_len:
@@ -273,6 +309,13 @@ class Scheduler:
     def finish(self, seq: SeqState, reason: str) -> None:
         seq.finished = reason
         self.qos.leave(seq)
+        if seq.guided_state is not None:
+            # drop the sequence's device-FSM arena reference so idle
+            # constraint tables become evictable (the host oracle has no
+            # release)
+            rel = getattr(seq.guided_state, "release", None)
+            if rel is not None:
+                rel()
         self._flush_stored(seq)
         if seq in self.running:
             self.running.remove(seq)

@@ -104,10 +104,17 @@ async def test_streams_and_kv_events_match_jax_engine():
     assert any(mixed)
 
 
+def _guided_vocab():
+    """The test tokenizer's words: the guided case's alphabet (ids past it
+    are never constraint-eligible)."""
+    from dynamo_tpu_torch.llm.tokenizer import wordlevel_test_vocab
+    return wordlevel_test_vocab()
+
+
 @pytest.mark.parametrize("sampling,output", [
-    (SamplingOptions(temperature=0.7), None),
-    (SamplingOptions(top_k=5), None),
-    (SamplingOptions(top_p=0.9), None),
+    (SamplingOptions(temperature=0.7, seed=5), None),
+    (SamplingOptions(top_k=5, temperature=0.9, seed=1), None),
+    (SamplingOptions(top_p=0.9, temperature=1.2, seed=2), None),
     (SamplingOptions(seed=3), None),
     (SamplingOptions(presence_penalty=0.5), None),
     (SamplingOptions(logit_bias={"3": 1.0}), None),
@@ -115,12 +122,58 @@ async def test_streams_and_kv_events_match_jax_engine():
     (SamplingOptions(), OutputOptions(logprobs=2)),
 ])
 async def test_non_greedy_request_refused(sampling, output):
+    """The name is from when the port refused these requests. They are
+    served now, and each stream (tokens, logprobs, top logprobs, finish)
+    equals the JAX engine's on the same weights; the guided case on both
+    engines' guided alphabet of the test tokenizer."""
+    from dynamo_tpu.protocols import OutputOptions as JaxOutput
+    from dynamo_tpu.protocols import SamplingOptions as JaxSampling
+
+    jparams = M.init_params(JaxModelConfig.tiny(), jax.random.key(0))
+    vocab = _guided_vocab()
+
+    async def one(eng, req):
+        toks, lps, tops, reason = [], [], [], None
+        async for out in eng.generate(req):
+            toks.extend(out.token_ids)
+            lps.extend(out.log_probs or [])
+            tops.extend(out.top_logprobs or [])
+            reason = out.finish_reason or reason
+        await eng.close()
+        return toks, lps, tops, reason
+
+    jeng = AsyncJaxEngine(JaxModelConfig.tiny(),
+                          JaxEngineArgs(prefill_buckets=(8, 16, 32, 64),
+                                        **SETTINGS),
+                          params=jparams, guided_vocab=vocab)
+    want = await one(jeng, JaxRequest(
+        model="tiny", token_ids=[1, 2, 3],
+        sampling_options=JaxSampling(**vars(sampling)),
+        output_options=JaxOutput(**vars(output or OutputOptions())),
+        stop_conditions=JaxStop(max_tokens=6, ignore_eos=True)))
+    eng = AsyncTorchEngine(
+        ModelConfig.tiny(), EngineArgs(**SETTINGS),
+        params=params_from_jax(jax.tree.map(np.asarray, jparams), "cpu"),
+        device="cpu", guided_vocab=vocab)
+    got = await one(eng, PreprocessedRequest(
+        model="tiny", token_ids=[1, 2, 3], sampling_options=sampling,
+        output_options=output or OutputOptions(),
+        stop_conditions=StopConditions(max_tokens=6, ignore_eos=True)))
+    assert got[0] == want[0] and got[3] == want[3]
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=0)
+    assert [[i for i, _ in t] for t in got[2]] == \
+        [[i for i, _ in t] for t in want[2]]
+    if sampling.guided:
+        assert got[0] == [vocab.index("a")] and got[3] == FinishReason.STOP
+
+
+async def test_multimodal_request_refused():
+    """The one refusal left: multimodal input (ROADMAP A9)."""
     eng = AsyncTorchEngine(ModelConfig.tiny(), EngineArgs(**SETTINGS),
                            device="cpu")
     req = PreprocessedRequest(model="tiny", token_ids=[1, 2, 3],
-                              sampling_options=sampling,
-                              output_options=output or OutputOptions())
-    with pytest.raises(ValueError, match="ROADMAP A"):
+                              mm_embeds=[[0.0] * 64])
+    with pytest.raises(ValueError, match="ROADMAP A9"):
         async for _ in eng.generate(req):
             pass
     await eng.close()

@@ -580,3 +580,65 @@ def test_mla_fp16_range_on_card(pages, magnitude):
                                        block_size=bs, scale=scale, **kw)
     assert bool(got.isfinite().all())
     assert_mla_close(got.flatten(0, 1), want.flatten(0, 1), pages)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [1, 7, 4095, 4096, 4097, 32000, 128256])
+def test_gumbel_argmax_matches_plain_on_card(V):
+    """The draw kernel's tokens equal its plain version's on the card:
+    vocabulary widths across the kernel's 4096-element chunk edges, rows
+    with top-k/top-p style cuts and a row whose every entry is masked but
+    one; a zero-logit row (the noise alone decides) and keys at the uint32
+    edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dynamo_tpu_torch.ops.sample import gumbel_argmax, gumbel_argmax_ref
+
+    rng = np.random.default_rng(V)
+    B = 6
+    lg = torch.from_numpy((rng.standard_normal((B, V)) * 2).astype(
+        np.float32)).cuda()
+    lg[4] = 0.0
+    temp = torch.tensor([0.5, 1.0, 1.3, 1e-6, 0.8, 1.0], device="cuda")
+    x = lg / temp[:, None]
+    cut = torch.full((B,), float("-inf"), device="cuda")
+    cut[1] = x[1].max()  # one token left
+    cut[2] = x[2].topk(min(5, V)).values[-1]
+    seed = torch.tensor([0, 1, 2**31 - 1, -1, 12345, 7], dtype=torch.int32,
+                        device="cuda")
+    step = torch.tensor([0, -1, 5, 2**31 - 1, 77, 128], dtype=torch.int32,
+                        device="cuda")
+    got = gumbel_argmax(lg, temp, cut, seed, step)
+    want = gumbel_argmax_ref(lg, temp, cut, seed, step)
+    torch.cuda.synchronize()
+    assert got.tolist() == want.tolist()
+    assert gumbel_argmax.launches > 0
+
+
+@pytest.mark.gpu
+def test_sampler_on_card_draws_with_the_kernel():
+    """``engine.sampling.sample`` on CUDA logits launches the draw for a
+    batch with sampled rows (never for an all-greedy one) and gives the
+    plain path's tokens on the same logits moved to the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dynamo_tpu_torch.engine import sampling
+    from dynamo_tpu_torch.ops.sample import gumbel_argmax
+
+    rng = np.random.default_rng(3)
+    B, V = 8, 50000
+    lg = (rng.standard_normal((B, V)) * 3).astype(np.float32)
+    temp = np.asarray([0, 0.6, 0.8, 1.0, 1.2, 0.7, 0.9, 1.1], np.float32)
+    top_k = np.asarray([0, 0, 40, 0, 64, 0, 5, 0], np.int32)
+    top_p = np.asarray([1, 1, 1, 0.9, 1, 0.5, 1, 0.95], np.float32)
+    keys = sampling.make_keys(range(B), range(100, 100 + B))
+    n0 = gumbel_argmax.launches
+    tc, lc = sampling.sample(torch.from_numpy(lg).cuda(), temp, top_k,
+                             top_p, keys)
+    assert gumbel_argmax.launches == n0 + 1
+    sampling.sample(torch.from_numpy(lg).cuda(), np.zeros(B, np.float32),
+                    top_k, top_p, keys)
+    assert gumbel_argmax.launches == n0 + 1
+    tp, lp = sampling.sample(torch.from_numpy(lg), temp, top_k, top_p, keys)
+    assert tc.tolist() == tp.tolist()
+    np.testing.assert_allclose(lc.cpu().numpy(), lp.numpy(), atol=1e-5)

@@ -10,6 +10,7 @@ memory-starved engine still finishes every request.
 """
 
 import asyncio
+import dataclasses
 
 import jax
 import numpy as np
@@ -24,8 +25,10 @@ from dynamo_tpu.protocols import StopConditions as JaxStop
 from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
 from dynamo_tpu_torch.engine.weights import params_from_jax
+from dynamo_tpu_torch.engine.scheduler import SeqState
 from dynamo_tpu_torch.protocols import (
-    FinishReason, PreprocessedRequest, StopConditions,
+    FinishReason, OutputOptions, PreprocessedRequest, SamplingOptions,
+    StopConditions,
 )
 
 pytestmark = pytest.mark.anyio
@@ -206,10 +209,21 @@ async def test_pipeline_feature_gates():
     assert eng.pipelined_steps == 0
 
     eng = tiny_engine()
-    seqs = [object(), object()]
+    seqs = [SeqState(request_id=f"s{i}", req=req(range(1, 5)), ctx=None,
+                     sink=None) for i in range(2)]
     eng.scheduler.running = list(seqs)
     assert eng._can_pipeline(seqs)
     assert not eng._can_pipeline(seqs[:1])  # one is mid-prefill
+    # a row that needs the host between its draw and its emission keeps
+    # the batch on the serial loop
+    for needs_host in (dict(output_options=OutputOptions(logprobs=1)),
+                       dict(sampling_options=SamplingOptions(
+                           logit_bias={"3": 1.0})),
+                       dict(sampling_options=SamplingOptions(
+                           presence_penalty=0.5))):
+        seqs[1].req = dataclasses.replace(req(range(1, 5)), **needs_host)
+        assert not eng._can_pipeline(seqs)
+    seqs[1].req = req(range(1, 5))
     eng.scheduler.waiting.append(type("S", (), {"tenant": "t",
                                                 "priority": "standard"})())
     assert not eng._can_pipeline(seqs)

@@ -13,10 +13,17 @@ checkpoint:
 - the JAX KV router's indexer holds the torch worker's blocks under the
   hashes the JAX engine computes for the same request;
 - ``/v1/embeddings`` answers through the torch worker;
-- once the worker shuts down, the model leaves the frontend's list.
+- once the worker shuts down, the model leaves the frontend's list;
+- a seeded sampled chat request with logprobs returns the text and the
+  logprobs the JAX engine gives on the same weights, and a
+  ``response_format`` json_schema request returns JSON that parses and
+  fits the schema (the worker reads its guided alphabet from the
+  checkpoint's ``tokenizer.json``).
 """
 
 import asyncio
+import contextlib
+import json
 
 import jax.numpy as jnp
 import pytest
@@ -33,7 +40,9 @@ from dynamo_tpu.engine.loader import load_hf_params as jax_load_hf_params
 from dynamo_tpu.frontend.http import HttpService
 from dynamo_tpu.llm.discovery import ModelManager, ModelWatcher
 from dynamo_tpu.llm.tokenizer import TokenizerWrapper
+from dynamo_tpu.protocols import OutputOptions as JaxOutput
 from dynamo_tpu.protocols import PreprocessedRequest as JaxRequest
+from dynamo_tpu.protocols import SamplingOptions as JaxSampling
 from dynamo_tpu.protocols import StopConditions as JaxStop
 from dynamo_tpu.runtime import ControlPlaneServer, DistributedRuntime
 from dynamo_tpu_torch.engine import main as worker_main
@@ -128,10 +137,12 @@ async def test_handler_recomputes_plans_and_refuses_unported():
         assert len(plain) == 5
         assert await tokens(restore={"sources": [[7, 4, 1.0]]}) == plain
         assert await tokens(onboard={"sources": [[7, 4, 1.0]]}) == plain
-        for bad in (dict(sampling_options=SamplingOptions(temperature=0.5)),
-                    dict(mm_refs=[{"url": "x"}])):
-            with pytest.raises(InvalidRequestError, match="ROADMAP"):
-                await tokens(**bad)
+        # a seeded draw is served now; multimodal input is still refused
+        sampled = await tokens(sampling_options=SamplingOptions(
+            temperature=0.5, seed=3))
+        assert len(sampled) == 5
+        with pytest.raises(InvalidRequestError, match="ROADMAP A9"):
+            await tokens(mm_refs=[{"url": "x"}])
     finally:
         await eng.close()
 
@@ -203,3 +214,103 @@ async def test_torch_worker_behind_jax_frontend(ckpt, monkeypatch):
             await rt.shutdown()
             await hub.stop()
     assert report["steps"] > 0 and report["pipelined_steps"] > 0
+
+
+@contextlib.asynccontextmanager
+async def _fleet(ckpt, monkeypatch):
+    """A JAX hub and frontend (KV router) with the torch worker serving
+    the checkpoint in f32 on the CPU; yields the frontend's base URL."""
+    hub = ControlPlaneServer()
+    addr = await hub.start()
+    monkeypatch.setenv("DYN_CONTROL_PLANE", addr)
+    cli = worker_main.build_parser().parse_args(
+        ["--model", MODEL, "--model-path", ckpt, "--device", "cpu", *ENGINE])
+    cfg, args, eos, tokenizer_ref = worker_main.configure(cli)
+    cfg.dtype = "float32"
+    engine = worker_main.build_engine(cli, cfg, args)
+    assert engine.guided_vocab is not None and engine.structured is not None
+    stop = asyncio.Event()
+    worker = asyncio.get_running_loop().create_task(worker_main.serve(
+        cli, engine, args, eos, tokenizer_ref, stop))
+    rt = await DistributedRuntime.create(address=addr)
+    manager = ModelManager()
+    watcher = await ModelWatcher(rt, manager, router_mode="kv").start()
+    service = HttpService(manager, port=0)
+    await service.start()
+    try:
+        await _until(lambda: MODEL in manager.list_models(), "registration")
+        yield f"http://127.0.0.1:{service.port}"
+    finally:
+        stop.set()
+        await asyncio.wait_for(worker, 30)
+        await service.stop()
+        await watcher.stop()
+        await rt.shutdown()
+        await hub.stop()
+
+
+async def _jax_sampled(ckpt, ids, sampling, logprobs, n):
+    """The JAX engine's tokens and logprobs for ``ids`` on the checkpoint."""
+    cfg = JaxModelConfig.from_pretrained(ckpt)
+    cfg.dtype = "float32"
+    eng = AsyncJaxEngine(cfg, JaxEngineArgs(
+        block_size=4, num_blocks=128, max_num_seqs=4,
+        max_num_batched_tokens=64, max_model_len=256),
+        params=jax_load_hf_params(cfg, ckpt, dtype=jnp.float32))
+    toks, lps, tops = [], [], []
+    async for out in eng.generate(JaxRequest(
+            model=MODEL, token_ids=ids,
+            sampling_options=JaxSampling(**sampling),
+            output_options=JaxOutput(logprobs=logprobs),
+            stop_conditions=JaxStop(max_tokens=n, ignore_eos=True))):
+        toks.extend(out.token_ids)
+        lps.extend(out.log_probs)
+        tops.extend(out.top_logprobs or [])
+    await eng.close()
+    return toks, lps, tops
+
+
+SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "n": {"enum": [1, 2, 3]},
+    "tags": {"type": "array", "items": {"enum": ["a", "b"]},
+             "maxItems": 2}}}
+
+
+@pytest.mark.parametrize("case", ["seeded_logprobs", "json_schema"])
+async def test_sampled_and_guided_requests_behind_jax_frontend(
+        ckpt, monkeypatch, case):
+    ids = _prompt_ids(ckpt)
+    tk = TokenizerWrapper.from_dir(ckpt)
+    body = {"model": MODEL, "stream": False, "max_tokens": N_NEW,
+            "messages": [{"role": "user", "content": PROMPT}]}
+    if case == "seeded_logprobs":
+        body.update(temperature=0.8, top_p=0.9, seed=1234, logprobs=True,
+                    top_logprobs=3, ignore_eos=True)
+        want_toks, want_lps, want_tops = await _jax_sampled(
+            ckpt, ids, dict(temperature=0.8, top_p=0.9, seed=1234), 3, N_NEW)
+    else:
+        body.update(max_tokens=48, response_format={
+            "type": "json_schema",
+            "json_schema": {"name": "probe", "schema": SCHEMA}})
+    async with _fleet(ckpt, monkeypatch) as base:
+        async with aiohttp.ClientSession() as http:
+            resp = await http.post(f"{base}/v1/chat/completions", json=body)
+            assert resp.status == 200, await resp.text()
+            choice = (await resp.json())["choices"][0]
+    text = choice["message"]["content"]
+    if case == "seeded_logprobs":
+        assert text == tk.decode(want_toks)
+        content = choice["logprobs"]["content"]
+        assert len(content) == N_NEW
+        for entry, lp, tops in zip(content, want_lps, want_tops):
+            assert entry["logprob"] == pytest.approx(lp, abs=1e-5)
+            assert [t["logprob"] for t in entry["top_logprobs"]] == \
+                pytest.approx([v for _, v in tops[:3]], abs=1e-5)
+            assert [t["token"] for t in entry["top_logprobs"]] == \
+                [tk.decode([i]) for i, _ in tops[:3]]
+    else:
+        doc = json.loads(text)
+        assert choice["finish_reason"] == "stop"
+        assert set(doc) == {"ok", "n", "tags"}
+        assert isinstance(doc["ok"], bool) and doc["n"] in (1, 2, 3)
+        assert len(doc["tags"]) <= 2 and set(doc["tags"]) <= {"a", "b"}

@@ -3,6 +3,7 @@
 
     python3 tune_decode_loop.py [--model llama3_8b] [--tokens 64]
                                 [--rounds 2] [--profile N] [--seed N]
+                                [--sampled]
 
 Builds one ``AsyncTorchEngine`` of the preset at full width and depth on
 random weights from the seed, and serves ``chip_smoke.py``'s eight
@@ -15,6 +16,11 @@ time. Each run prints TTFT, ITL, tok/s and the decode step wall
 (``chip_smoke.StepClock``). Before the runs it times one decode step's
 parts: the host time of its launches (``_step``), the wait for its
 tokens, and the device time between two events around it.
+
+``--sampled`` times the step's parts for a seeded sampled batch (the
+temperature, top-k and top-p of ``chip_smoke.SAMPLED``: the cuts, the
+draw kernel, the staged sampling operands) against the same greedy batch,
+in turns greedy, sampled, sampled, greedy, before the serving runs.
 
 ``--profile N`` then serves the requests once more on the pipelined loop
 under ``cProfile`` and prints the N functions with the most time of their
@@ -43,34 +49,43 @@ from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
 from dynamo_tpu_torch.engine import sampling
 from dynamo_tpu_torch.engine.scheduler import SeqState
 from dynamo_tpu_torch.models import get_model_config
-from dynamo_tpu_torch.protocols import PreprocessedRequest, StopConditions
+from dynamo_tpu_torch.protocols import (
+    PreprocessedRequest, SamplingOptions, StopConditions,
+)
 
 
 #: name -> pipeline_decode
 LOOPS = {"serial": False, "pipelined": True}
 
 
-def step_parts(engine, n: int = 20) -> str:
+def step_parts(engine, n: int = 20, sampled: bool = False) -> str:
     """Median host ms of one 8-row decode step's launches, of the wait for
     its tokens after them, and its device ms (events around the step); and
-    the host ms of the same step launched as before the staging buffers
-    (four pageable copies, the step, the argmax, ``.tolist()``)."""
-    cfg, args = engine.cfg, engine.args
+    for a greedy batch the host ms of the same step launched as before the
+    staging buffers (four pageable copies, the step, the argmax,
+    ``.tolist()``). ``sampled``: each row draws with its own seed."""
     seqs = []
     for i in range(8):
+        t, k, p = chip_smoke.SAMPLED[i]
+        opts = (SamplingOptions(temperature=t, top_k=k or None, top_p=p,
+                                seed=i + 1) if sampled else SamplingOptions())
         s = SeqState(request_id=f"p{i}", req=PreprocessedRequest(
-            model="x", token_ids=[1] * 1000), ctx=None, sink=None)
+            model="x", token_ids=[1] * 1000, sampling_options=opts),
+            ctx=None, sink=None)
         s.tokens = [1 + i] * (1000 + i)
+        s.step_idx = len(s.tokens)
         engine.scheduler._ensure_blocks(s, len(s.tokens))
         seqs.append(s)
     ops = engine._decode_operands(seqs, 0)
+    # the engine's path for both: the greedy batch's plan draws nothing
+    samp = engine._sampling_plan(seqs)
     host, wait, dev = [], [], []
     for _ in range(n + 3):
         torch.cuda.synchronize()
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0 = time.perf_counter()
         e0.record()
-        out = engine._step(ops, False)
+        out = engine._step(ops, False, None, samp)
         e1.record()
         t1 = time.perf_counter()
         out["copied"].synchronize()
@@ -79,6 +94,35 @@ def step_parts(engine, n: int = 20) -> str:
         wait.append((t2 - t1) * 1e3)
         torch.cuda.synchronize()
         dev.append(e0.elapsed_time(e1))
+    med = lambda xs: statistics.median(xs[3:])  # noqa: E731
+    kind = "seeded sampled" if sampled else "greedy"
+    # the sampler alone, on one step's logits and staged operands: its
+    # launches' host time and its device time, apart from the forward's
+    logits = torch.randn((len(seqs), engine.cfg.vocab_size),
+                         device=engine.device)
+    rows = torch.from_numpy(sampling.pack_rows(
+        samp["temp"], samp["top_k"], samp["top_p"],
+        samp["keys"])).to(engine.device)
+    s_host, s_dev = [], []
+    for _ in range(n + 3):
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        engine._sample(logits, samp, rows)
+        e1.record()
+        s_host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        s_dev.append(e0.elapsed_time(e1))
+    head = (f"one {kind} decode step, 8 rows at kv ~1000: launches "
+            f"{med(host):.3f} ms of host, then {med(wait):.3f} ms waiting "
+            f"for its tokens; device {med(dev):.3f} ms; its sampling "
+            f"alone {med(s_host):.3f} ms of host, {med(s_dev):.3f} ms of "
+            f"device")
+    if sampled:
+        for s in seqs:
+            engine.pool.release(s.block_table)
+        return f"{head} (medians of {n})"
     pageable = []
     for _ in range(n + 3):
         torch.cuda.synchronize()
@@ -86,16 +130,14 @@ def step_parts(engine, n: int = 20) -> str:
         t = [torch.from_numpy(a).to(engine.device) for a in ops]
         logits, _, _ = engine.step_fn(engine.params, t[0], t[1], None, t[3],
                                       engine.k_cache, engine.v_cache)
-        sampling.greedy(logits)[0].tolist()
+        toks = logits.argmax(-1)
+        torch.log_softmax(logits, -1).gather(1, toks[:, None])
+        toks.tolist()
         pageable.append((time.perf_counter() - t0) * 1e3)
     for s in seqs:
         engine.pool.release(s.block_table)
-    med = lambda xs: statistics.median(xs[3:])  # noqa: E731
-    return (f"one decode step, 8 rows at kv ~1000: launches {med(host):.3f} "
-            f"ms of host, then {med(wait):.3f} ms waiting for its tokens; "
-            f"device {med(dev):.3f} ms; with pageable operand copies and a "
-            f"synchronous copy of the tokens {med(pageable):.3f} ms of wall "
-            f"(medians of {n})")
+    return (f"{head}; with pageable operand copies and a synchronous copy "
+            f"of the tokens {med(pageable):.3f} ms of wall (medians of {n})")
 
 
 async def serve_loops(engine, prompts, tokens: int, order,
@@ -148,6 +190,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--profile", type=int, default=0, metavar="N")
+    ap.add_argument("--sampled", action="store_true",
+                    help="also time a seeded sampled step against a greedy "
+                         "one, in turns")
     a = ap.parse_args()
     smi, _kind = chip_smoke.device_phase()
     cfg = get_model_config(a.model)
@@ -155,6 +200,10 @@ def main() -> int:
         block_size=16, max_num_seqs=8, max_num_batched_tokens=2048,
         max_model_len=4096, seed=a.seed))
     print(f"[{smi}] {a.model}: {step_parts(engine)}", flush=True)
+    if a.sampled:
+        for sampled in (False, True, True, False):
+            print(f"[{smi}] {a.model}: {step_parts(engine, sampled=sampled)}",
+                  flush=True)
     order = ["serial", "pipelined", "pipelined", "serial"] * a.rounds
     prompts = chip_smoke.serving_prompts(cfg, a.seed)
     results = asyncio.run(serve_loops(engine, prompts, a.tokens, order,
