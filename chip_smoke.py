@@ -67,6 +67,20 @@ prints any result:
    synthetic alphabet of 128256 entries, whose device-FSM stream must
    match the schema's pattern (``CharDfa.fullmatch``) and equal the host
    oracle's.
+   Every step of every serving run is the engine's CUDA graphs: the first
+   use of a signature runs eagerly and is captured, later uses replay, and
+   a replay adds the launches it holds to each kernel's count, so the
+   launch checks count replays. After the solo prompts, the eight requests
+   twice more on the pipelined loop, with the engine's graphs off
+   (``use_graphs``) and on: equal streams, and the decode step wall, ITL,
+   tok/s and TTFT of both runs, with the engine's captures, their seconds
+   and the graph pool's size. After the sampled requests,
+   ``multi_step_decode=4`` on the same engine: the eight greedy and the
+   eight seeded sampled requests in bursts of four steps, every stream
+   equal to the K = 1 run's, the per-token decode wall beside K = 1's.
+   Then the captured step against the eager step on the same operands (a
+   decode-only and a mixed step, replayed in the reverse of their capture
+   order): logits and written cache slots bit-equal, the same launches.
 4. Full-width step: one packed ragged step through the kernel against the
    same step through the plain attention; logits must agree.
 5. Step profile: a decode-only and a prefill step at full width, timed on
@@ -85,8 +99,11 @@ prints any result:
    and ``load_hf_params`` the weights bit for bit.
 7. int8 KV serving: the eight requests again on an engine with
    ``kv_cache_dtype="int8"`` (the ragged kernel's int8 pages must launch),
-   its pool beside the bf16 one's, one full-width int8 step against the
-   plain version, and the step profile of phase 5 on int8 pages.
+   after ``warmup()`` on the fresh engine (every token bucket's mixed and
+   decode-only step, the greedy sampler; no greedy request may capture
+   anything after it), its pool beside the bf16 one's, the captured step
+   against the eager one, one full-width int8 step against the plain
+   version, and the step profile of phase 5 on int8 pages.
 8. The worker, once the Llama engines are released: the port's
    ``ControlPlaneServer``, ``python -m dynamo_tpu_torch.engine.main
    --model-path .smoke_ckpt`` spawned with ``DYN_CONTROL_PLANE`` set, and
@@ -100,17 +117,21 @@ prints any result:
    plane's stream (the solo prompts' blocks under the direct engine's
    hashes), one embedding (cosine against the direct engine's),
    ``clear_kv_blocks``; then SIGTERM: exit 0 within
-   ``WORKER_EXIT_S`` and no instance left in discovery. The worker reports
-   its kernel launches at exit: the ragged kernel 32 times a step, the
-   flash prefill kernel 32 times for the embedding, nothing else.
+   ``WORKER_EXIT_S`` and no instance left in discovery. The worker runs
+   with ``--warmup-buckets`` and reports its kernel launches and captures
+   at exit: the ragged kernel 32 times a forward step (the warmup's
+   included), the flash prefill kernel 32 times for the embedding,
+   nothing else; no capture but the warmup's.
 9. DeepSeek-V2-Lite serving (the Llama engines released first: the two
    models never share the card): ``AsyncTorchEngine`` with the
    deepseek_v2_lite preset at full width and depth (MLA + MoE, random
    seeded weights), the eight requests of phase 3 (79-881 prompt tokens
    from the same seed); the MLA decode kernel must launch 27 times a step,
    the MLA prefill kernel 27 times in each step with chunk tokens, and no
-   other attention kernel at all; then the eight seeded sampled requests
-   on both loops, streams equal. Then one full-width MLA ragged step
+   other attention kernel at all; the eager and captured runs of phase 3;
+   then the eight seeded sampled requests on both loops, streams equal;
+   the captured step against the eager step. Then one full-width MLA
+   ragged step
    through the kernels against the same step through their plain
    versions, the step profile, and one embedding call (2 inputs of up to
    1024 tokens) through the MLA prefill kernel against the plain attention.
@@ -1293,9 +1314,9 @@ def sample_kernel_phase(seed: int) -> dict:
 
 class StepClock:
     """Records each ``_execute`` of an engine: its start and end on the host
-    clock, the steps it ran (the pipelined loop runs many in one), whether
-    its plan held prefill chunks, and the requests running and waiting
-    after it (as the engine's load metrics report them)."""
+    clock, the forward steps it ran (the pipelined loop runs many in one, a
+    burst K), whether its plan held prefill chunks, and the requests running
+    and waiting after it (as the engine's load metrics report them)."""
 
     def __init__(self, engine):
         self.records = []
@@ -1304,15 +1325,15 @@ class StepClock:
         run = engine._execute
 
         async def timed(plan):
-            s0, t0 = engine.steps, time.perf_counter()
+            f0, t0 = engine.forward_steps, time.perf_counter()
             self.inflight += 1
             try:
                 await run(plan)
             finally:
                 self.inflight -= 1
-            # _run adds the last step after _execute returns
             self.records.append((t0, time.perf_counter(),
-                                 engine.steps - s0 + 1, bool(plan.prefill),
+                                 engine.forward_steps - f0,
+                                 bool(plan.prefill),
                                  len(engine.scheduler.running),
                                  engine.scheduler.num_waiting()))
 
@@ -1321,8 +1342,8 @@ class StepClock:
     def decode_step_ms(self) -> tuple[float, int]:
         """Host wall of the run's last stretch of decode-only steps (from
         the first one's start to the last one's end, the loop's work
-        between them included) over its steps: the decode step wall under
-        serving, pipelined or not."""
+        between them included) over its forward steps: the decode step wall
+        under serving, pipelined or not, and a burst's wall per token."""
         stretch = []
         for rec in reversed(self.records):
             if rec[3]:
@@ -1360,7 +1381,7 @@ def stats_line(st: dict) -> str:
 
 
 async def serve(engine, model, prompts, max_tokens, events=None,
-                solo=(), extra=None):
+                solo=(), extra=None, compare_eager=False):
     """One short warm-up request (cuBLAS handles, allocator growth), then
     the kernels' counts set to 0 and the prompts served concurrently;
     returns the streams, the wall time, the steps of the measured run, those
@@ -1376,8 +1397,15 @@ async def serve(engine, model, prompts, max_tokens, events=None,
     blocks the pipelined solo runs store are returned with them (from
     ``events``).
 
-    ``extra``, an async function of (engine, clock, settle), runs last, on
-    the same engine and loop; what it returns is ``out["extra"]``."""
+    ``compare_eager`` then serves the prompts on the pipelined loop with
+    the engine's graphs off (``use_graphs``), then on again: their streams
+    must equal the first run's, and both runs' stats are
+    ``out["eager_vs_graphs"]`` (False: eager, True: captured; both after
+    the first run, so neither pays a first use of a signature).
+
+    ``extra``, an async function of (engine, clock, settle, out), runs
+    last, on the same engine and loop; what it returns is
+    ``out["extra"]``."""
     async def one(p, n):
         req = PreprocessedRequest(
             model=model, token_ids=p,
@@ -1412,13 +1440,14 @@ async def serve(engine, model, prompts, max_tokens, events=None,
     try:
         await one(list(range(1, 17)), 2)  # shares no prefix with prompts
         await settle()
-        steps0, chunk_steps0 = engine.steps, engine.chunk_steps
+        steps0, chunk_steps0 = engine.forward_steps, engine.chunk_steps
         reset_counts()
         res, st = await run(True)
         await settle()
         launches = {k["wrapper"]: k["wrapper"].launches for k in KERNELS}
         st["admission"] = clock.admission()
-        out = {"res": res, "stats": st, "steps": engine.steps - steps0,
+        out = {"res": res, "stats": st,
+               "steps": engine.forward_steps - steps0,
                "chunk_steps": engine.chunk_steps - chunk_steps0,
                "launches": launches}
         res_off, out["stats_serial"] = await run(False)
@@ -1449,8 +1478,20 @@ async def serve(engine, model, prompts, max_tokens, events=None,
                         f"{streams[True, i]}, the serial loop "
                         f"{streams[False, i]}")
             out["solo"] = [(prompts[i], streams[True, i]) for i in solo]
+        if compare_eager:
+            out["eager_vs_graphs"] = {}
+            for graphs in (False, True):
+                engine.use_graphs = graphs
+                res_g, out["eager_vs_graphs"][graphs] = await run(True)
+                await settle()
+                for i, (a, b) in enumerate(zip(res, res_g)):
+                    if a[2] != b[2]:
+                        raise AssertionError(
+                            f"stream {i}: graphs {graphs} gave {b[2]}, the "
+                            f"first run {a[2]}")
+            engine.use_graphs = True
         if extra is not None:
-            out["extra"] = await extra(engine, clock, settle)
+            out["extra"] = await extra(engine, clock, settle, out)
         return out
     finally:
         await engine.close()
@@ -1463,7 +1504,8 @@ SOLO = (0, 5)
 
 def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
                   model: str = "llama3_8b", params=None,
-                  solo: bool = False, extra=None):
+                  solo: bool = False, extra=None,
+                  compare_eager: bool = False, warmup: bool = False):
     """Eight concurrent greedy requests at full width (on ``params``, or
     weights drawn from ``seed``); returns the engine, its attention
     kernels' launches in the run by wrapper name, the streams, and what
@@ -1471,7 +1513,11 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     streams). The pipelined and the serial loop must give the same
     streams. The ragged kernel (GQA), or the MLA decode kernel, must
     launch once a layer every step; an MLA model's prefill kernel once a
-    layer in every step with chunk tokens; no other kernel at all."""
+    layer in every step with chunk tokens; no other kernel at all. Steps
+    run as the engine's captured graphs (a replay counts the launches it
+    holds); ``compare_eager`` adds an eager and a captured run of the
+    same requests (``serve``). ``warmup`` runs ``engine.warmup()`` first,
+    and then no greedy request may capture anything."""
     cfg = get_model_config(model)
     args = EngineArgs(block_size=16, max_num_seqs=8,
                       max_num_batched_tokens=2048, max_model_len=4096,
@@ -1500,10 +1546,26 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
         f"{engine.num_blocks * block_bytes / 1e9:.2f} GB, "
         f"{engine.num_blocks * args.block_size} tokens), set up in "
         f"{time.perf_counter() - t0:.1f} s")
+    if warmup:
+        rep = asyncio.run(engine.warmup())
+        warm = dict(engine.compile_events)
+        log(f"  [{smi}] warmup(): {len(rep['ragged'])} step signatures "
+            f"(each ragged token bucket {list(args.ragged_token_buckets)} "
+            f"as a mixed and a decode-only step) and the greedy sampler of "
+            f"rows {rep['sample']} in {rep['seconds']:.2f} s: "
+            f"{graph_line(engine)}")
+        if (sorted(rep["ragged"]) != sorted(set(rep["ragged"]))
+                or len(engine.graphs) != len(rep["ragged"])
+                + len(rep["sample"])):
+            raise AssertionError(f"warmup report {rep}, {len(engine.graphs)} "
+                                 f"graphs")
     prompts = serving_prompts(cfg, seed)
     max_tokens = 32
     out = asyncio.run(serve(engine, model, prompts, max_tokens, events,
-                            SOLO if solo else (), extra))
+                            SOLO if solo else (), extra, compare_eager))
+    if warmup and engine.compile_events != warm:
+        raise AssertionError(f"captures after warmup: {warm} -> "
+                             f"{engine.compile_events}")
     res, steps, chunk_steps = out["res"], out["steps"], out["chunk_steps"]
     # launches each attention wrapper must show: one a layer per step (per
     # step with chunk tokens for the MLA prefill kernel), none elsewhere
@@ -1540,11 +1602,36 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     log(f"  [{smi}] {label}, serial decode loop: "
         f"{stats_line(out['stats_serial'])}")
     log("  the 8 streams are the same on both loops")
+    if compare_eager:
+        eager, graphs = (out["eager_vs_graphs"][g] for g in (False, True))
+        log(f"  [{smi}] {label}, pipelined, eager steps: {stats_line(eager)}")
+        log(f"  [{smi}] {label}, pipelined, captured steps: "
+            f"{stats_line(graphs)}")
+        log(f"  [{smi}] {label}, eager vs captured (same 8 streams): decode "
+            f"step wall {eager['step_ms']:.3f} vs {graphs['step_ms']:.3f} "
+            f"ms, ITL mean {eager['itl_mean']:.2f} vs "
+            f"{graphs['itl_mean']:.2f} ms, p50 {eager['itl_p50']:.2f} vs "
+            f"{graphs['itl_p50']:.2f} ms, {eager['tok_s']:.2f} vs "
+            f"{graphs['tok_s']:.2f} tok/s, TTFT mean "
+            f"{eager['ttft_mean']:.2f} vs {graphs['ttft_mean']:.2f} ms")
+    log(f"  [{smi}] {label}: {graph_line(engine)}")
+    if warmup:
+        log(f"  no capture after warmup: {engine.compile_events}")
     if solo:
         log(f"  solo prompts {[len(p) for p, _ in out['solo']]} tokens: the "
             f"same {max_tokens} tokens on both loops; "
             f"{len(out['solo_hashes'])} KV blocks stored")
     return engine, launches, [r[2] for r in res], out
+
+
+def graph_line(engine) -> str:
+    """The engine's captured graphs: how many, of which kind, the seconds
+    of their captures (eager first uses included) and their pool."""
+    g = engine.graphs
+    return (f"{len(g)} graphs captured {engine.compile_events}, "
+            f"{g.seconds:.2f} s with their eager first uses "
+            f"{ {k: round(v, 2) for k, v in engine.compile_seconds.items()} }"
+            f", graph pool {g.pool_bytes / 2**20:.1f} MiB")
 
 
 #: the sampled requests: (temperature, top_k, top_p), each with its own
@@ -1595,6 +1682,83 @@ def synthetic_vocab(V: int, seed: int) -> list:
     return vocab
 
 
+def sampled_options(seed: int) -> list:
+    """The eight sampled requests' options (SAMPLED), each with its seed."""
+    return [SamplingOptions(temperature=t, top_k=k or None, top_p=p,
+                            seed=seed * 8 + i + 1)
+            for i, (t, k, p) in enumerate(SAMPLED)]
+
+
+async def burst_serving(engine, model, prompts, clock, settle, smi: str,
+                        seed: int, served: dict, sampled: dict,
+                        K: int = 4) -> dict:
+    """``multi_step_decode`` = K on the same engine: the eight greedy
+    requests, then the eight seeded sampled ones. Every stream must equal
+    the K = 1 run's (``served``, ``sampled``), decode-only plans must run
+    as bursts, the ragged kernel must launch once a layer a forward step (K
+    a burst) and the draw kernel at least once a sampled burst step.
+    Returns each run's stats; its decode step wall is per token (forward
+    steps), printed beside the K = 1 captured runs'."""
+    L = engine.cfg.num_layers
+    engine.args.multi_step_decode = K
+    out = {}
+    try:
+        # a short greedy and a short sampled request first (one row makes
+        # the same 8-row burst, the same sampler branches as the batch):
+        # the bursts' first uses and captures stay out of the measured runs,
+        # as serve()'s warm-up request keeps the steps'
+        for o in (None, SamplingOptions(temperature=0.7, top_k=20,
+                                        top_p=0.9, seed=1)):
+            await stream(engine, model, list(range(1, 17)), 2 + K, o)
+        await settle()
+        bursts_captured = engine.compile_events.get("multi")
+        for name, opts, want in (
+                ("greedy", [None] * len(prompts),
+                 [r[2] for r in served["res"]]),
+                ("sampled", sampled_options(seed), sampled["streams"])):
+            engine.pool.clear()
+            clock.records.clear()
+            reset_counts()
+            f0, b0 = engine.forward_steps, engine.bursts
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*(stream(engine, model, p, 32, o)
+                                         for p, o in zip(prompts, opts)))
+            st = serving_stats(res, time.perf_counter() - t0)
+            st["step_ms"], st["step_n"] = clock.decode_step_ms()
+            await settle()
+            fwd, bursts = engine.forward_steps - f0, engine.bursts - b0
+            ragged, draws = (ragged_paged_attention.launches,
+                             gumbel_argmax.launches)
+            for i, (r, w) in enumerate(zip(res, want)):
+                if r[3] != "length" or r[2] != w:
+                    raise AssertionError(
+                        f"{name} stream {i}, K = {K}: {r[2]} ({r[3]}), "
+                        f"K = 1: {w}")
+            if (bursts == 0 or ragged != L * fwd
+                    or (name == "sampled" and draws < K * bursts)):
+                raise AssertionError(
+                    f"{name}, K = {K}: {bursts} bursts in {fwd} forward "
+                    f"steps, ragged launches {ragged} (want {L * fwd}), "
+                    f"draw launches {draws}")
+            log(f"  [{smi}] {model}, multi_step_decode={K}, 8 {name} "
+                f"streams x 32 tokens equal to K = 1's: {bursts} bursts, "
+                f"{fwd} forward steps, launches ragged {ragged}, draw "
+                f"{draws}; {stats_line(st)}")
+            out[name] = st
+        if engine.compile_events.get("multi") != bursts_captured:
+            raise AssertionError(f"a burst was captured in a measured run: "
+                                 f"{engine.compile_events}")
+    finally:
+        engine.args.multi_step_decode = 1
+    k1 = (served["eager_vs_graphs"][True] if "eager_vs_graphs" in served
+          else served["stats"])
+    log(f"  [{smi}] {model}, decode wall per token, captured: K = 1 "
+        f"{k1['step_ms']:.3f} (greedy) / {sampled['stats']['step_ms']:.3f} "
+        f"(sampled) ms, K = {K} burst {out['greedy']['step_ms']:.3f} / "
+        f"{out['sampled']['step_ms']:.3f} ms")
+    return out
+
+
 async def sampled_serving(engine, model, prompts, clock, settle,
                           smi: str, seed: int, host_and_guided: bool):
     """Eight seeded sampled requests (SAMPLED) on the pipelined loop, the
@@ -1605,9 +1769,7 @@ async def sampled_serving(engine, model, prompts, clock, settle,
     a synthetic alphabet of the vocabulary's width, on the device FSM and
     on the host oracle. Returns the kernel's launches and the two loops'
     stats."""
-    opts = [SamplingOptions(temperature=t, top_k=k or None, top_p=p,
-                            seed=seed * 8 + i + 1)
-            for i, (t, k, p) in enumerate(SAMPLED)]
+    opts = sampled_options(seed)
 
     async def run(pipeline: bool):
         engine.args.pipeline_decode = pipeline
@@ -1641,7 +1803,8 @@ async def sampled_serving(engine, model, prompts, clock, settle,
         f"{stats_line(st)}")
     log(f"  [{smi}] {model}, sampled, serial decode loop: "
         f"{stats_line(st_s)}")
-    out = {"launches": launches, "stats": st, "stats_serial": st_s}
+    out = {"launches": launches, "stats": st, "stats_serial": st_s,
+           "streams": [r[2] for r in res]}
     if not host_and_guided:
         return out
 
@@ -1760,6 +1923,94 @@ def full_width_step(engine, model: str, seed: int) -> float:
             else str(engine.dtype)[6:])
     return check_logits(f"full-width step, {model}, {kind} KV (decode kv "
                         f"701, chunk 128 at kv 328, prefill 64)", got, want)
+
+
+def graph_step_check(engine, model: str, seed: int) -> None:
+    """The captured step against the eager step on the same operands, on
+    the serving engine's weights and cache (fresh blocks): a decode-only
+    step (8 rows at kv 900-1100) and a mixed one (a decode row at kv 701, a
+    128-token chunk at kv 328, a 64-token prefill). Each is captured (if
+    serving has not), in that order; then both run eagerly, the slots they
+    wrote are zeroed, and both replay in the other order. The logits and
+    every written cache slot must be bit-equal to the eager run's, and
+    each replay must count the kernel launches of one eager run."""
+    cfg, bs = engine.cfg, engine.args.block_size
+    rng = np.random.default_rng(seed + 29)
+    seqs = []
+
+    def seq(n):
+        s = SeqState(request_id="graph", req=None, ctx=None, sink=None)
+        s.tokens = list(map(int, rng.integers(0, cfg.vocab_size, n)))
+        s.block_table = engine.pool.allocate(-(-n // bs))
+        seqs.append(s)
+        return s
+
+    a, b, c = seq(701), seq(328), seq(64)
+    cases = [("decode-only", StepPlan(decode=[
+                  seq(int(n)) for n in rng.integers(900, 1100, 8)]), False),
+             ("mixed", StepPlan(prefill=[PrefillWork(b, 200, 128, True),
+                                         PrefillWork(c, 0, 64, True)],
+                                decode=[a]), True)]
+    ops, slots = {}, {}
+    for name, plan, _ in cases:
+        ops[name], _ = engine.pack(plan)
+        n = len(plan.decode) + sum(w.chunk for w in plan.prefill)
+        slots[name] = torch.from_numpy(
+            ops[name][0][2, :n].astype(np.int64)).to(engine.device)
+    leaves = [t for cache in (engine.k_cache, engine.v_cache)
+              for t in (cache.values() if isinstance(cache, dict)
+                        else (cache,))]
+
+    def forward(name, chunks):
+        R = ops[name][1].shape[0]
+        ints5, rows3, grid, bt = engine._staging.put(
+            [np.zeros((5, R), np.int32), np.zeros((R,), np.int32),
+             *ops[name]])[2:]
+        reset_counts()
+        logits = engine._forward(ints5, rows3, grid if chunks else None,
+                                 bt).clone()
+        written = [t[:, slots[name]].clone() for t in leaves]
+        torch.cuda.synchronize()
+        return logits, written, {k["wrapper"].__name__: k["wrapper"].launches
+                                 for k in KERNELS}
+
+    engine.use_graphs = True
+    keys = []
+    for name, _, chunks in cases:
+        forward(name, chunks)
+        keys.append(("ragged" if chunks else "ragged_dec",
+                     ops[name][0].shape[1]))
+    engine.use_graphs = False
+    want = {name: forward(name, chunks) for name, _, chunks in cases}
+    for name, _, _ in cases:
+        for t in leaves:
+            t[:, slots[name]] = 0
+    engine.use_graphs = True
+    for key, (name, _, chunks) in reversed(list(zip(keys, cases))):
+        if key not in engine.graphs:
+            raise AssertionError(f"{key} was not captured")
+        got = forward(name, chunks)
+        same_kv = all(torch.equal(g, w) for g, w in zip(got[1], want[name][1]))
+        if not torch.equal(got[0], want[name][0]) or not same_kv:
+            diff = float((got[0] - want[name][0]).abs().max())
+            raise AssertionError(
+                f"{model} {name} step: the replay of {key} differs from the "
+                f"eager step (max |logit diff| {diff}, written cache equal: "
+                f"{same_kv})")
+        if got[2] != want[name][2] or not any(got[2].values()):
+            raise AssertionError(f"{model} {name} step: replay launches "
+                                 f"{got[2]}, eager {want[name][2]}")
+    for s in seqs:
+        engine.pool.release(s.block_table)
+    kind = ("int8" if engine.args.kv_cache_dtype == "int8"
+            else str(engine.dtype)[6:])
+    log(f"graph vs eager, {model}, {kind} KV: the decode-only step "
+        f"({keys[0]}) and the mixed step ({keys[1]}) replayed in the "
+        f"reverse of their capture order: logits and "
+        f"{sum(len(v) for v in slots.values())} written cache slots "
+        f"bit-equal to the eager steps', launches "
+        f"{ {k: v for k, v in want['mixed'][2].items() if v} } a mixed "
+        f"step in both")
 
 
 def check_logits(label: str, got, want, ties: bool = False) -> float:
@@ -2008,12 +2259,14 @@ def embedding_phase(engine, seed: int, smi: str) -> int:
 def int8_phase(seed: int, smi: str, bf16_blocks: int, bf16_streams):
     """Serving with an int8 KV pool and one full-width int8 step; returns
     the ragged kernel's launches in the serving run."""
-    engine, launches, streams, _ = serving_phase(seed, smi, "int8")
+    engine, launches, streams, _ = serving_phase(seed, smi, "int8",
+                                                 warmup=True)
     launches = launches["ragged_paged_attention"]
     same = sum(a == b for a, b in zip(streams, bf16_streams))
     log(f"  int8 KV pool {engine.num_blocks} blocks vs bf16 pool "
         f"{bf16_blocks} blocks ({engine.num_blocks / bf16_blocks:.3f}x); "
         f"{same} of 8 greedy streams equal to the bf16 run's")
+    graph_step_check(engine, "llama3_8b", seed)
     full_width_step(engine, "llama3_8b", seed)
     step_profile(engine, "llama3_8b", seed)
     _release(engine)
@@ -2076,12 +2329,22 @@ def mla_embedding(engine, seed: int, smi: str) -> int:
     return launches
 
 
-def sampled_extra(model: str, seed: int, smi: str, host_and_guided: bool):
+def sampled_extra(model: str, seed: int, smi: str, host_and_guided: bool,
+                  burst: bool = False):
     """The ``extra`` of ``serve`` that runs :func:`sampled_serving` on the
-    serving run's prompts."""
+    serving run's prompts, and with ``burst`` then
+    :func:`burst_serving`."""
     prompts = serving_prompts(get_model_config(model), seed)
-    return lambda engine, clock, settle: sampled_serving(
-        engine, model, prompts, clock, settle, smi, seed, host_and_guided)
+    async def extra(engine, clock, settle, served):
+        out = await sampled_serving(engine, model, prompts, clock, settle,
+                                    smi, seed, host_and_guided)
+        if burst:
+            out["burst"] = await burst_serving(
+                engine, model, prompts, clock, settle, smi, seed, served,
+                out)
+        return out
+
+    return extra
 
 
 def mla_phase(seed: int, smi: str) -> dict:
@@ -2092,9 +2355,11 @@ def mla_phase(seed: int, smi: str) -> dict:
     MLA kernels' launches in the two serving runs by KERNELS name."""
     model = "deepseek_v2_lite"
     engine, served, streams, _ = serving_phase(
-        seed, smi, model=model, extra=sampled_extra(model, seed, smi, False))
+        seed, smi, model=model, extra=sampled_extra(model, seed, smi, False),
+        compare_eager=True)
     launches = {"mla_paged_decode": served["mla_paged_decode"],
                 "flash_mla_prefill": served["flash_mla_prefill_paged"]}
+    graph_step_check(engine, model, seed)
     full_width_step(engine, model, seed)
     step_profile(engine, model, seed)
     mla_embedding(engine, seed, smi)
@@ -2352,6 +2617,7 @@ async def _worker_run(ref: dict, smi: str) -> dict:
             "--model-path", str(CKPT_DIR), "--model", WORKER_MODEL,
             "--block-size", "16", "--max-num-seqs", "8",
             "--max-num-batched-tokens", "2048", "--max-model-len", "4096",
+            "--warmup-buckets",
             stdout=asyncio.subprocess.PIPE, stderr=wlog,
             env={**os.environ, "DYN_CONTROL_PLANE": addr},
             cwd=str(pathlib.Path(__file__).resolve().parent))
@@ -2507,16 +2773,26 @@ def worker_phase(ref: dict, smi: str, direct: dict) -> dict:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     L, report = ref["layers"], out["report"]
     launches = report["launches"]
-    want = {"ragged_paged_attention": L * report["steps"],
+    # the warmup's dummy steps (--warmup-buckets) are forward steps too
+    want = {"ragged_paged_attention": L * report["forward_steps"],
             "flash_prefill": L}  # the one embed call
     for name, n in launches.items():
         if n != want.get(name, 0) or (name in want and n == 0):
             raise AssertionError(f"worker launches {launches}, want {want} "
                                  f"({report['steps']} steps)")
+    # every capture is the warmup's: each token bucket (8 to 2048) as a
+    # mixed and a decode-only step, and the greedy sampler of 8 rows
+    if report["compile_events"] != {"ragged": 9, "ragged_dec": 9,
+                                    "sample": 1}:
+        raise AssertionError(f"worker captures {report['compile_events']}: "
+                             f"not only the warmup's")
     log(f"  [{smi}] worker: registered {out['ready_s']:.1f} s after spawn "
-        f"(load included), instance {out['lease']:x}; {report['steps']} "
-        f"engine steps ({report['pipelined_steps']} pipelined), launches "
-        f"{launches}; {out['blocks']} KV blocks stored on the event stream")
+        f"(load and warmup included), instance {out['lease']:x}; "
+        f"{report['steps']} engine steps ({report['pipelined_steps']} "
+        f"pipelined, {report['forward_steps']} forward steps with the "
+        f"warmup's), launches {launches}, captures "
+        f"{report['compile_events']}; {out['blocks']} KV blocks stored on "
+        f"the event stream")
     log(f"  [{smi}] worker over TCP, 8 streams x "
         f"{len(ref['solo'][0][1])} tokens: {stats_line(out['stats'])}")
     log(f"  [{smi}] direct engine, same requests: {stats_line(direct)}")
@@ -2536,6 +2812,7 @@ def worker_phase(ref: dict, smi: str, direct: dict) -> dict:
 
 
 def _release(engine) -> None:
+    engine.drop_graphs()  # they hold the weights and caches
     engine.params = engine.k_cache = engine.v_cache = None
     engine._embed_cache = None
     gc.collect()
@@ -2554,7 +2831,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     engine, served, streams, phase3 = serving_phase(
         a.seed, smi, solo=True, extra=sampled_extra("llama3_8b", a.seed, smi,
-                                                    True))
+                                                    True, burst=True),
+        compare_eager=True)
     launches = {"ragged_paged_attention": served["ragged_paged_attention"],
                 "gumbel_argmax": phase3["extra"]["launches"]}
     greedy, drawn = phase3["stats"], phase3["extra"]["stats"]
@@ -2565,6 +2843,7 @@ def main() -> int:
         f"{greedy['itl_p50']:.2f} vs {drawn['itl_p50']:.2f} ms; the draw "
         f"kernel {main_case['gumbel_argmax']['ms']:.4f} ms a step against "
         f"its bound {main_case['gumbel_argmax']['bound_ms']:.5f} ms")
+    graph_step_check(engine, "llama3_8b", a.seed)
     full_width_step(engine, "llama3_8b", a.seed)
     step_profile(engine, "llama3_8b", a.seed)
     launches["paged_attention_decode"] = dense_decode_step(engine, a.seed,

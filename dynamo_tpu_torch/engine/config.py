@@ -286,8 +286,6 @@ UNPORTED_KNOBS = {
     "dp_size": (1, "A11"),
     "pp_size": (1, "A11"),
     "use_pallas_attention": (False, "B1: the port's kernel is always on"),
-    "multi_step_decode": (1, "A7"),
-    "warmup_buckets": (False, "A7"),
     "speculative_tokens": (0, "A7"),
     "kvbm_host_bytes": (0, "A8"),
     "kvbm_disk_dir": (None, "A8"),
@@ -327,6 +325,12 @@ class EngineArgs:
     #: QoS policy override (dynamo_tpu_torch.qos.QosConfig); None = env
     qos: Optional[object] = None
     seed: int = 0
+    #: K > 1: decode-only batches that need no host round trip run K
+    #: steps and their draws in one burst (one captured graph on the card)
+    multi_step_decode: int = 1
+    #: run every token bucket's step signatures before serving
+    #: (``AsyncTorchEngine.warmup``); the worker does it before it registers
+    warmup_buckets: bool = False
     #: None / "auto" = the model dtype; "int8" = int8 pages with f32 scales
     #: per (slot, kv-head), about half the bytes (engine/cache.py)
     kv_cache_dtype: Optional[str] = None
@@ -349,8 +353,6 @@ class EngineArgs:
     dp_size: int = 1
     pp_size: int = 1
     use_pallas_attention: bool = False
-    multi_step_decode: int = 1
-    warmup_buckets: bool = False
     speculative_tokens: int = 0
     kvbm_host_bytes: int = 0
     kvbm_disk_dir: Optional[str] = None

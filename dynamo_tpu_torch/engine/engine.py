@@ -20,9 +20,23 @@ the depth-2 pipelined loop (``EngineArgs.pipeline_decode``, on by default
 as in the JAX package) launches step N+1 with step N's tokens and FSM
 states fed on the device before step N's tokens reach the host. Each
 step's operands, sampling operands included, cross to the card as one
-non-blocking copy out of pinned staging memory, and its tokens come back
-the same way. The multi-step and speculative fast paths are not ported
-yet (ROADMAP A7), and multimodal requests are refused at ``generate()``.
+non-blocking copy out of pinned staging memory into one device buffer that
+never moves, and its tokens come back the same way. With
+``EngineArgs.multi_step_decode`` K > 1, a decode-only batch that needs no
+host round trip runs K steps and their draws in one burst
+(``model.make_multi_decode_fn``) and each sequence gets one output per
+burst. Speculative decoding is not ported yet (ROADMAP A7), and
+multimodal requests are refused at ``generate()``.
+
+On the card every step runs as a CUDA graph (``engine/graphs.py``): the
+first use of a signature (a mixed step's or a decode-only step's token
+bucket, a sampler's rows and branches, a burst's rows) runs eagerly and
+is captured, and every later use replays the capture, as the JAX engine
+compiles one program per signature. ``warmup()`` runs every token bucket's
+signatures before serving; ``compiled_signatures``, ``compile_events`` and
+``compile_seconds`` count them as the JAX engine does. ``use_graphs =
+False`` runs the same steps eagerly. Batches whose sampler needs the host
+(logit edits, top logprobs) sample eagerly after a captured forward.
 
 Models: Llama-family GQA, and DeepSeek MLA with its MoE (the latent KV
 pool is sized from ``ModelConfig.kv_cache_spec``; MLA decode rows go
@@ -54,6 +68,7 @@ import logging
 import math
 import secrets
 import threading
+import time
 from typing import AsyncIterator, Callable, Optional
 
 import numpy as np
@@ -66,9 +81,10 @@ from dynamo_tpu_torch.engine.cache import (
 from dynamo_tpu_torch.engine.config import (
     RAGGED_MAX_CHUNKS, EngineArgs, ModelConfig,
 )
+from dynamo_tpu_torch.engine.graphs import GraphCache
 from dynamo_tpu_torch.engine.model import (
     RAGGED_TILE, check_kernel_geometry, check_supported, init_params,
-    make_embed_fn, make_ragged_step_fn, torch_dtype,
+    make_embed_fn, make_multi_decode_fn, make_ragged_step_fn, torch_dtype,
 )
 from dynamo_tpu_torch.engine.scheduler import Scheduler, SeqState, StepPlan
 from dynamo_tpu_torch.protocols import (
@@ -176,14 +192,42 @@ class AsyncTorchEngine:
         self.pool.on_freed = self._wake.set
         self._task: Optional[asyncio.Task] = None
         self._closed = False
-        #: packed ragged steps executed (one forward each), and those of
-        #: them whose plan held prefill chunks (an MLA model's chunk grid)
+        #: engine steps executed (a burst counts once), and those of them
+        #: whose plan held prefill chunks (an MLA model's chunk grid)
         self.steps = 0
         self.chunk_steps = 0
         #: decode steps run by the depth-2 pipelined loop
         self.pipelined_steps = 0
-        self._staging = (_Staging(args, self.device)
-                         if self.device.type == "cuda" else None)
+        #: forward passes run (K a burst), and the bursts among the steps
+        self.forward_steps = 0
+        self.bursts = 0
+        #: tokens launched beyond the plans' real work because shapes
+        #: bucket up (the JAX engine's dynamo_step_padded_tokens_total)
+        self.padded_tokens_total = 0
+        #: distinct step signatures dispatched, as the JAX engine names
+        #: them: ("ragged" | "ragged_dec", T) and ("multi" | "multi_fsm", R)
+        self.compiled_signatures: set = set()
+        #: captures (the port's compiles) and their seconds by kind
+        #: ("ragged", "ragged_dec", "sample", "multi", "multi_fsm"), the
+        #: eager first use included
+        self.compile_events: dict[str, int] = {}
+        self.compile_seconds: dict[str, float] = {}
+        #: warmup asked for (the worker runs it before registering), and
+        #: done: a capture after it is logged as a warning
+        self.warmup_requested = args.warmup_buckets
+        self.warmed_up = False
+        self._staging = _Staging(args, self.device)
+        #: steps run as CUDA graphs (the card's default); False runs the
+        #: same steps eagerly
+        self.use_graphs = self.device.type == "cuda"
+        self.graphs = (GraphCache(self.device)
+                       if self.device.type == "cuda" else None)
+        self._graph_owner: Optional[tuple] = None
+        #: rows -> the [R, V] f32 buffer every step with R rows writes its
+        #: logits into (its sampler's static input)
+        self._logits: dict = {}
+        #: (K, fsm) -> the burst function
+        self._multi_fns: dict = {}
         self.guided_vocab = guided_vocab
         #: the device FSM arena constraints compile into; None = every
         #: constraint runs on the host oracle (no vocabulary,
@@ -379,7 +423,76 @@ class AsyncTorchEngine:
                 and self._can_pipeline(plan.decode)):
             if await self._run_decode_pipelined(plan.decode):
                 return
+        # decode-only plans may take the burst before falling back to the
+        # one packed launch
+        if not plan.prefill and plan.decode:
+            if await self._run_decode_fast(plan.decode):
+                return
         await self._run_ragged(plan)
+
+    # --------------------------------------------------------------- warmup
+
+    async def warmup(self, seq_lens: Optional[list] = None,
+                     prefill_batches: Optional[list] = None) -> dict:
+        """Run every ragged token bucket's signatures once before serving,
+        so no request pays a first use (on the card: the eager run and the
+        capture). The signature space is the token-bucket list: each bucket
+        T as a mixed step and as a decode-only step, and a greedy sampler
+        for each row count R. ``seq_lens`` and ``prefill_batches`` are
+        accepted, as the JAX engine accepts them, and choose nothing: the
+        table width never enters a signature. The dummy steps write only
+        the null block. Refused once work is scheduled. Returns the JAX
+        engine's report: ``{"ragged": [(kind, T, R, W), ...], "sample":
+        [R, ...], "seconds": s}``."""
+        if self.scheduler.has_work:
+            raise RuntimeError(
+                "bucket warmup must run before serving traffic (sequences "
+                "are already scheduled)")
+        args = self.args
+        t_start = time.perf_counter()
+
+        def run():
+            report: dict = {"ragged": [], "sample": []}
+            W = args.max_blocks_per_seq
+            out = None
+            for T in args.ragged_token_buckets:
+                R = args.ragged_rows(T)
+                C, _ = ragged_grid_shape(T)
+                ints5 = np.zeros((5, T), np.int32)
+                ints5[3] = C
+                rows3 = np.zeros((R, 3), np.int32)
+                rows3[0] = (0, 1, 1)  # one row attending a null slot
+                bt = np.full((R, W), NULL_BLOCK, np.int32)
+                operands = (ints5, rows3, np.zeros((C,), np.int32), bt)
+                samp = self._sampling_plan([None] * R)
+                for kind, chunks in (("ragged", True), ("ragged_dec", False)):
+                    out = self._step(operands, chunks, None, samp)
+                    report["ragged"].append((kind, T, R, W))
+                if R not in report["sample"]:
+                    report["sample"].append(R)
+            if out is not None and out["copied"] is not None:
+                out["copied"].synchronize()
+            return report
+
+        report = await asyncio.to_thread(run)
+        self.warmed_up = True
+        report["seconds"] = round(time.perf_counter() - t_start, 2)
+        logger.info("ragged warmup: %d token-bucket signatures in %.1fs",
+                    len(report["ragged"]), report["seconds"])
+        return report
+
+    def _note_compile(self, kind: str, sig: tuple, seconds: float) -> None:
+        """A dispatch just captured a NEW signature (on the CPU nothing is
+        captured): count it, time it, and warn when it happened after
+        warmup, the latency cliff warmup exists to remove."""
+        self.compile_events[kind] = self.compile_events.get(kind, 0) + 1
+        self.compile_seconds[kind] = (self.compile_seconds.get(kind, 0.0)
+                                      + seconds)
+        if self.warmed_up:
+            logger.warning(
+                "steady-state capture: signature %s captured in %.2fs at "
+                "step %d (warmup did not cover this shape)",
+                (kind,) + tuple(sig), seconds, self.steps)
 
     def pack(self, plan: StepPlan):
         """The plan's packed operands (numpy), with the JAX engine's layout:
@@ -434,8 +547,12 @@ class AsyncTorchEngine:
         packed ragged launch, and sample every row that reaches the end of
         its tokens."""
         operands, rows = self.pack(plan)
+        T, R = operands[0].shape[1], operands[1].shape[0]
+        self.padded_tokens_total += T - (
+            len(plan.decode) + sum(w.chunk for w in plan.prefill))
         samp = self._sampling_plan([s if smp else None
-                                    for s, smp, _w in rows])
+                                    for s, smp, _w in rows]
+                                   + [None] * (R - len(rows)))
         # launches off the event loop: on the CPU the step computes here, on
         # the card the launches take host time
         out = await asyncio.to_thread(self._step, operands,
@@ -506,37 +623,43 @@ class AsyncTorchEngine:
     def _step(self, operands, chunks: bool, feed, samp: dict,
               feed_states=None) -> dict:
         """One packed step on the device; runs in a worker thread (serial
-        loop) or on the event loop's thread (pipelined loop). Stages the
-        operands (with ``samp``'s sampling operands: one pinned copy),
-        substitutes ``feed`` (the previous step's tokens on the device, [n]
-        for the first n rows) into the token column and ``feed_states``
-        for the FSM states, launches the step, samples the rows as ``samp``
-        (:meth:`_sampling_plan`) says and starts the copy of the tokens (and
-        top logprobs) to the host.
+        loop) or on the event loop's thread (pipelined loop). Stages
+        ``samp``'s sampling operands (:meth:`_sampling_plan`, one row a
+        step row) and the step's operands in one copy, substitutes
+        ``feed`` (the previous step's tokens on the device, [n] for the
+        first n rows) into the token column and ``feed_states`` for the FSM
+        states, runs the forward and the sampler, and starts the copy of
+        the tokens (and top logprobs) to the host. Feeds are copies into
+        the staged operands, queued before the step that reads them.
         Returns the tokens and next FSM states on the device, their host
-        copies and the event that marks the copy done (None on the CPU)."""
-        operands = list(operands) + [sampling.pack_rows(
-            samp["temp"], samp["top_k"], samp["top_p"], samp["keys"])]
-        if samp["states"] is not None and feed_states is None:
-            operands.append(samp["states"])
-        if self._staging is not None:
-            tensors = self._staging.put(operands)
-        else:
-            tensors = [torch.from_numpy(a) for a in operands]
-        ints5, rows3, grid_rows, bt = tensors[:4]
+        copies and the event that marks the copy done (None on the CPU).
+        Under graphs the tokens and states are a graph's static outputs:
+        the next replay of that graph overwrites them, so they are read
+        (fed, copied) only by work queued before it."""
+        R = len(samp["seqs"])
+        states = (samp["states"] if samp["states"] is not None
+                  else np.zeros((R,), np.int32))
+        rows, states_t, ints5, rows3, grid_rows, bt = self._staging.put(
+            [sampling.pack_rows(samp["temp"], samp["top_k"], samp["top_p"],
+                                samp["keys"]), states, *operands])
         if feed is not None:
             ints5[0, :feed.shape[0]].copy_(feed)
-        if not chunks:
-            grid_rows = None  # no chunk tokens: MLA skips the grid
-        logits, _, _ = self.step_fn(self.params, ints5, rows3, grid_rows, bt,
-                                    self.k_cache, self.v_cache)
-        fsm = None
-        if samp["states"] is not None:
-            fsm = feed_states if feed_states is not None else tensors[5]
-        toks, states, host = self._sample(logits, samp, tensors[4], fsm)
-        if self._staging is None:
-            return {"toks": toks, "states": states, "host": host,
-                    "copied": None}
+        if feed_states is not None:
+            states_t.copy_(feed_states)
+        logits = self._forward(ints5, rows3, grid_rows if chunks else None,
+                               bt)
+        toks, new_states, host = self._sample(
+            logits, samp, rows,
+            states_t if samp["states"] is not None else None, captured=True)
+        return self._to_host(toks, new_states, host)
+
+    def _to_host(self, toks, states, host) -> dict:
+        """Start the copies of ``host`` to pinned memory behind an event
+        (on the CPU: copies, made now). Copies, because a replay of the
+        same graph overwrites its outputs."""
+        if self.device.type == "cpu":
+            return {"toks": toks, "states": states,
+                    "host": [t.clone() for t in host], "copied": None}
         pinned = []
         for t in host:
             h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -547,29 +670,103 @@ class AsyncTorchEngine:
         return {"toks": toks, "states": states, "host": pinned,
                 "copied": copied}
 
-    def _sample(self, logits, samp: dict, rows=None, states=None):
+    # --------------------------------------------------------------- graphs
+
+    def _graph_cache(self) -> Optional[GraphCache]:
+        """The graph cache when steps run captured (the card, unless
+        ``use_graphs`` is off), else None. Graphs read the weights and
+        caches they were captured with: if those were replaced since, the
+        graphs go first."""
+        if self.graphs is None or not self.use_graphs:
+            return None
+        owner = (self.params, self.k_cache, self.v_cache)
+        if self._graph_owner is None or any(
+                a is not b for a, b in zip(owner, self._graph_owner)):
+            self.drop_graphs()
+            self._graph_owner = owner
+        return self.graphs
+
+    def drop_graphs(self) -> None:
+        """Forget every captured graph and the tensors it holds (weights,
+        caches, arenas): before they are replaced or freed. Later steps
+        capture again."""
+        if self.graphs is not None:
+            self.graphs.clear()
+        self._graph_owner = None
+        self._logits.clear()
+
+    def _forward(self, ints5, rows3, grid_rows, bt):
+        """The packed step's forward (``grid_rows`` None: decode rows only)
+        -> logits [R, V] f32. Under graphs it replays its signature's
+        capture, ("ragged" or "ragged_dec", T), and the logits land in the
+        buffer of its row count."""
+        kind = "ragged" if grid_rows is not None else "ragged_dec"
+        T = ints5.shape[1]
+        self.compiled_signatures.add((kind, T))
+        self.forward_steps += 1
+        graphs = self._graph_cache()
+        if graphs is None:
+            return self.step_fn(self.params, ints5, rows3, grid_rows, bt,
+                                self.k_cache, self.v_cache)[0]
+        R = rows3.shape[0]
+        out = self._logits.get(R)
+        if out is None:
+            out = self._logits[R] = torch.empty(
+                (R, self.cfg.vocab_size), dtype=torch.float32,
+                device=self.device)
+        step, params = self.step_fn, self.params
+        kc, vc = self.k_cache, self.v_cache
+        logits, secs = graphs.run((kind, T), lambda: step(
+            params, ints5, rows3, grid_rows, bt, kc, vc, logits_out=out)[0])
+        if secs is not None:
+            self._note_compile(kind, (T,), secs)
+        return logits
+
+    def _sample(self, logits, samp: dict, rows=None, states=None,
+                captured: bool = False):
         """Sample the first ``len(samp["seqs"])`` rows of ``logits`` as
         ``samp`` (:meth:`_sampling_plan`) says: the logit edits, then the
         draw (FSM-masked from ``states`` when the plan has device FSM
         rows), then the top logprobs. ``rows`` and ``states`` are the
-        staged operands on the device (None: copied here). Returns (tokens,
-        next FSM states or None, the tensors for the host: tokens,
-        logprobs, and top ids, top logprobs and selected logprobs when a
-        row asked for them)."""
+        staged operands on the device (None: copied here). ``captured``
+        (the step's own call: ``logits`` is the rows' logits buffer,
+        ``rows`` and ``states`` staged): under graphs a batch with no edits
+        and no top logprobs replays the sampler captured for its rows and
+        branches (("sample", R, branches), the FSM arena's address with
+        it). Returns (tokens, next FSM states or
+        None, the tensors for the host: tokens, logprobs, and top ids, top
+        logprobs and selected logprobs when a row asked for them)."""
         lg = logits[:len(samp["seqs"])]
+        host_edits = samp["edits"] or bool(samp["want_tops"])
         if samp["edits"]:
             lg = _apply_edits(lg, _build_edits(samp["seqs"], lg.shape[-1],
                                                bool(samp["want_tops"])))
-        args = (lg, samp["temp"], samp["top_k"], samp["top_p"], samp["keys"])
-        new_states = None
-        if samp["states"] is not None:
+        branch = (samp["temp"], samp["top_k"], samp["top_p"])
+        fsm = samp["states"] is not None
+        mask_t = next_t = None
+        if fsm:
             if states is None:
                 states = torch.from_numpy(samp["states"]).to(lg.device)
             mask_t, next_t = self.structured.device_tables()
-            toks, logps, new_states = sampling.sample_masked(
-                *args, states, mask_t, next_t, rows=rows)
+
+        def draw():
+            if fsm:
+                return sampling.sample_masked(lg, *branch, samp["keys"],
+                                              states, mask_t, next_t,
+                                              rows=rows)
+            return (*sampling.sample(lg, *branch, samp["keys"], rows=rows),
+                    None)
+
+        graphs = self._graph_cache()
+        if graphs is not None and captured and not host_edits:
+            flags = sampling.branches(*branch, lg.shape[-1])
+            key = ("sample", lg.shape[0], flags,
+                   mask_t.data_ptr() if fsm else None)
+            (toks, logps, new_states), secs = graphs.run(key, draw)
+            if secs is not None:
+                self._note_compile("sample", key[1:3], secs)
         else:
-            toks, logps = sampling.sample(*args, rows=rows)
+            toks, logps, new_states = draw()
         host = [toks, logps]
         if samp["want_tops"]:
             host += sampling.topk_logprobs(lg, toks, TOP_LOGPROBS)
@@ -599,7 +796,8 @@ class AsyncTorchEngine:
         and its emission (logprob capture, logit edits, host-oracle guided
         rows; device FSM rows ride the loop, their mask and advance inside
         the sampling step)."""
-        if not self.args.pipeline_decode or self.scheduler.waiting:
+        if (not self.args.pipeline_decode or self.scheduler.waiting
+                or self.args.multi_step_decode > 1):
             return False
         # a running seq still mid-prefill needs plan() interleaving
         if len(seqs) != len(self.scheduler.running):
@@ -655,7 +853,10 @@ class AsyncTorchEngine:
         operands = self._decode_operands(seqs, off)
         if operands is None:
             return None
-        samp = self._sampling_plan(list(seqs), off)
+        T, R = operands[0].shape[1], operands[1].shape[0]
+        self.padded_tokens_total += T - len(seqs)
+        samp = self._sampling_plan(list(seqs) + [None] * (R - len(seqs)),
+                                   off)
         prev = feed_states = None
         if feed is not None:
             prev = feed["out"]["toks"][:len(seqs)]
@@ -722,6 +923,141 @@ class AsyncTorchEngine:
         self.steps += max(0, done - 1)
         return done > 0
 
+    # ------------------------------------------------------ multi-step burst
+
+    async def _run_decode_fast(self, seqs: list[SeqState]) -> bool:
+        """The decode-only fast path: K = ``multi_step_decode`` steps in
+        one burst, gated as the JAX engine gates it: no row wants
+        logprobs, ``logit_bias``, penalties or the host oracle (device FSM
+        rows mask and advance inside the burst). A row within K of its
+        limit does not disqualify the batch: its overshoot is dropped.
+        False: the caller's packed ragged step runs."""
+        if self.args.multi_step_decode <= 1 or not seqs:
+            return False
+        for s in seqs:
+            if (s.req.output_options.logprobs is not None
+                    or s.req.sampling_options.logit_bias
+                    or _has_penalties(s) or _guided_host_only(s)):
+                return False
+        return await self._run_multi_decode(seqs)
+
+    def _prealloc_blocks(self, seqs: list[SeqState], extra: int) -> bool:
+        """All-or-nothing block preallocation for the burst: a partial
+        extension left behind would deepen the memory pressure that made
+        it fail."""
+        extended: list = []
+        for s in seqs:
+            before = len(s.block_table)
+            if not self.scheduler._ensure_blocks(s, len(s.tokens) + extra):
+                for s2, b2 in extended:
+                    self.pool.release(s2.block_table[b2:])
+                    del s2.block_table[b2:]
+                return False
+            if len(s.block_table) > before:
+                extended.append((s, before))
+        return True
+
+    async def _run_multi_decode(self, seqs: list[SeqState]) -> bool:
+        """K decode steps of ``seqs`` in one burst, one coalesced output
+        per sequence. False when block preallocation fails (the caller
+        falls back to the single step)."""
+        args = self.args
+        K = args.multi_step_decode
+        # the burst writes positions len-1 .. len+K-2
+        if not self._prealloc_blocks(seqs, K - 1):
+            return False
+        # the row count derives from the token bucket, as a decode-only
+        # step's does, so the burst adds no shape lattice of its own
+        n = len(seqs)
+        R = args.ragged_rows(args.bucket_ragged_tokens(n))
+        W = args.max_blocks_per_seq
+        ints3 = np.zeros((3, R), np.int32)
+        bt = np.full((R, W), NULL_BLOCK, np.int32)
+        for i, s in enumerate(seqs):
+            ints3[:, i] = (s.tokens[-1], len(s.tokens) - 1, len(s.tokens))
+            m = min(len(s.block_table), W)
+            bt[i, :m] = s.block_table[:m]
+        samp = self._sampling_plan(list(seqs) + [None] * (R - n))
+        kind = "multi_fsm" if samp["states"] is not None else "multi"
+        self.compiled_signatures.add((kind, R))
+        self.padded_tokens_total += (R - n) * K
+        out = await asyncio.to_thread(self._burst, ints3, bt, samp, K)
+        toks, logps = await self._host_tokens(out)
+        for i, s in enumerate(seqs):
+            self._deliver_batch(s, [t[i] for t in toks],
+                                [lp[i] for lp in logps])
+        self.bursts += 1
+        return True
+
+    def _burst(self, ints3, bt, samp: dict, K: int) -> dict:
+        """One burst on the device (a worker thread): stage its operands
+        (sampling rows and FSM states first, as a step's), run the K
+        steps (``model.make_multi_decode_fn``), replayed under graphs as
+        ("multi" or "multi_fsm", R, K, branches), and start the copy of
+        the tokens [K, R] and logprobs [K, R] to the host."""
+        R = ints3.shape[1]
+        fsm = samp["states"] is not None
+        states = samp["states"] if fsm else np.zeros((R,), np.int32)
+        rows, states_t, ints3_t, bt_t = self._staging.put(
+            [sampling.pack_rows(samp["temp"], samp["top_k"], samp["top_p"],
+                                samp["keys"]), states, ints3, bt])
+        mask_t = next_t = None
+        if fsm:
+            mask_t, next_t = self.structured.device_tables()
+        fn = self._multi_fns.get((K, fsm))
+        if fn is None:
+            fn = self._multi_fns[K, fsm] = make_multi_decode_fn(
+                self.cfg, self.args.block_size, K, fsm)
+        branch = (samp["temp"], samp["top_k"], samp["top_p"])
+        params, kc, vc = self.params, self.k_cache, self.v_cache
+
+        def run():
+            return fn(params, ints3_t, rows, bt_t, kc, vc, branch,
+                      states_t if fsm else None, mask_t, next_t)
+
+        self.forward_steps += K
+        graphs = self._graph_cache()
+        if graphs is None:
+            toks, logps = run()
+        else:
+            kind = "multi_fsm" if fsm else "multi"
+            key = (kind, R, K, sampling.branches(*branch, self.cfg.vocab_size),
+                   mask_t.data_ptr() if fsm else None)
+            (toks, logps), secs = graphs.run(key, run)
+            if secs is not None:
+                self._note_compile(kind, (R,), secs)
+        return self._to_host(toks, None, [toks, logps])
+
+    def _deliver_batch(self, seq: SeqState, tokens, logps) -> int:
+        """A burst's tokens for one sequence: commit and append each, but
+        put ONE output on the sink for the whole burst. Tokens past a
+        finish are dropped (overshoot). Returns the tokens delivered."""
+        ids: list[int] = []
+        lps: list[float] = []
+        reason = None
+        gs = seq.guided_state
+        for t, lp in zip(tokens, logps):
+            self.scheduler.commit_computed(seq, len(seq.tokens))
+            self.scheduler.append_token(seq, int(t))
+            ids.append(int(t))
+            lps.append(float(lp))
+            if gs is not None:
+                # device-FSM cursor (only device rows ride the burst): one
+                # table lookup, before check_finish reads done/exhausted
+                gs.advance(int(t))
+            reason = self.scheduler.check_finish(seq, int(t))
+            if reason is not None:
+                break
+        if not ids:
+            return 0
+        if reason is not None:
+            self.scheduler.finish(seq, reason)
+        seq.sink.put_nowait(LLMEngineOutput(token_ids=ids, log_probs=lps,
+                                            finish_reason=reason))
+        if reason is not None:
+            seq.sink.put_nowait(None)
+        return len(ids)
+
     def _deliver(self, seq: SeqState, token: int, logp: float,
                  top: Optional[list] = None) -> None:
         self.scheduler.append_token(seq, token)
@@ -758,7 +1094,11 @@ class AsyncTorchEngine:
             worker_stats=WorkerStats(
                 request_active_slots=len(sched.running),
                 request_total_slots=self.args.max_num_seqs,
-                num_requests_waiting=sched.num_waiting()),
+                num_requests_waiting=sched.num_waiting(),
+                # workers that never asked for warmup report None, as the
+                # JAX engine's do
+                warmed_up=(self.warmed_up if self.warmup_requested
+                           else None)),
             kv_stats=KvStats(
                 kv_active_blocks=self.pool.num_active_blocks,
                 kv_total_blocks=self.num_blocks - 1,
@@ -769,23 +1109,34 @@ class AsyncTorchEngine:
 
 
 class _Staging:
-    """Host-to-device operand staging through pinned memory. A step's int32
-    operands (the four of the step, then its sampling rows and FSM states,
-    float32 and uint32 by their bits) are written into one pinned buffer
-    and cross in ONE
-    non-blocking copy; the device tensors are views of that copy. Two
-    buffers are used in turn, and a buffer is rewritten only after the
-    event recorded behind its last copy has completed, so a copy in flight
-    never reads a buffer that is being rewritten."""
+    """Host-to-device operand staging through pinned memory into ONE device
+    buffer that never moves. A step's int32 operands (its sampling rows
+    and FSM states first, then its four; a burst's sampling rows, states,
+    ints3 and tables; float32 and uint32 values by their bits) are written
+    into a pinned buffer and cross in ONE non-blocking copy into the head
+    of the device buffer. The device tensors are views of it at offsets
+    that depend only on the shapes, so every step of a signature finds its
+    operands where that signature's graph reads them, and the sampling
+    rows of R rows lie at the same place for every step with R rows.
+
+    Stream order keeps copies and steps apart: each copy is queued on the
+    stream behind every launch (or replay) that read the buffer before it,
+    and ahead of the step that reads what it brings. Two pinned buffers
+    are used in turn, and one is rewritten only after the event recorded
+    behind its last copy has completed, so a copy in flight never reads a
+    buffer that is being rewritten."""
 
     def __init__(self, args: EngineArgs, device: torch.device):
         T = args.ragged_token_buckets[-1]
         R = args.ragged_rows(T)
         C, _ = ragged_grid_shape(T)
-        # + sampling.pack_rows' [5, R] and the FSM states [R]
-        n = 5 * T + 3 * R + C + R * args.max_blocks_per_seq + 6 * R
-        self.device = device
-        self._bufs = [torch.empty(n, dtype=torch.int32, pin_memory=True)
+        # sampling.pack_rows' [5, R] and the FSM states [R], then ints5,
+        # rows3, the grid rows and the tables (a burst needs fewer)
+        n = 6 * R + 5 * T + 3 * R + C + R * args.max_blocks_per_seq
+        self.cuda = device.type == "cuda"
+        self.dev = torch.empty(n, dtype=torch.int32, device=device)
+        # on the CPU the same layout, copied synchronously
+        self._bufs = [torch.empty(n, dtype=torch.int32, pin_memory=self.cuda)
                       for _ in range(2)]
         self._done: list = [None, None]
         self._turn = 0
@@ -801,10 +1152,12 @@ class _Staging:
             host[off:off + a.size] = a.ravel()
             spans.append((off, a.shape))
             off += a.size
-        dev = buf[:off].to(self.device, non_blocking=True)
-        self._done[i] = torch.cuda.Event()
-        self._done[i].record()
-        return [dev[o:o + math.prod(shape)].view(shape) for o, shape in spans]
+        self.dev[:off].copy_(buf[:off], non_blocking=self.cuda)
+        if self.cuda:
+            self._done[i] = torch.cuda.Event()
+            self._done[i].record()
+        return [self.dev[o:o + math.prod(shape)].view(shape)
+                for o, shape in spans]
 
 
 def ragged_grid_shape(t_bucket: int) -> tuple[int, int]:

@@ -51,7 +51,6 @@ REFUSED_FLAGS = {
     "dp_rank": (None, "A11"),
     "num_ranks": (1, "A11"),
     "speculative_draft_layers": (0, "A7"),
-    "warmup_seq_lens": (None, "A7"),
     "kv_layer_groups": (4, "A8"),
     "kvbm_g4_gb": (0.0, "A8"),
     "kvbm_distributed": (False, "A8"),
@@ -108,9 +107,18 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["prompt_lookup", "draft_layers"])
     ap.add_argument("--speculative-draft-layers", type=int, default=0)
     ap.add_argument("--speculative-tokens", type=int, default=0)
-    ap.add_argument("--multi-step-decode", type=int, default=1)
-    ap.add_argument("--warmup-buckets", action="store_true")
-    ap.add_argument("--warmup-seq-lens", default=None)
+    ap.add_argument("--multi-step-decode", type=int, default=1,
+                    help="K > 1: decode K tokens a burst (one captured "
+                         "graph)")
+    ap.add_argument("--warmup-buckets", action="store_true",
+                    help="run every token bucket's step signatures before "
+                         "registering, so no request pays a first capture "
+                         "(engine.warmup())")
+    ap.add_argument("--warmup-seq-lens", default=None,
+                    help="comma-separated sequence lengths for "
+                         "--warmup-buckets; accepted, as by the JAX worker, "
+                         "and choose nothing (no signature has a table "
+                         "width)")
     ap.add_argument("--no-pipeline-decode", dest="pipeline_decode",
                     action="store_false", default=True,
                     help="disable the depth-2 pipelined decode loop")
@@ -204,6 +212,7 @@ def configure(cli) -> tuple[ModelConfig, EngineArgs, list[int], str]:
         raise SystemExit("no EOS ids: pass --model-path (reads "
                          "generation_config.json), --eos-token-ids, or "
                          "--allow-test-metadata for tests")
+    warmup_seq_lens(cli)
     tokenizer_ref = cli.tokenizer or cli.model_path
     if not tokenizer_ref:
         if not cli.allow_test_metadata:
@@ -242,6 +251,17 @@ def configure(cli) -> tuple[ModelConfig, EngineArgs, list[int], str]:
     return cfg, args, eos, tokenizer_ref
 
 
+def warmup_seq_lens(cli) -> Optional[list[int]]:
+    """``--warmup-seq-lens`` as ints (None when not given)."""
+    if not cli.warmup_seq_lens:
+        return None
+    try:
+        return [int(x) for x in cli.warmup_seq_lens.split(",") if x.strip()]
+    except ValueError:
+        raise SystemExit(f"--warmup-seq-lens must be comma-separated ints, "
+                         f"got {cli.warmup_seq_lens!r}")
+
+
 def guided_vocab_for(cli, tokenizer_ref: str):
     """The guided-decoding alphabet of the served tokenizer (read from its
     ``tokenizer.json`` with ``json`` alone), or None: guided requests are
@@ -275,24 +295,21 @@ def build_engine(cli, cfg: ModelConfig, args: EngineArgs,
 
 
 def kernel_launches() -> dict:
-    """Launches of each kernel wrapper in this process."""
-    from dynamo_tpu_torch.ops.flash_prefill import (
-        flash_mla_prefill_paged, flash_prefill,
-    )
-    from dynamo_tpu_torch.ops.mla_decode import mla_paged_decode
-    from dynamo_tpu_torch.ops.paged_attention import paged_attention_decode
-    from dynamo_tpu_torch.ops.ragged_attention import ragged_paged_attention
-    from dynamo_tpu_torch.ops.sample import gumbel_argmax
+    """Launches of each kernel wrapper in this process (a graph replay
+    counts the launches it holds)."""
+    from dynamo_tpu_torch.engine.graphs import COUNTED
 
-    return {w.__name__: w.launches for w in (
-        ragged_paged_attention, flash_prefill, paged_attention_decode,
-        mla_paged_decode, flash_mla_prefill_paged, gumbel_argmax)}
+    return {w.__name__: w.launches for w in COUNTED}
 
 
 async def serve(cli, engine, args: EngineArgs, eos: list[int],
                 tokenizer_ref: str, stop: asyncio.Event) -> dict:
-    """Join the plane, serve until ``stop`` is set, then drain and leave.
-    Returns the exit report (engine steps, kernel launches)."""
+    """Join the plane (after ``engine.warmup()`` when ``--warmup-buckets``
+    is given: no request can race the dummy steps), serve until ``stop``
+    is set, then drain and leave. Returns the exit report (engine steps,
+    kernel launches, captures)."""
+    if args.warmup_buckets:
+        await engine.warmup(seq_lens=warmup_seq_lens(cli))
     runtime = await DistributedRuntime.create()
     try:
         lease = await runtime.primary_lease()
@@ -342,7 +359,9 @@ async def serve(cli, engine, args: EngineArgs, eos: list[int],
     finally:
         await runtime.shutdown()
     return {"steps": engine.steps, "pipelined_steps": engine.pipelined_steps,
-            "launches": kernel_launches()}
+            "forward_steps": engine.forward_steps,
+            "launches": kernel_launches(),
+            "compile_events": engine.compile_events}
 
 
 async def amain(argv=None) -> None:

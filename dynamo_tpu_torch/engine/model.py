@@ -13,6 +13,9 @@ The port of ``dynamo_tpu/engine/model.py``'s single-device paths:
   entry (ops/flash_prefill.py, one launch per layer) on the card, and
   through a segment walk (``mla_attention_seg``, the reference's own XLA
   path ``_mla_attention_seg`` in PyTorch) on the CPU.
+- ``make_multi_decode_fn`` (``multi_decode``, its ragged layout): K
+  chained decode steps and their draws in one call, the burst of
+  ``EngineArgs.multi_step_decode``.
 - ``make_forward_fn`` (``forward(ragged=None)``) for [B, S] batches: S > 1
   through the flash prefill kernel (ops/flash_prefill.py; GQA, or the MLA
   flash-prefill kernel over the layer's pages), S == 1 through the paged
@@ -30,8 +33,9 @@ XLA), plus the shared experts; a MoE model's dense prefix is its own
 Differences from the JAX package, each deliberate:
 
 - Layers run in a Python loop over the stacked ``[L, ...]`` weights in
-  place of ``lax.scan``; PyTorch runs eagerly, so no program is compiled
-  per token bucket.
+  place of ``lax.scan``; PyTorch runs eagerly, and on the card the engine
+  captures each step signature as a CUDA graph in place of a program
+  compiled per token bucket (``engine/graphs.py``).
 - The KV write is an in-place ``index_copy_`` into the caller's cache at
   ``slot_map`` (padding tokens write into the null block, as in JAX); an
   int8 cache stores ``quantize_kv`` of k and v (MLA: of the latent and of
@@ -60,7 +64,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dynamo_tpu_torch.engine.cache import layer_pages, write_kv
+from dynamo_tpu_torch.engine import sampling
+from dynamo_tpu_torch.engine.cache import NULL_BLOCK, layer_pages, write_kv
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.ops.flash_prefill import (
     flash_mla_prefill_paged, flash_prefill_paged,
@@ -715,14 +720,16 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
     """The packed ragged engine step.
 
     ``fn(params, ints5 [5, T], rows3 [R, 3], grid_rows [C],
-    block_tables [R, W], k_cache, v_cache) -> (logits [R, V] f32, k_cache,
-    v_cache)``: ``ints5`` stacks tokens / positions / slot_map / grid_row /
+    block_tables [R, W], k_cache, v_cache, logits_out=None) -> (logits
+    [R, V] f32, k_cache, v_cache)``: ``ints5`` stacks tokens / positions /
+    slot_map / grid_row /
     grid_col, ``rows3`` holds (q_start, q_len, kv_len) per row (q_len 0 =
     padding row), caches are [L, slots, KV, hd] (or int8 ``{"q", "s"}``;
     MLA: the latent and rope caches) and are updated in place. Logits are
     taken at each row's last token. ``grid_rows`` None says the step has
     decode rows only: MLA then skips its chunk-grid walk (GQA reads no
-    grid operand).
+    grid operand). ``logits_out``, an f32 [R, V] tensor, receives the logits
+    and is returned (a captured step writes where its sampler reads).
 
     ``attention`` is the per-layer attention call: by default the kernel
     wrapper of the model's family (``ragged_paged_attention``, or
@@ -740,7 +747,8 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
         attention = mla_paged_decode if cfg.is_mla else ragged_paged_attention
     scale = mla_softmax_scale(cfg) if cfg.is_mla else None
 
-    def fn(params, ints5, rows3, grid_rows, block_tables, k_cache, v_cache):
+    def fn(params, ints5, rows3, grid_rows, block_tables, k_cache, v_cache,
+           logits_out=None):
         T = ints5.shape[1]
         cos, sin = rope_.tables(ints5[1])
 
@@ -763,7 +771,72 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
         x = _layers(cfg, params, params["embed"][ints5[0]], cos, sin,
                     ints5[2].long(), k_cache, v_cache, attend)
         last = (rows3[:, 0] + rows3[:, 1] - 1).clamp(0, T - 1).long()
-        return (x[last] @ _lm_head(cfg, params)).float(), k_cache, v_cache
+        logits = x[last] @ _lm_head(cfg, params)
+        if logits_out is None:
+            return logits.float(), k_cache, v_cache
+        return logits_out.copy_(logits), k_cache, v_cache
+
+    return fn
+
+
+def make_multi_decode_fn(cfg: ModelConfig, block_size: int, num_steps: int,
+                         fsm: bool = False,
+                         attention: Optional[Callable] = None):
+    """K = ``num_steps`` chained decode steps in one call: the port of the
+    JAX package's ``multi_decode`` in its packed ragged layout (one token a
+    row, R rows), through :func:`make_ragged_step_fn`'s forward and the
+    sampler. Nothing is read on the host between the steps, so on the card
+    the whole burst is one captured graph.
+
+    ``fn(params, ints3 [3, R], rows [5, R], block_tables [R, W], k_cache,
+    v_cache, branches, states=None, mask_table=None, next_table=None) ->
+    (tokens [K, R] int64, logps [K, R] f32)``:
+
+    - ``ints3`` (int32) holds each row's newest token (its KV not yet
+      written), that token's position and the row's kv_len (0: a padding
+      row); ``block_tables`` must already cover position + K - 1;
+    - ``rows`` is ``sampling.pack_rows``' layout (temperature, top_k,
+      top_p, seed, step0) on the device, ``branches`` the host arrays
+      (temperature, top_k, top_p) that decide the sampler's branches;
+    - step k writes its token's KV at position + k (a block index past the
+      table goes to the null block), attends with kv_len + k (a padding
+      row then reads the null block, as in the JAX package), draws with
+      the key (seed, step0 + k), and feeds its tokens to step k + 1;
+    - ``fsm`` masks every step with the FSM tables and carries the states
+      (``sampling.sample_masked``; state 0 is the free row).
+    """
+    step = make_ragged_step_fn(cfg, block_size, attention)
+    bs = block_size
+
+    def fn(params, ints3, rows, block_tables, k_cache, v_cache, branches,
+           states=None, mask_table=None, next_table=None):
+        R, W = block_tables.shape
+        dev = ints3.device
+        tok, pos, kv = ints3[0], ints3[1], ints3[2]
+        idx = torch.arange(R, dtype=torch.int32, device=dev)
+        zero = torch.zeros((R,), dtype=torch.int32, device=dev)
+        toks, logps = [], []
+        for k in range(num_steps):
+            blk = torch.div(pos, bs, rounding_mode="floor")
+            page = block_tables.gather(1, blk.clamp_max(W - 1).long()[:, None])
+            page = torch.where(blk < W, page[:, 0], NULL_BLOCK)
+            ints5 = torch.stack([tok.to(torch.int32), pos,
+                                 page * bs + pos % bs, zero, zero])
+            rows3 = torch.stack([idx, (kv > 0).to(torch.int32), kv], dim=1)
+            logits, _, _ = step(params, ints5, rows3, None, block_tables,
+                                k_cache, v_cache)
+            rows_k = torch.cat([rows[:4], rows[4:] + k])
+            if fsm:
+                tok, lp, states = sampling.sample_masked(
+                    logits, *branches, None, states, mask_table, next_table,
+                    rows=rows_k)
+            else:
+                tok, lp = sampling.sample(logits, *branches, None,
+                                          rows=rows_k)
+            toks.append(tok)
+            logps.append(lp)
+            pos, kv = pos + 1, kv + 1
+        return torch.stack(toks), torch.stack(logps)
 
     return fn
 

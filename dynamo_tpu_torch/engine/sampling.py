@@ -74,6 +74,20 @@ def _mask_top_p(logits, top_p, cut):
     return torch.where(use, thresh, cut)
 
 
+def branches(temperature, top_k, top_p, V: int) -> tuple:
+    """(draw, top-k, top-p): the branches :func:`sample` runs for these
+    host arrays over a vocabulary of V. A captured sampler is keyed by
+    them, with its rows."""
+    temperature = np.asarray(temperature, np.float32)
+    top_k = np.asarray(top_k, np.int32)
+    top_p = np.asarray(top_p, np.float32)
+    if not (temperature > 0.0).any():
+        return False, False, False
+    use_k = (top_k > 0) & (top_k <= min(TOP_K_CAP, V))
+    use_p = (top_p > 0.0) & (top_p < 1.0)
+    return True, bool(use_k.any()), bool(use_p.any())
+
+
 def sample(logits, temperature, top_k, top_p, keys, rows=None):
     """One token per row.
 
@@ -81,31 +95,30 @@ def sample(logits, temperature, top_k, top_p, keys, rows=None):
       logits: [B, V] float32 on the device.
       temperature: [B] (0 = greedy), top_k: [B] (0 = off), top_p: [B] (0
         or 1 = off): host arrays, which decide which branches run.
-      keys: [B, 2] uint32 host array of (seed, step), :func:`make_keys`.
+      keys: [B, 2] uint32 host array of (seed, step), :func:`make_keys`
+        (unread when ``rows`` is given).
       rows: the same operands on the device as :func:`pack_rows` lays them
-        out, when the caller staged them; None = copied here.
+        out, when the caller staged them (a burst steps its keys there);
+        None = copied here.
     Returns (tokens [B] int64, logprob of each token [B] float32), the
     logprob from ``log_softmax`` of the unscaled ``logits``; greedy ties
     take the lowest token id, as ``jnp.argmax`` does.
     """
-    temperature = np.asarray(temperature, np.float32)
-    top_k = np.asarray(top_k, np.int32)
-    top_p = np.asarray(top_p, np.float32)
     tokens = logits.argmax(dim=-1)
-    if (temperature > 0.0).any():
+    draw, use_k, use_p = branches(temperature, top_k, top_p,
+                                  logits.shape[-1])
+    if draw:
         if rows is None:
             rows = torch.from_numpy(pack_rows(temperature, top_k, top_p,
                                               keys)).to(logits.device)
         temp_raw, top_k_d, top_p_d, seed_d, step_d = _device_rows(rows)
         temp_d = temp_raw.clamp_min(1e-6)
         cut = torch.full_like(temp_d, float("-inf"))
-        use_k = (top_k > 0) & (top_k <= min(TOP_K_CAP, logits.shape[-1]))
-        use_p = (top_p > 0.0) & (top_p < 1.0)
-        if use_k.any() or use_p.any():
+        if use_k or use_p:
             scaled = logits / temp_d[:, None]
-            if use_k.any():
+            if use_k:
                 cut = _mask_top_k(scaled, top_k_d, cut)
-            if use_p.any():
+            if use_p:
                 # top-p reads the top-k-masked logits
                 masked = torch.where(scaled >= cut[:, None], scaled,
                                      float("-inf"))

@@ -16,12 +16,17 @@
 // rounds of add, rotate and xor, its key injections, two logs). At B 8 and
 // V 128256 the 4.1 MB read takes 1.2 us at the HBM3 rate, the operations
 // about as long at the card's 32-bit rate: the kernel's job is to spread
-// the elements over every SM. Design: a grid of (chunks, B) CTAs, each
-// walking CHUNK elements of one row (threefry state in registers, one
-// element a thread at a time, coalesced logit loads), reducing its
-// (value, index) maximum through warp shuffles and shared memory into one
-// partial; a second kernel of one warp a row merges a row's partials.
-// Ties keep the lowest index everywhere, as jnp.argmax does.
+// the elements over every SM and keep enough threads in flight to hide
+// threefry's chain of dependent operations. Design: ONE launch of a grid
+// of (chunks, B) CTAs, each walking CHUNK elements of one row (threefry
+// state in registers, UNROLL independent elements a thread at a time,
+// coalesced logit loads), reducing its (value, index) maximum through warp
+// shuffles and shared memory into one partial in global memory. The last
+// CTA of a row to finish (an arrival counter per row, after a fence)
+// merges the row's partials with one warp, writes the token and sets the
+// counter back to 0, so the counters are ready for the next launch (and
+// the next replay of a captured graph) without a memset. Ties keep the
+// lowest index everywhere, as jnp.argmax does.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -30,7 +35,8 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int CHUNK = 4096;  // elements of one row a CTA walks
+constexpr int UNROLL = 4;
+constexpr int CHUNK = THREADS * UNROLL;  // elements of one row a CTA walks
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
@@ -76,10 +82,11 @@ __device__ __forceinline__ void warp_max(float& bv, int& bi) {
 }
 
 __global__ void __launch_bounds__(THREADS)
-draw_chunks(const float* __restrict__ lg, const float* __restrict__ temp,
-            const float* __restrict__ cut, const uint32_t* __restrict__ seed,
-            const uint32_t* __restrict__ step, int V, int nchunks,
-            int* __restrict__ part) {
+draw(const float* __restrict__ lg, const float* __restrict__ temp,
+     const float* __restrict__ cut, const uint32_t* __restrict__ seed,
+     const uint32_t* __restrict__ step, int V, int nchunks,
+     int* __restrict__ part, unsigned int* __restrict__ arrived,
+     int64_t* __restrict__ out) {
   const int row = blockIdx.y;
   const int c = blockIdx.x;
   const float t = temp[row];
@@ -89,18 +96,22 @@ draw_chunks(const float* __restrict__ lg, const float* __restrict__ temp,
   const float tiny = 1.17549435e-38f;  // FLT_MIN, jax's finfo.tiny
   float bv = -INFINITY;
   int bi = 0x7fffffff;
-  const int end = min(V, (c + 1) * CHUNK);
-  for (int v = c * CHUNK + threadIdx.x; v < end; v += THREADS) {
-    float s = __fdiv_rn(x[v], t);
-    if (!(s >= lo)) s = -INFINITY;
-    uint32_t bits = threefry_bits(k0, k1, (uint32_t)v);
-    float f = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-    float u = fmaxf(tiny, __fadd_rn(f, tiny));
-    float g = -logf(-logf(u));
-    take(bv, bi, __fadd_rn(s, g), v);
+#pragma unroll
+  for (int j = 0; j < UNROLL; ++j) {
+    const int v = c * CHUNK + j * THREADS + threadIdx.x;
+    if (v < V) {
+      float s = __fdiv_rn(x[v], t);
+      if (!(s >= lo)) s = -INFINITY;
+      uint32_t bits = threefry_bits(k0, k1, (uint32_t)v);
+      float f = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+      float u = fmaxf(tiny, __fadd_rn(f, tiny));
+      float g = -logf(-logf(u));
+      take(bv, bi, __fadd_rn(s, g), v);
+    }
   }
   __shared__ float sv[THREADS / 32];
   __shared__ int si[THREADS / 32];
+  __shared__ bool last;
   warp_max(bv, bi);
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   if (lane == 0) {
@@ -116,21 +127,26 @@ draw_chunks(const float* __restrict__ lg, const float* __restrict__ temp,
       int* p = part + 2 * ((size_t)row * nchunks + c);
       p[0] = __float_as_int(bv);
       p[1] = bi;
+      // the partial is visible device-wide before this CTA is counted
+      __threadfence();
+      last = atomicAdd(arrived + row, 1u) == (unsigned int)(nchunks - 1);
     }
   }
-}
-
-__global__ void merge_rows(const int* __restrict__ part, int nchunks,
-                           int64_t* __restrict__ out) {
-  const int row = blockIdx.x;
-  float bv = -INFINITY;
-  int bi = 0x7fffffff;
-  for (int c = threadIdx.x; c < nchunks; c += 32) {
-    const int* p = part + 2 * ((size_t)row * nchunks + c);
-    take(bv, bi, __int_as_float(p[0]), p[1]);
+  __syncthreads();
+  if (!last || wid != 0) return;
+  // the row's last CTA: every other partial of the row is written
+  __threadfence();
+  bv = -INFINITY;
+  bi = 0x7fffffff;
+  for (int k = lane; k < nchunks; k += 32) {
+    const int* p = part + 2 * ((size_t)row * nchunks + k);
+    take(bv, bi, __int_as_float(__ldcg(p)), __ldcg(p + 1));
   }
   warp_max(bv, bi);
-  if (threadIdx.x == 0) out[row] = bi;
+  if (lane == 0) {
+    out[row] = bi;
+    arrived[row] = 0u;
+  }
 }
 
 }  // namespace
@@ -139,16 +155,17 @@ extern "C" {
 
 int gumbel_argmax_chunks(int V) { return (V + CHUNK - 1) / CHUNK; }
 
-// part: 2 * B * gumbel_argmax_chunks(V) int32 of scratch; out: [B] int64.
+// part: 2 * B * gumbel_argmax_chunks(V) int32 of scratch; arrived: B
+// uint32 counters, 0 before the first launch and left 0 by every launch
+// (launches that share them must not run concurrently: one stream);
+// out: [B] int64.
 int gumbel_argmax_launch(const float* lg, const float* temp, const float* cut,
                          const uint32_t* seed, const uint32_t* step, int* part,
-                         int64_t* out, int B, int V, cudaStream_t stream) {
+                         unsigned int* arrived, int64_t* out, int B, int V,
+                         cudaStream_t stream) {
   const int nchunks = gumbel_argmax_chunks(V);
-  draw_chunks<<<dim3(nchunks, B), THREADS, 0, stream>>>(
-      lg, temp, cut, seed, step, V, nchunks, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  merge_rows<<<B, 32, 0, stream>>>(part, nchunks, out);
+  draw<<<dim3(nchunks, B), THREADS, 0, stream>>>(
+      lg, temp, cut, seed, step, V, nchunks, part, arrived, out);
   return (int)cudaGetLastError();
 }
 

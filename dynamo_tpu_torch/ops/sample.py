@@ -21,7 +21,7 @@ to jax's; the two logs may differ from XLA's by an ulp or so, which moves a
 token only when two candidates lie within that of each other.
 
 :func:`gumbel_argmax` launches the hand-written Hopper kernel
-(``csrc/sample.cu``) for CUDA tensors. It has no TPU counterpart: the JAX
+(``csrc/sample.cu``, one launch a call) for CUDA tensors. It has no TPU counterpart: the JAX
 package leaves the draw to XLA. Greedy rows never need it. CPU tensors take
 :func:`gumbel_argmax_ref`, which emulates uint32 arithmetic in int64
 (torch's uint32 lacks most operators); nothing on the card calls it.
@@ -129,8 +129,8 @@ def gumbel_argmax(lg, temp, cut, seed, step):
                        device=lg.device)
     err = launch(lg.data_ptr(), temp.data_ptr(), cut.data_ptr(),
                  seed.data_ptr(), step.data_ptr(), part.data_ptr(),
-                 out.data_ptr(), B, V,
-                 torch.cuda.current_stream(lg.device).cuda_stream)
+                 _arrival_counters(lg.device, B).data_ptr(), out.data_ptr(),
+                 B, V, torch.cuda.current_stream(lg.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gumbel_argmax kernel launch failed (code {err})")
     gumbel_argmax.launches += 1
@@ -140,11 +140,26 @@ def gumbel_argmax(lg, temp, cut, seed, step):
 #: kernel launches since the count was last set to 0
 gumbel_argmax.launches = 0
 
+#: device -> the kernel's per-row arrival counters, zero between launches
+#: (each launch's last CTA of a row sets its counter back). Never freed or
+#: moved: a captured graph keeps their address. A batch wider than every
+#: buffer so far gets a new one; the old ones stay for the graphs that
+#: read them.
+_ARRIVED: dict = {}
+
+
+def _arrival_counters(device, B: int):
+    bufs = _ARRIVED.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < B:
+        bufs.append(torch.zeros((max(B, 256),), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
+
 
 def _kernel():
     lib = _build.load("sample")
     fn = lib.gumbel_argmax_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     nchunks = lib.gumbel_argmax_chunks

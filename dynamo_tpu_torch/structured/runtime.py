@@ -163,7 +163,9 @@ class StructuredRuntime:
         self._next_np = np.zeros((capacity, vocab_size), np.int32)  # FREE: 0
         self._segments: dict = {}     # key -> FsmSegment
         self._lock = threading.Lock()
-        self._dirty = True
+        #: (offset, rows) of segments placed since the tables were last
+        #: brought up to date on the device
+        self._dirty: list = []
         self._mask_dev = None
         self._next_dev = None
         self._clock = 0
@@ -223,7 +225,7 @@ class StructuredRuntime:
             seg.refs = 1
             seg.last_use = self._clock
             self._segments[key] = seg
-            self._dirty = True
+            self._dirty.append((off, fsm.n_states))
             return seg
 
     def release(self, seg: FsmSegment) -> None:
@@ -235,15 +237,25 @@ class StructuredRuntime:
 
     def device_tables(self):
         """(mask_arena, next_arena) as int32 tensors on the engine's
-        device; uploaded again only when a segment changed since the last
-        step."""
+        device. They are allocated once, at capacity, and stay the same
+        tensors: the rows of segments placed since the last call are
+        copied into them in place, on the current stream, so a captured
+        sampler reads the new rows at its next replay. No row a live
+        sequence uses is rewritten: a segment is evicted only at zero
+        references."""
         with self._lock:
-            if self._dirty or self._mask_dev is None:
+            if self._mask_dev is None:
                 self._mask_dev = torch.from_numpy(
                     self._mask_np.view(np.int32)).to(self.device, copy=True)
                 self._next_dev = torch.from_numpy(self._next_np).to(
                     self.device, copy=True)
-                self._dirty = False
+            else:
+                for off, n in self._dirty:
+                    self._mask_dev[off:off + n].copy_(torch.from_numpy(
+                        self._mask_np[off:off + n].view(np.int32)))
+                    self._next_dev[off:off + n].copy_(
+                        torch.from_numpy(self._next_np[off:off + n]))
+            self._dirty = []
             return self._mask_dev, self._next_dev
 
     def stats(self) -> dict:

@@ -583,13 +583,15 @@ def test_mla_fp16_range_on_card(pages, magnitude):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("V", [1, 7, 4095, 4096, 4097, 32000, 128256])
+@pytest.mark.parametrize("V", [1, 7, 1023, 1024, 1025, 4095, 4096, 4097,
+                               32000, 128256])
 def test_gumbel_argmax_matches_plain_on_card(V):
     """The draw kernel's tokens equal its plain version's on the card:
-    vocabulary widths across the kernel's 4096-element chunk edges, rows
+    vocabulary widths across the kernel's 1024-element chunk edges, rows
     with top-k/top-p style cuts and a row whose every entry is masked but
     one; a zero-logit row (the noise alone decides) and keys at the uint32
-    edges."""
+    edges. Twice: each launch leaves its arrival counters at 0 for the
+    next."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from dynamo_tpu_torch.ops.sample import gumbel_argmax, gumbel_argmax_ref
@@ -608,10 +610,11 @@ def test_gumbel_argmax_matches_plain_on_card(V):
                         device="cuda")
     step = torch.tensor([0, -1, 5, 2**31 - 1, 77, 128], dtype=torch.int32,
                         device="cuda")
-    got = gumbel_argmax(lg, temp, cut, seed, step)
     want = gumbel_argmax_ref(lg, temp, cut, seed, step)
-    torch.cuda.synchronize()
-    assert got.tolist() == want.tolist()
+    for _ in range(2):
+        got = gumbel_argmax(lg, temp, cut, seed, step)
+        torch.cuda.synchronize()
+        assert got.tolist() == want.tolist()
     assert gumbel_argmax.launches > 0
 
 
@@ -642,3 +645,193 @@ def test_sampler_on_card_draws_with_the_kernel():
     tp, lp = sampling.sample(torch.from_numpy(lg), temp, top_k, top_p, keys)
     assert tc.tolist() == tp.tolist()
     np.testing.assert_allclose(lc.cpu().numpy(), lp.numpy(), atol=1e-5)
+
+
+# --------------------------------------------------------- captured steps
+
+
+def _graph_engine(kind: str, guided_vocab=None):
+    """A small engine on the card whose steps the kernels take: GQA (hd
+    64, group 4) with bf16 or int8 KV, or MLA + MoE (H 16, rank 64)."""
+    from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
+    from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
+
+    if kind == "mla_bf16":
+        cfg = ModelConfig(
+            vocab_size=512, hidden_size=128, intermediate_size=256,
+            num_layers=2, num_heads=16, num_kv_heads=16, dtype="bfloat16",
+            max_position_embeddings=4096, kv_lora_rank=64,
+            q_lora_rank=None, qk_nope_head_dim=16, qk_rope_head_dim=64,
+            v_head_dim=16, num_experts=8, num_experts_per_tok=2,
+            moe_intermediate_size=64, n_shared_experts=1,
+            first_k_dense_replace=1)
+    else:
+        cfg = ModelConfig(
+            vocab_size=512, hidden_size=256, intermediate_size=512,
+            num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+            max_position_embeddings=4096, dtype="bfloat16")
+    args = EngineArgs(block_size=16, num_blocks=512, max_num_seqs=8,
+                      max_num_batched_tokens=256, max_model_len=1024,
+                      kv_cache_dtype="int8" if kind == "gqa_int8" else None)
+    return AsyncTorchEngine(cfg, args, guided_vocab=guided_vocab)
+
+
+def _seq(engine, rng, n, sampling=None):
+    from dynamo_tpu_torch.engine.scheduler import SeqState
+    from dynamo_tpu_torch.protocols import (
+        PreprocessedRequest, SamplingOptions,
+    )
+
+    s = SeqState(request_id="g", req=PreprocessedRequest(
+        model="x", token_ids=[1], sampling_options=sampling
+        or SamplingOptions()), ctx=None, sink=None)
+    s.tokens = list(map(int, rng.integers(0, engine.cfg.vocab_size, n)))
+    s.step_idx = n
+    s.block_table = engine.pool.allocate(-(-(n + 4) // 16))
+    return s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gqa_bf16", "gqa_int8", "mla_bf16"])
+def test_captured_steps_equal_eager_on_card(kind):
+    """A decode-only and a mixed step, captured in that order, then run
+    eagerly, their written slots zeroed, and replayed in a shuffled order
+    (mixed, decode, decode, mixed): logits and every written cache slot
+    bit-equal to the eager step's, and each replay counts the eager
+    step's kernel launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dynamo_tpu_torch.engine.graphs import COUNTED
+    from dynamo_tpu_torch.engine.scheduler import PrefillWork, StepPlan
+
+    engine = _graph_engine(kind)
+    rng = np.random.default_rng(5)
+    a, b, c = (_seq(engine, rng, n) for n in (301, 180, 40))
+    plans = {"decode": (StepPlan(decode=[_seq(engine, rng, int(n)) for n in
+                                         rng.integers(100, 300, 8)]), False),
+             "mixed": (StepPlan(prefill=[PrefillWork(b, 100, 80, True),
+                                         PrefillWork(c, 0, 40, True)],
+                                decode=[a]), True)}
+    ops, slots = {}, {}
+    for name, (plan, _) in plans.items():
+        ops[name], _ = engine.pack(plan)
+        n = len(plan.decode) + sum(w.chunk for w in plan.prefill)
+        slots[name] = torch.from_numpy(
+            ops[name][0][2, :n].astype(np.int64)).cuda()
+    leaves = [t for cache in (engine.k_cache, engine.v_cache)
+              for t in (cache.values() if isinstance(cache, dict)
+                        else (cache,))]
+
+    def forward(name):
+        R = ops[name][1].shape[0]
+        ints5, rows3, grid, bt = engine._staging.put(
+            [np.zeros((5, R), np.int32), np.zeros((R,), np.int32),
+             *ops[name]])[2:]
+        before = [w.launches for w in COUNTED]
+        logits = engine._forward(ints5, rows3,
+                                 grid if plans[name][1] else None,
+                                 bt).clone()
+        torch.cuda.synchronize()
+        return (logits, [t[:, slots[name]].clone() for t in leaves],
+                [w.launches - n for w, n in zip(COUNTED, before)])
+
+    for name in plans:
+        forward(name)  # first use and capture
+    assert len(engine.graphs) == 2
+    engine.use_graphs = False
+    want = {name: forward(name) for name in plans}
+    for name in plans:
+        for t in leaves:
+            t[:, slots[name]] = 0
+    engine.use_graphs = True
+    for name in ("mixed", "decode", "decode", "mixed"):
+        got = forward(name)
+        assert torch.equal(got[0], want[name][0]), name
+        assert all(torch.equal(g, w) for g, w in zip(got[1], want[name][1]))
+        assert got[2] == want[name][2] and any(got[2]), name
+
+
+@pytest.mark.gpu
+def test_burst_graph_equals_captured_single_steps_on_card():
+    """A K = 3 burst replayed from its graph gives the tokens of three
+    single decode steps replayed from theirs (each fed the previous one's
+    tokens on the card), greedy and seeded rows together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dynamo_tpu_torch.engine.cache import NULL_BLOCK
+    from dynamo_tpu_torch.protocols import SamplingOptions
+
+    engine = _graph_engine("gqa_bf16")
+    rng = np.random.default_rng(9)
+    seqs = [_seq(engine, rng, int(n), SamplingOptions(
+        temperature=0.8, top_k=20, seed=i) if i % 2 else None)
+        for i, n in enumerate(rng.integers(50, 200, 6))]
+    R = engine.args.ragged_rows(engine.args.bucket_ragged_tokens(len(seqs)))
+    pad = [None] * (R - len(seqs))
+
+    def singles():
+        toks, feed = [], None
+        for off in range(3):
+            out = engine._step(engine._decode_operands(seqs, off), False,
+                               feed, engine._sampling_plan(seqs + pad, off))
+            feed = out["toks"][:len(seqs)]
+            out["copied"].synchronize()
+            toks.append(out["host"][0].tolist()[:len(seqs)])
+        return toks
+
+    W = engine.args.max_blocks_per_seq
+    ints3 = np.zeros((3, R), np.int32)
+    bt = np.full((R, W), NULL_BLOCK, np.int32)
+    for i, s in enumerate(seqs):
+        ints3[:, i] = (s.tokens[-1], len(s.tokens) - 1, len(s.tokens))
+        bt[i, :len(s.block_table)] = s.block_table
+
+    def burst():
+        out = engine._burst(ints3, bt, engine._sampling_plan(seqs + pad), 3)
+        out["copied"].synchronize()
+        return [row[:len(seqs)] for row in out["host"][0].tolist()]
+
+    first = singles()  # eager first use, capture
+    assert singles() == first  # replays
+    assert burst() == first  # eager first use, capture
+    assert burst() == first  # replay
+    assert engine.compile_events["multi"] == 1  # one capture, one replay
+
+
+@pytest.mark.gpu
+def test_fsm_arena_update_seen_by_replay_on_card():
+    """The FSM sampler is captured while one constraint's rows are in the
+    arena; a second constraint placed afterwards lands in the same arena
+    tensors, and the next replay masks its row with the new rows: its
+    token is one the new constraint allows, and equals the eager step's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dynamo_tpu_torch.structured import build_guided_state
+
+    vocab = [""] + [chr(32 + i) for i in range(511)]
+    engine = _graph_engine("gqa_bf16", guided_vocab=vocab)
+    assert engine.structured is not None
+    rng = np.random.default_rng(2)
+    seqs = [_seq(engine, rng, 60 + i) for i in range(4)]
+    ops = engine._decode_operands(seqs, 0)
+    R = ops[1].shape[0]
+    pad = [None] * (R - len(seqs))
+
+    def step(graphs):
+        engine.use_graphs = graphs
+        out = engine._step(ops, False, None,
+                           engine._sampling_plan(seqs + pad))
+        out["copied"].synchronize()
+        return out["host"][0].tolist()[0]
+
+    seqs[0].guided_state = build_guided_state(
+        {"regex": "[ab]+"}, vocab, [2], engine.structured, True)
+    mask_before = engine.structured.device_tables()[0]
+    assert vocab[step(True)] in "ab"  # first use, capture
+    assert vocab[step(True)] in "ab"  # replay
+    seqs[0].guided_state = build_guided_state(
+        {"regex": "[xyz]+"}, vocab, [2], engine.structured, True)
+    assert engine.structured.device_tables()[0] is mask_before
+    got = step(True)  # replay with the new rows
+    assert vocab[got] in "xyz"
+    assert got == step(False)

@@ -126,12 +126,21 @@ def test_free_state_is_identity():
 
 
 def test_tables_upload_again_only_when_dirty():
+    """The arenas are allocated once: a new segment's rows are copied into
+    the same tensors (a captured sampler keeps reading them), and they
+    then equal the host tables."""
     rt = StructuredRuntime(len(CHAR_VOCAB), 64)
     a = rt.device_tables()
     assert rt.device_tables()[0] is a[0]
-    build_guided_state({"regex": "ab"}, CHAR_VOCAB, [], rt)
+    assert not a[0][1:].any()  # only the FREE row so far
+    cur = build_guided_state({"regex": "ab"}, CHAR_VOCAB, [], rt)
     b = rt.device_tables()
-    assert b[0] is not a[0] and b[0].dtype == torch.int32
+    assert b[0] is a[0] and b[1] is a[1] and b[0].dtype == torch.int32
+    off, n = cur.seg.offset, cur.seg.size
+    assert b[0][off:off + n].any()
+    np.testing.assert_array_equal(b[0].numpy(),
+                                  rt._mask_np.view(np.int32))
+    np.testing.assert_array_equal(b[1].numpy(), rt._next_np)
 
 
 def test_unsatisfiable_constraint_is_invalid_request():

@@ -3,7 +3,7 @@
 
     python3 tune_decode_loop.py [--model llama3_8b] [--tokens 64]
                                 [--rounds 2] [--profile N] [--seed N]
-                                [--sampled]
+                                [--sampled] [--graphs N]
 
 Builds one ``AsyncTorchEngine`` of the preset at full width and depth on
 random weights from the seed, and serves ``chip_smoke.py``'s eight
@@ -21,6 +21,13 @@ tokens, and the device time between two events around it.
 temperature, top-k and top-p of ``chip_smoke.SAMPLED``: the cuts, the
 draw kernel, the staged sampling operands) against the same greedy batch,
 in turns greedy, sampled, sampled, greedy, before the serving runs.
+
+``--graphs N`` times one greedy decode step (8 rows at kv ~1000) run
+eagerly and replayed as the engine's captured graphs, in N alternating
+pairs (eager, captured, captured, eager, ...): the host ms of the step's
+launches (``_step``), the device ms between events around them, and the
+wall ms until its tokens are on the host; it prints the medians and the
+quartiles of each, and the engine's captures and graph pool.
 
 ``--profile N`` then serves the requests once more on the pipelined loop
 under ``cProfile`` and prints the N functions with the most time of their
@@ -58,12 +65,8 @@ from dynamo_tpu_torch.protocols import (
 LOOPS = {"serial": False, "pipelined": True}
 
 
-def step_parts(engine, n: int = 20, sampled: bool = False) -> str:
-    """Median host ms of one 8-row decode step's launches, of the wait for
-    its tokens after them, and its device ms (events around the step); and
-    for a greedy batch the host ms of the same step launched as before the
-    staging buffers (four pageable copies, the step, the argmax,
-    ``.tolist()``). ``sampled``: each row draws with its own seed."""
+def decode_seqs(engine, sampled: bool = False) -> list:
+    """Eight decoding sequences at kv ~1000, their blocks allocated."""
     seqs = []
     for i in range(8):
         t, k, p = chip_smoke.SAMPLED[i]
@@ -76,6 +79,64 @@ def step_parts(engine, n: int = 20, sampled: bool = False) -> str:
         s.step_idx = len(s.tokens)
         engine.scheduler._ensure_blocks(s, len(s.tokens))
         seqs.append(s)
+    return seqs
+
+
+def quartiles(xs) -> str:
+    q1, q2, q3 = statistics.quantiles(xs, n=4)
+    return f"{q2:.3f} [{q1:.3f}, {q3:.3f}]"
+
+
+def graph_pairs(engine, pairs: int) -> str:
+    """One greedy decode step, eager against captured, in ``pairs``
+    alternating pairs: the host ms of its launches, its device ms between
+    events, its wall ms until the tokens landed; medians [quartiles]."""
+    seqs = decode_seqs(engine)
+    ops = engine._decode_operands(seqs, 0)
+    samp = engine._sampling_plan(seqs)
+    res = {False: ([], [], []), True: ([], [], [])}
+    for graphs in (False, True, True):  # first uses, and the capture
+        engine.use_graphs = graphs
+        engine._step(ops, False, None, samp)["copied"].synchronize()
+    order = [False, True, True, False] * (pairs // 2) + [False, True] * (
+        pairs % 2)
+    for graphs in order:
+        engine.use_graphs = graphs
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        out = engine._step(ops, False, None, samp)
+        e1.record()
+        t1 = time.perf_counter()
+        out["copied"].synchronize()
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+        host, dev, wall = res[graphs]
+        host.append((t1 - t0) * 1e3)
+        dev.append(e0.elapsed_time(e1))
+        wall.append((t2 - t0) * 1e3)
+    engine.use_graphs = True
+    for s in seqs:
+        engine.pool.release(s.block_table)
+    lines = []
+    for graphs, name in ((False, "eager"), (True, "captured")):
+        host, dev, wall = res[graphs]
+        lines.append(f"{name}: launches {quartiles(host)} ms of host, "
+                     f"device {quartiles(dev)} ms, wall {quartiles(wall)} "
+                     f"ms")
+    return (f"one greedy decode step, 8 rows at kv ~1000, {pairs} pairs in "
+            f"turns, median [quartiles]: " + "; ".join(lines)
+            + f"; {chip_smoke.graph_line(engine)}")
+
+
+def step_parts(engine, n: int = 20, sampled: bool = False) -> str:
+    """Median host ms of one 8-row decode step's launches, of the wait for
+    its tokens after them, and its device ms (events around the step); and
+    for a greedy batch the host ms of the same step launched as before the
+    staging buffers (four pageable copies, the step, the argmax,
+    ``.tolist()``). ``sampled``: each row draws with its own seed."""
+    seqs = decode_seqs(engine, sampled)
     ops = engine._decode_operands(seqs, 0)
     # the engine's path for both: the greedy batch's plan draws nothing
     samp = engine._sampling_plan(seqs)
@@ -193,18 +254,26 @@ def main() -> int:
     ap.add_argument("--sampled", action="store_true",
                     help="also time a seeded sampled step against a greedy "
                          "one, in turns")
+    ap.add_argument("--graphs", type=int, default=0, metavar="N",
+                    help="time a decode step eager against captured in N "
+                         "alternating pairs")
     a = ap.parse_args()
     smi, _kind = chip_smoke.device_phase()
     cfg = get_model_config(a.model)
     engine = AsyncTorchEngine(cfg, EngineArgs(
         block_size=16, max_num_seqs=8, max_num_batched_tokens=2048,
         max_model_len=4096, seed=a.seed))
+    if a.graphs:
+        print(f"[{smi}] {a.model}: {graph_pairs(engine, a.graphs)}",
+              flush=True)
     print(f"[{smi}] {a.model}: {step_parts(engine)}", flush=True)
     if a.sampled:
         for sampled in (False, True, True, False):
             print(f"[{smi}] {a.model}: {step_parts(engine, sampled=sampled)}",
                   flush=True)
     order = ["serial", "pipelined", "pipelined", "serial"] * a.rounds
+    if not order:
+        return 0
     prompts = chip_smoke.serving_prompts(cfg, a.seed)
     results = asyncio.run(serve_loops(engine, prompts, a.tokens, order,
                                          a.profile))
