@@ -103,7 +103,10 @@ prints any result:
    decode-only step, the greedy sampler; no greedy request may capture
    anything after it), its pool beside the bf16 one's, the captured step
    against the eager one, one full-width int8 step against the plain
-   version, and the step profile of phase 5 on int8 pages.
+   version, and the step profile of phase 5 on int8 pages. Then the
+   disagg block copy at full width on that pool: 56 blocks gathered
+   (packed uint8), scattered into other blocks, gathered back bit-exact,
+   gather and scatter timed against the blocks' bytes at HBM rate.
 8. The worker, once the Llama engines are released: the port's
    ``ControlPlaneServer``, ``python -m dynamo_tpu_torch.engine.main
    --model-path .smoke_ckpt`` spawned with ``DYN_CONTROL_PLANE`` set, and
@@ -121,7 +124,31 @@ prints any result:
    with ``--warmup-buckets`` and reports its kernel launches and captures
    at exit: the ragged kernel 32 times a forward step (the warmup's
    included), the flash prefill kernel 32 times for the embedding,
-   nothing else; no capture but the warmup's.
+   nothing else; no capture but the warmup's. It also serves each of the
+   eight prompts alone on an emptied prefix cache.
+   Then disaggregated serving on the same checkpoint: a ``--role
+   prefill`` and a ``--role decode --max-local-prefill-length 64
+   --warmup-buckets`` worker process, 4096 blocks each, sharing the card
+   behind a new hub. Each of the eight prompts alone (both caches
+   emptied) must stream what the aggregated worker streamed for it alone;
+   the eight together give TTFT, ITL and tok/s beside the aggregated
+   worker's, and each request's transfer (MB, chunk and layer frames,
+   gather + staging, wire and scatter seconds, joined from the two
+   workers' exit reports), and where each stream first differs from the
+   aggregated worker's; a 3000-token prompt (two chunks) prefilled
+   remotely must stream what it streams prefilled locally once the live
+   threshold (the control-plane key) is raised; a restore plan naming the
+   prefill worker pulls the prompt's full blocks, computed for the prompt
+   alone by a seeding run that must stream what the aggregated worker
+   streamed for the prompt alone (outcome restored), and must stream what
+   the remote run over the prefill worker's blocks streams (where it
+   leaves the stream alone is printed: its tail runs in a smaller step).
+   Every request past the threshold must have
+   gone remote and been placed (no fallback), with blocks whose digest
+   equals the prefill worker's, no block may stay in use on either worker,
+   each worker's ragged launches must be 32 a forward step, and the
+   decode worker may capture nothing past its warmup. Each request of
+   the pair fails the phase after ``DISAGG_REQUEST_S``.
 9. DeepSeek-V2-Lite serving (the Llama engines released first: the two
    models never share the card): ``AsyncTorchEngine`` with the
    deepseek_v2_lite preset at full width and depth (MLA + MoE, random
@@ -134,7 +161,8 @@ prints any result:
    ragged step
    through the kernels against the same step through their plain
    versions, the step profile, and one embedding call (2 inputs of up to
-   1024 tokens) through the MLA prefill kernel against the plain attention.
+   1024 tokens) through the MLA prefill kernel against the plain attention,
+   and the block copy of phase 7 on the latent and rope pools.
 10. DeepSeek-V2-Lite from an int8 latent pool, on the same weights: the
    eight requests again (both MLA kernels on int8 pages, the same launch
    rule), the pool's blocks beside the bf16 pool's, one full-width int8
@@ -195,6 +223,8 @@ from dynamo_tpu_torch.ops.paged_attention import (
 from dynamo_tpu_torch.ops.ragged_attention import (
     ragged_attention_ref, ragged_paged_attention,
 )
+from dynamo_tpu_torch.disagg.protocols import DisaggConfig
+from dynamo_tpu_torch.ops.block_copy import gather_blocks, scatter_blocks
 from dynamo_tpu_torch.ops.sample import (
     gumbel_argmax, gumbel_argmax_ref, random_bits_ref, uniform_ref,
 )
@@ -205,6 +235,7 @@ from dynamo_tpu_torch.protocols import (
 from dynamo_tpu_torch.router.protocols import KV_METRICS_SUBJECT, RouterEvent
 from dynamo_tpu_torch.router.publisher import parse_load_event
 from dynamo_tpu_torch.runtime.codec import unpackb
+from dynamo_tpu_torch.runtime.context import Context
 
 #: DeepSeek-V2-Lite's softmax scale, qk_head_dim 192 to the -1/2
 MLA_SCALE = 1.0 / float(np.sqrt(192))
@@ -2269,6 +2300,8 @@ def int8_phase(seed: int, smi: str, bf16_blocks: int, bf16_streams):
     graph_step_check(engine, "llama3_8b", seed)
     full_width_step(engine, "llama3_8b", seed)
     step_profile(engine, "llama3_8b", seed)
+    block_copy_check(engine, "llama3_8b int8 pool (packed uint8 bundles)",
+                     smi)
     _release(engine)
     return launches
 
@@ -2363,6 +2396,8 @@ def mla_phase(seed: int, smi: str) -> dict:
     full_width_step(engine, model, seed)
     step_profile(engine, model, seed)
     mla_embedding(engine, seed, smi)
+    block_copy_check(engine, "deepseek_v2_lite bf16 latent and rope pools",
+                     smi)
     params, bf16_blocks = engine.params, engine.num_blocks
     _release(engine)
     del engine
@@ -2602,6 +2637,20 @@ def _named(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+async def _spawn_worker(addr: str, log_path, *extra: str):
+    """``python -m dynamo_tpu_torch.engine.main`` on the checkpoint, joined
+    to the hub at ``addr``, its stderr into ``log_path``."""
+    with open(log_path, "w") as wlog:
+        return await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "dynamo_tpu_torch.engine.main",
+            "--model-path", str(CKPT_DIR), "--model", WORKER_MODEL,
+            "--block-size", "16", "--max-num-seqs", "8",
+            "--max-num-batched-tokens", "2048", "--max-model-len", "4096",
+            *extra, stdout=asyncio.subprocess.PIPE, stderr=wlog,
+            env={**os.environ, "DYN_CONTROL_PLANE": addr},
+            cwd=str(pathlib.Path(__file__).resolve().parent))
+
+
 async def _worker_run(ref: dict, smi: str) -> dict:
     """The worker phase on an event loop: the port's hub, the worker
     process, a client runtime; every check of the phase."""
@@ -2611,16 +2660,7 @@ async def _worker_run(ref: dict, smi: str) -> dict:
     addr = await hub.start()
     log_path = CKPT_DIR / "worker.log"
     t_spawn = time.perf_counter()
-    with open(log_path, "w") as wlog:
-        proc = await asyncio.create_subprocess_exec(
-            sys.executable, "-m", "dynamo_tpu_torch.engine.main",
-            "--model-path", str(CKPT_DIR), "--model", WORKER_MODEL,
-            "--block-size", "16", "--max-num-seqs", "8",
-            "--max-num-batched-tokens", "2048", "--max-model-len", "4096",
-            "--warmup-buckets",
-            stdout=asyncio.subprocess.PIPE, stderr=wlog,
-            env={**os.environ, "DYN_CONTROL_PLANE": addr},
-            cwd=str(pathlib.Path(__file__).resolve().parent))
+    proc = await _spawn_worker(addr, log_path, "--warmup-buckets")
     rt = await DistributedRuntime.create(address=addr)
     try:
         deadline = time.perf_counter() + WORKER_READY_S
@@ -2713,6 +2753,12 @@ async def _worker_run(ref: dict, smi: str) -> dict:
             if got != want:
                 raise AssertionError(f"worker solo stream {got} != the "
                                      f"direct engine's {want}")
+        # the eight prompts each alone on an emptied prefix cache: the
+        # references of the disaggregated pair's solo pass
+        alone = []
+        for prompt in ref["prompts"]:
+            await ask("clear_kv_blocks", {})
+            alone.append((await one(prompt, max_tokens))[2])
         ids, want_vec = ref["embed"]
         frame = await ask("embed", {"token_ids": [ids]})
         cos = _cos(frame["embeddings"][0], want_vec)
@@ -2750,7 +2796,8 @@ async def _worker_run(ref: dict, smi: str) -> dict:
                 if ref["streams"] else None)
         return {"stats": st, "ready_s": ready_s, "exit_s": exit_s,
                 "cos": cos, "report": report, "lease": lease,
-                "blocks": len(stored), "same": same}
+                "blocks": len(stored), "same": same, "alone": alone,
+                "streams": [r[2] for r in res]}
     except BaseException:
         log(f"worker log (tail):\n{log_path.read_text()[-4000:]}")
         raise
@@ -2765,12 +2812,10 @@ async def _worker_run(ref: dict, smi: str) -> dict:
 def worker_phase(ref: dict, smi: str, direct: dict) -> dict:
     """The worker: ``python -m dynamo_tpu_torch.engine.main`` on the
     checkpoint the checkpoint phase wrote, behind the port's own hub,
-    driven by a port ``Client`` over the TCP response plane. Returns the
-    worker's kernel launches by wrapper name."""
-    try:
-        out = asyncio.run(_worker_run(ref, smi))
-    finally:
-        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    driven by a port ``Client`` over the TCP response plane. Returns what
+    the run measured: the stats, the eight streams, each prompt's stream
+    alone, and the worker's kernel launches by wrapper name."""
+    out = asyncio.run(_worker_run(ref, smi))
     L, report = ref["layers"], out["report"]
     launches = report["launches"]
     # the warmup's dummy steps (--warmup-buckets) are forward steps too
@@ -2808,7 +2853,363 @@ def worker_phase(ref: dict, smi: str, direct: dict) -> dict:
         f"{out['cos']:.6f} (>= {EMBED_COS}); clear_kv_blocks ok; exit 0 "
         f"{out['exit_s']:.2f} s after SIGTERM (<= {WORKER_EXIT_S} s), "
         f"discovery empty")
-    return launches
+    return {**out, "launches": launches}
+
+
+#: the disaggregated pair's decode-side threshold, and the length of its
+#: long prompt (two chunks at 2048 batched tokens)
+DISAGG_THRESHOLD = 64
+LONG_PROMPT = 3000
+#: seconds one request of the pair may take before the phase fails
+DISAGG_REQUEST_S = 120
+
+
+def _exit_report(stdout: str) -> dict:
+    return json.loads(stdout.split("WORKER_EXIT ", 1)[1].splitlines()[0])
+
+
+def transfer_split(decode: dict, prefill: dict) -> dict:
+    """One remote prefill's transfer from both workers' records (same
+    request id, frames in the same order): MB moved, the chunk and layer
+    frames, and its seconds summed over the frames: gather + host staging
+    (prefill side: the gather's launch to the frame's bytes), wire (the
+    frame's bytes ready to its arrival at the decode handler: the
+    response plane's encoding, TCP, decoding) and scatter (decode side:
+    parsing, pinning, the copy and scatter launches). Fails unless the
+    decode worker's placed blocks hold the bytes of the prefill worker's
+    blocks (their digests), whatever else ran beside the request."""
+    pf, df = prefill["frames"], decode["frames"]
+    if [f[0] for f in pf] != [f[0] for f in df]:
+        raise AssertionError(f"request {decode['id']}: prefill frames "
+                             f"{[f[0] for f in pf]}, decode frames "
+                             f"{[f[0] for f in df]}")
+    if decode.get("digest") is None or decode["digest"] != prefill["digest"]:
+        raise AssertionError(f"request {decode['id']}: the decode worker's "
+                             f"blocks digest {decode.get('digest')}, the "
+                             f"prefill worker's {prefill['digest']}")
+    return {"mb": sum(f[1] for f in df) / 1e6,
+            "chunks": sum(f[0] == "chunk" for f in df),
+            "layers": sum(f[0] == "layer" for f in df),
+            "stage_s": sum(t1 - t0 for _k, _n, t0, t1 in pf),
+            "wire_s": sum(d[2] - p[3] for p, d in zip(pf, df)),
+            "scatter_s": sum(f[3] for f in df),
+            "stream_s": decode["stream_s"]}
+
+
+def first_diff(a: list, b: list):
+    """The index of the first token where two streams differ, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+async def _disagg_run(ref: dict, agg: dict) -> dict:
+    """The disaggregated pair on an event loop: the hub, a prefill and a
+    decode worker process, a client runtime; the requests of the phase."""
+    from dynamo_tpu_torch.runtime import ControlPlaneServer, DistributedRuntime
+
+    hub = ControlPlaneServer()
+    addr = await hub.start()
+    logs = {role: CKPT_DIR / f"{role}.log" for role in ("prefill", "decode")}
+    t_spawn = time.perf_counter()
+    procs = {
+        "prefill": await _spawn_worker(addr, logs["prefill"], "--role",
+                                       "prefill", "--num-blocks", "4096"),
+        "decode": await _spawn_worker(
+            addr, logs["decode"], "--role", "decode",
+            "--max-local-prefill-length", str(DISAGG_THRESHOLD),
+            "--num-blocks", "4096", "--warmup-buckets")}
+    rt = await DistributedRuntime.create(address=addr)
+    try:
+        ns = rt.namespace("dynamo")
+        gen = await ns.component("backend").endpoint(
+            "generate").client().start()
+        pre = await ns.component("prefill").endpoint(
+            "generate").client().start()
+        deadline = time.perf_counter() + WORKER_READY_S
+        while (not await rt.plane.kv_get_prefix(f"models/{WORKER_MODEL}/")
+               or not pre.instance_ids()):
+            for role, proc in procs.items():
+                if proc.returncode is not None:
+                    raise AssertionError(f"the {role} worker exited with "
+                                         f"{proc.returncode} before serving")
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"the pair was not up within "
+                                     f"{WORKER_READY_S} s")
+            await asyncio.sleep(0.2)
+        ready_s = time.perf_counter() - t_spawn
+        (prefill_lease,) = pre.instance_ids()
+        await asyncio.sleep(1.0)  # the decode worker's discovery sees it too
+        clear = {c: await ns.component(c).endpoint(
+            "clear_kv_blocks").client().start()
+            for c in ("backend", "prefill")}
+        await gen.wait_for_instances()
+        max_tokens = len(ref["solo"][0][1])
+
+        async def one(prompt, rid, restore=None):
+            t0 = time.perf_counter()
+            stamps, toks, reason = [], [], None
+
+            async def stream():
+                nonlocal reason
+                async for frame in await gen.generate(PreprocessedRequest(
+                        model=WORKER_MODEL, token_ids=prompt,
+                        restore=restore, stop_conditions=StopConditions(
+                            max_tokens=max_tokens, ignore_eos=True)
+                        ).to_wire(), ctx=Context(id=rid)):
+                    out = LLMEngineOutput.from_wire(frame)
+                    stamps.append(time.perf_counter())
+                    toks.extend(out.token_ids)
+                    reason = out.finish_reason or reason
+
+            try:
+                await asyncio.wait_for(stream(), DISAGG_REQUEST_S)
+            except asyncio.TimeoutError:
+                raise AssertionError(f"disagg request {rid}: {len(toks)} "
+                                     f"tokens in {DISAGG_REQUEST_S} s")
+            if reason != "length" or len(toks) != max_tokens:
+                raise AssertionError(f"disagg stream {rid}: {reason!r} "
+                                     f"after {len(toks)} tokens")
+            return t0, stamps, toks, reason
+
+        async def emptied(*components):
+            for c in components:
+                async for frame in await clear[c].generate({}):
+                    if not frame.get("ok"):
+                        raise AssertionError(f"clear_kv_blocks: {frame}")
+
+        async def threshold(n: int):
+            await rt.plane.kv_put(DisaggConfig.KEY, str(n).encode())
+            await asyncio.sleep(1.0)  # the decode worker's watch applies it
+
+        log(f"  pair up in {ready_s:.1f} s; requests:")
+        await one(list(range(1, 17)), "warmup")  # local: under the threshold
+        log("    warm-up (local) done")
+        # each prompt alone on emptied caches: the aggregated worker's
+        # stream of the same prompt alone
+        for i, (prompt, want) in enumerate(zip(ref["prompts"],
+                                               agg["alone"])):
+            await emptied("backend", "prefill")
+            got = (await one(prompt, f"solo-{i}"))[2]
+            if got != want:
+                raise AssertionError(f"disagg solo stream {i}: {got} != the "
+                                     f"aggregated worker's {want}")
+            log(f"    solo-{i} done")
+        # the eight concurrently, as the worker phase sent them
+        await emptied("backend", "prefill")
+        t0 = time.perf_counter()
+        res = await asyncio.gather(*(one(p, f"burst-{i}") for i, p in
+                                     enumerate(ref["prompts"])))
+        st = serving_stats(res, time.perf_counter() - t0)
+        burst = [r[2] for r in res]
+        log("    burst done")
+        # a long prompt: chunk frames, then the layer-group tail; then the
+        # same prompt prefilled locally once the live threshold is raised
+        vocab = ModelConfig.from_pretrained(str(CKPT_DIR)).vocab_size
+        rng = np.random.default_rng(23)
+        long = list(map(int, rng.integers(0, vocab, LONG_PROMPT)))
+        await emptied("backend")  # the prefill worker keeps the burst's
+        remote = (await one(long, "long-remote"))[2]
+        await threshold(1 << 20)
+        await emptied("backend")
+        local = (await one(long, "long-local"))[2]
+        if local != remote:
+            raise AssertionError(f"the long prompt prefilled locally gave "
+                                 f"{local}, remotely {remote}")
+        log("    long prompt remote and local done")
+        # a restore pull of blocks computed for the prompt alone: both
+        # caches emptied, the prompt once through the pair (its prefill on
+        # the prefill worker), the decode worker's cache emptied, then the
+        # request with a plan naming the prefill worker; then the prompt
+        # remotely again, its tail computed over those blocks on the
+        # prefill worker: the same computation, without the pull
+        prompt = ref["prompts"][0]
+        full = (len(prompt) - 1) // 16
+        await threshold(DISAGG_THRESHOLD)
+        await emptied("backend", "prefill")
+        seeded = (await one(prompt, "restore-seed"))[2]
+        await emptied("backend")
+        restored = (await one(prompt, "restore", restore={
+            "sources": [[prefill_lease, full, 1.0]],
+            "block_size": 16}))[2]
+        await emptied("backend")
+        tail_ref = (await one(prompt, "restore-ref"))[2]
+        # the seeding run computed the blocks as the aggregated worker did
+        # for the prompt alone (and its digests matched); the restore
+        # computes the 1-15 token tail over them in a smaller step, so its
+        # stream is held against the same computation without the pull,
+        # and where it leaves the stream alone is printed
+        if seeded != agg["alone"][0]:
+            raise AssertionError(
+                f"the seeding stream {seeded} != the aggregated worker's "
+                f"stream of the prompt alone {agg['alone'][0]}")
+        if restored != tail_ref:
+            raise AssertionError(f"restored stream {restored} != the stream "
+                                 f"over the prefill worker's blocks "
+                                 f"{tail_ref}")
+        for c in (gen, pre, *clear.values()):
+            await c.stop()
+        reports, exits = {}, {}
+        for role, proc in procs.items():
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = await asyncio.wait_for(proc.wait(), WORKER_EXIT_S)
+            exits[role] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"the {role} worker exited with {rc}")
+            reports[role] = _exit_report((await proc.stdout.read()).decode())
+        return {"ready_s": ready_s, "stats": st, "burst": burst,
+                "reports": reports, "exits": exits, "full": full,
+                "restored_diff": first_diff(restored, agg["alone"][0]),
+                "long_tokens": LONG_PROMPT}
+    except BaseException:
+        for role, path in logs.items():
+            log(f"{role} worker log (tail):\n{path.read_text()[-4000:]}")
+        raise
+    finally:
+        for proc in procs.values():
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+        await rt.shutdown()
+        await hub.stop()
+
+
+def disagg_phase(ref: dict, smi: str, agg: dict) -> None:
+    """Disaggregated serving: a ``--role prefill`` and a ``--role decode``
+    worker process on the one card, behind the port's hub, on the
+    checkpoint of the worker phase; ``agg`` is what the aggregated worker
+    measured in the same call."""
+    out = asyncio.run(_disagg_run(ref, agg))
+    L = ref["layers"]
+    dec, pre = out["reports"]["decode"], out["reports"]["prefill"]
+    dis = dec["disagg"]
+    # every request past the threshold went remote and was placed: the
+    # eight alone, the eight together, the long prompt, the restore's
+    # seeding and reference; the long prompt's local run and the restore
+    # stayed local
+    remote = 2 * sum(len(p) > DISAGG_THRESHOLD for p in ref["prompts"]) + 3
+    if dis.get("fallbacks") or dis.get("remote_prefills") != {
+            "placed": remote}:
+        raise AssertionError(f"remote prefills {dis.get('remote_prefills')}"
+                             f", fallbacks {dis.get('fallbacks')}: want "
+                             f"{remote} placed and no fallback")
+    if (dis.get("migration") != {"restored": 1}
+            or dis["migration_blocks"]["restored"] != out["full"]
+            or pre["served_pulls"] != {"restore": out["full"]}):
+        raise AssertionError(f"restore: {dis.get('migration')}, "
+                             f"{dis.get('migration_blocks')} blocks, "
+                             f"served {pre['served_pulls']}; want "
+                             f"{out['full']} blocks restored")
+    for role, rep in out["reports"].items():
+        if rep["active_blocks"]:
+            raise AssertionError(f"the {role} worker holds "
+                                 f"{rep['active_blocks']} blocks after "
+                                 "the requests ended")
+        want = {"ragged_paged_attention": L * rep["forward_steps"]}
+        got = {k: v for k, v in rep["launches"].items() if v}
+        if got != want or not rep["forward_steps"]:
+            raise AssertionError(f"the {role} worker's launches {got}, "
+                                 f"want {want}")
+    if dec["compile_events"] != {"ragged": 9, "ragged_dec": 9, "sample": 1}:
+        raise AssertionError(f"decode worker captures "
+                             f"{dec['compile_events']}: not only the "
+                             "warmup's")
+    records = {r["id"]: r for r in pre["extract"]}
+    splits = {r["id"]: transfer_split(r, records[r["id"]])
+              for r in dis["transfers"]}
+    if len(splits) != remote:
+        raise AssertionError(f"{len(splits)} transfers matched, want {remote}")
+    log(f"  [{smi}] disaggregated pair: prefill and decode workers up "
+        f"{out['ready_s']:.1f} s after spawn; {remote} remote prefills, "
+        f"all placed, no fallback; launches prefill "
+        f"{pre['launches']['ragged_paged_attention']} in "
+        f"{pre['forward_steps']} forward steps, decode "
+        f"{dec['launches']['ragged_paged_attention']} in "
+        f"{dec['forward_steps']}; captures prefill {pre['compile_events']},"
+        f" decode {dec['compile_events']}; no block in use on either at "
+        f"exit; exits {out['exits']['prefill']:.2f} / "
+        f"{out['exits']['decode']:.2f} s after SIGTERM")
+    log(f"  [{smi}] aggregated worker, 8 streams x "
+        f"{len(ref['solo'][0][1])} tokens: {stats_line(agg['stats'])}")
+    log(f"  [{smi}] disaggregated pair, same requests: "
+        f"{stats_line(out['stats'])}")
+    log(f"  every remote prefill's placed blocks equal the prefill worker's "
+        f"(digests of {remote} requests); the eight prompts alone: streams "
+        f"equal the aggregated worker's alone")
+    # the eight together are not gated on their tokens: each worker batches
+    # them as they arrive. Where each stream first leaves the aggregated
+    # worker's concurrent stream and each prompt's stream alone, beside
+    # where the aggregated worker's own concurrent streams leave theirs
+    for i, (got, together, alone) in enumerate(zip(
+            out["burst"], agg["streams"], agg["alone"])):
+        log(f"  burst-{i}: first token differing from the aggregated "
+            f"worker's concurrent stream {first_diff(got, together)}, from "
+            f"the stream alone {first_diff(got, alone)}; the aggregated "
+            f"worker's concurrent stream from its stream alone "
+            f"{first_diff(together, alone)}")
+    for i in range(8):
+        sp = splits[f"burst-{i}"]
+        log(f"  burst-{i} ({len(ref['prompts'][i])} tokens): "
+            f"{sp['mb']:.1f} MB in {sp['chunks']} chunk + {sp['layers']} "
+            f"layer frames; gather+staging {sp['stage_s'] * 1e3:.1f} ms, "
+            f"wire {sp['wire_s'] * 1e3:.1f} ms, scatter "
+            f"{sp['scatter_s'] * 1e3:.1f} ms (frame sums); stream "
+            f"{sp['stream_s'] * 1e3:.1f} ms")
+    sp = splits["long-remote"]
+    log(f"  long prompt ({out['long_tokens']} tokens): {sp['mb']:.1f} MB in "
+        f"{sp['chunks']} chunk + {sp['layers']} layer frames; "
+        f"gather+staging {sp['stage_s'] * 1e3:.1f} ms, wire "
+        f"{sp['wire_s'] * 1e3:.1f} ms, scatter "
+        f"{sp['scatter_s'] * 1e3:.1f} ms; stream "
+        f"{sp['stream_s'] * 1e3:.1f} ms; prefilled locally after the live "
+        f"threshold rose: the same stream")
+    log(f"  restore pull: {out['full']} blocks, computed for the prompt "
+        f"alone (the seeding run's stream equals the aggregated worker's "
+        f"alone), from the prefill worker, outcome restored; the stream "
+        f"equals the remote run over the prefill worker's blocks; first "
+        f"token differing from the aggregated worker's stream alone: "
+        f"{out['restored_diff']}")
+
+
+def block_copy_check(engine, label: str, smi: str, n: int = 56) -> dict:
+    """The disagg block copy at full width on a serving engine's pool: ``n``
+    blocks (an 881-token prompt's) gathered from both caches, scattered
+    into other blocks, gathered back: bit-exact. Times the gather and the
+    scatter of both caches; the bound is the blocks' bytes read once and
+    written once at HBM rate."""
+    bs = engine.args.block_size
+    src = list(range(1, n + 1))
+    dst = list(range(engine.num_blocks - n, engine.num_blocks))
+    caches = (engine.k_cache, engine.v_cache)
+
+    def gather(ids=src):
+        return [gather_blocks(c, ids, block_size=bs) for c in caches]
+
+    bundles = gather()
+
+    def scatter():
+        for c, b in zip(caches, bundles):
+            scatter_blocks(c, dst, b, block_size=bs)
+
+    scatter()
+    back = gather(dst)
+    torch.cuda.synchronize()
+    if not all(bool((b != 0).any()) for b in bundles):
+        raise AssertionError(f"{label}: the source blocks hold no KV")
+    if not all(torch.equal(a, b) for a, b in zip(back, bundles)):
+        raise AssertionError(f"{label}: block copy round trip not bit-exact")
+    nbytes = sum(b.numel() * b.element_size() for b in bundles)
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    res = {"gather_ms": time_ms(gather, 20), "scatter_ms": time_ms(scatter, 20),
+           "bound_ms": bound, "mb": nbytes / 1e6}
+    log(f"  [{smi}] block copy, {label}: {n} blocks ({res['mb']:.1f} MB, "
+        f"{[tuple(b.shape) for b in bundles]} {bundles[0].dtype}): gather "
+        f"{res['gather_ms']:.4f} ms, scatter {res['scatter_ms']:.4f} ms, "
+        f"bound {bound:.5f} ms each (bytes); round trip into other blocks "
+        f"bit-exact")
+    return res
 
 
 def _release(engine) -> None:
@@ -2859,8 +3260,13 @@ def main() -> int:
     del engine
     launches["ragged_paged_attention_int8"] = int8_phase(
         a.seed, smi, bf16_blocks, streams)
-    # the parent holds no model: the worker sizes its pool from what is free
-    worker_phase(ref, smi, phase3["stats"])
+    try:
+        # the parent holds no model: the worker sizes its pool from what is
+        # free; then two workers share the card, each with a fixed pool
+        agg = worker_phase(ref, smi, phase3["stats"])
+        disagg_phase(ref, smi, agg)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
     # the Llama engines are gone: DeepSeek-V2-Lite has the card to itself
     launches.update(mla_phase(a.seed, smi))
     log(f"total {time.perf_counter() - t_start:.1f} s")

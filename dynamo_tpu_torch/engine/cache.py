@@ -113,6 +113,25 @@ class BlockPool:
             out.append(bid)
         return out
 
+    def lookup(self, seq_hash: SequenceHash) -> Optional[int]:
+        """Block id currently holding ``seq_hash``'s KV (active or LRU-
+        cached), or None. Read-only: no incref, no LRU touch; a caller that
+        gathers asynchronously pins with acquire()/release()."""
+        if not self.enable_prefix_caching:
+            return None
+        return self._by_hash.get(seq_hash)
+
+    def acquire(self, block_ids: list[int]) -> None:
+        """Incref blocks (pin them for an asynchronous gather); pairs with
+        release(). Cached refcount-0 blocks leave the LRU."""
+        for bid in block_ids:
+            meta = self._meta.get(bid)
+            if meta is None:
+                continue
+            if meta.ref_count == 0 and meta.seq_hash is not None:
+                self._lru.pop(meta.seq_hash, None)
+            meta.ref_count += 1
+
     def register(self, block_id: int, seq_hash: SequenceHash) -> bool:
         """Mark a full block as identified by its sequence hash (→
         reusable). False if an identical block is already registered
@@ -282,3 +301,36 @@ def layer_pages(cache, lidx: int):
     if is_quant_cache(cache):
         return cache["q"][lidx], cache["s"][lidx]
     return cache[lidx], None
+
+
+# ----------------------------------------------------------- packed bundles
+#
+# The native bundle of an int8 cache (the disagg wire and the KV pulls):
+# each block's q bytes then its scale bytes, uint8 [..., bs·KV·(hd+4)],
+# byte for byte the JAX package's ``pack_kv_blocks`` (little-endian f32).
+
+
+def packed_block_width(block_size: int, KV: int, hd: int) -> int:
+    """Trailing byte width of a packed int8 bundle row."""
+    return block_size * KV * (hd + 4)
+
+
+def pack_kv_blocks(q, s):
+    """(int8 [..., bs, KV, hd], f32 [..., bs, KV]) → uint8 [..., X] with
+    X = bs·KV·(hd+4): q bytes then scale bytes, per leading index."""
+    bs, KV, hd = q.shape[-3:]
+    lead = tuple(q.shape[:-3])
+    qb = q.contiguous().view(torch.uint8).reshape(*lead, bs * KV * hd)
+    sb = s.contiguous().view(torch.uint8).reshape(*lead, bs * KV * 4)
+    return torch.cat([qb, sb], dim=-1)
+
+
+def unpack_kv_blocks(buf, block_size: int, KV: int, hd: int):
+    """Inverse of :func:`pack_kv_blocks`: uint8 [..., X] →
+    (int8 [..., bs, KV, hd], f32 [..., bs, KV])."""
+    bs = block_size
+    lead = tuple(buf.shape[:-1])
+    nq = bs * KV * hd
+    q = buf[..., :nq].contiguous().view(torch.int8).reshape(*lead, bs, KV, hd)
+    s = buf[..., nq:].contiguous().view(torch.float32).reshape(*lead, bs, KV)
+    return q, s

@@ -287,13 +287,13 @@ UNPORTED_KNOBS = {
     "pp_size": (1, "A11"),
     "use_pallas_attention": (False, "B1: the port's kernel is always on"),
     "speculative_tokens": (0, "A7"),
-    "kvbm_host_bytes": (0, "A8"),
-    "kvbm_disk_dir": (None, "A8"),
-    "kvbm_disk_bytes": (0, "A8"),
-    "preempt_swap": (False, "A8"),
-    "swap_host_bytes": (None, "A8"),
+    "kvbm_host_bytes": (0, "A8e"),
+    "kvbm_disk_dir": (None, "A8e"),
+    "kvbm_disk_bytes": (0, "A8e"),
+    "preempt_swap": (False, "A8e"),
+    "swap_host_bytes": (None, "A8e"),
     "quantization": (None, "A5"),
-    "kv_transfer_direct": (False, "A8"),
+    "kv_transfer_direct": (False, "A8d"),
 }
 
 
@@ -348,6 +348,11 @@ class EngineArgs:
     #: costs 4·vocab bytes a state); None = DYN_STRUCTURED_TABLE_MB, or 64.
     #: Constraints whose state closure does not fit use the host oracle.
     structured_table_mb: Optional[float] = None
+    #: layer-interleaved disagg transfer: a prefill worker ships the last
+    #: chunk's blocks as this many layer groups when the decode worker
+    #: advertised ``kv_layers`` (clamped to the layer count); a decode
+    #: worker advertises it when this is > 1. <= 1: whole-bundle tails
+    kv_transfer_layer_groups: int = 4
     # knobs of the JAX package not ported yet (UNPORTED_KNOBS)
     tp_size: int = 1
     dp_size: int = 1

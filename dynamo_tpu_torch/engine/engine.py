@@ -51,6 +51,15 @@ MLA), over a scratch cache of its own.
 through the ragged kernel's int8 pages, MLA through the int8 latent and
 rope pages of both MLA kernels.
 
+Disaggregated serving and KV pulls (the JAX engine's disagg support):
+``prefill_extract`` / ``prefill_extract_stream`` run a prefill only and
+hand back its first token and its blocks (whole, or as chunk frames while
+later chunks compute and layer frames of the last chunk);
+``alloc_inject``, ``scatter_chunk`` and ``generate_prefilled`` (or
+``generate_injected`` for a whole bundle) decode a prompt whose KV was
+computed elsewhere; ``export_blocks`` serves a peer's pull from the device
+prefix cache and ``attach_restored`` registers pulled blocks in it.
+
 The engine runs on the card: ``device=None`` means "cuda" and raises when
 CUDA is missing. Only an explicit ``device="cpu"`` runs on the CPU, where
 attention takes its plain PyTorch version. Every launch, copy and event of
@@ -63,6 +72,8 @@ step and the tokens' copy to the host stay in issue order.
 from __future__ import annotations
 
 import asyncio
+import collections
+import dataclasses
 import itertools
 import logging
 import math
@@ -76,7 +87,8 @@ import torch
 
 from dynamo_tpu_torch.engine import sampling
 from dynamo_tpu_torch.engine.cache import (
-    NULL_BLOCK, BlockPool, allocate_device_cache, memory_sized_num_blocks,
+    NULL_BLOCK, BlockPool, allocate_device_cache, cache_shape, is_quant_cache,
+    kv_block_bytes, memory_sized_num_blocks, packed_block_width,
 )
 from dynamo_tpu_torch.engine.config import (
     RAGGED_MAX_CHUNKS, EngineArgs, ModelConfig,
@@ -87,18 +99,26 @@ from dynamo_tpu_torch.engine.model import (
     make_embed_fn, make_multi_decode_fn, make_ragged_step_fn, torch_dtype,
 )
 from dynamo_tpu_torch.engine.scheduler import Scheduler, SeqState, StepPlan
+from dynamo_tpu_torch.ops.block_copy import (
+    blocks_digest, gather_blocks, scatter_blocks,
+)
 from dynamo_tpu_torch.protocols import (
     FinishReason, LLMEngineOutput, PreprocessedRequest,
 )
 from dynamo_tpu_torch.router.protocols import (
     ForwardPassMetrics, KvCacheEvent, KvStats, StoredBlock, WorkerStats,
 )
+from dynamo_tpu_torch.tokens import KV_HASH_SEED, TokenBlockSequence
 
 logger = logging.getLogger("dynamo_torch.engine")
 
 #: most top logprobs a row may ask for (OpenAI's limit); the top-k pass
 #: always computes this many and each row keeps its own count
 TOP_LOGPROBS = 20
+
+#: most page bytes (k and v) one disagg transfer frame carries, well under
+#: the response plane's 256 MiB frame cap (``runtime/codec.py``)
+FRAME_BYTES = 64 << 20
 
 
 def _has_penalties(s) -> bool:
@@ -254,6 +274,10 @@ class AsyncTorchEngine:
         self._embed_fn = make_embed_fn(cfg, args.block_size)
         self._embed_cache: Optional[tuple] = None
         self._embed_lock = threading.Lock()
+        #: the last prefill extractions' transfers, one record a request:
+        #: its context id and, for each frame, (kind, bytes, gather time,
+        #: bytes-ready time) on the wall clock
+        self.extract_log: collections.deque = collections.deque(maxlen=256)
 
     # ------------------------------------------------------------------ api
 
@@ -277,14 +301,16 @@ class AsyncTorchEngine:
             if out.finish_reason is not None:
                 return
 
-    async def _new_seq(self, req: PreprocessedRequest, ctx, sink
+    async def _new_seq(self, req: PreprocessedRequest, ctx, sink, **kw
                        ) -> SeqState:
         """A SeqState with its request-scoped sampling state: the guided
         cursor (compiled off the event loop: a cold constraint walks the
         vocabulary once per DFA state and packs its tables) and the key
-        seed of an unseeded request."""
+        seed of an unseeded request. Every entry path (generate, the
+        disagg prefill and decode sides) builds its sequence here; ``kw``
+        sets SeqState fields (``hold_blocks``, ``progress_cb``)."""
         seq = SeqState(request_id=f"seq-{next(self._seq_counter)}", req=req,
-                       ctx=ctx or _NullCtx(), sink=sink)
+                       ctx=ctx or _NullCtx(), sink=sink, **kw)
         if req.sampling_options.seed is None:
             # drawn once per request, so recompute preemption redraws the
             # same keys (ROADMAP C3)
@@ -559,9 +585,19 @@ class AsyncTorchEngine:
                                       bool(plan.prefill), None, samp)
 
         # commit BEFORE the tokens reach the host, as the JAX engine commits
-        # before sampling
+        # before sampling: chunk progress (and disagg block shipping, whose
+        # gathers are enqueued here behind this step and ahead of the next)
+        # never waits for the sampler
         for w in plan.prefill:
             self.scheduler.commit_computed(w.seq, w.start + w.chunk)
+            if w.seq.progress_cb is not None:
+                try:
+                    w.seq.progress_cb(w.start + w.chunk)
+                except Exception:
+                    logger.exception("prefill progress callback failed; "
+                                     "disabling chunk shipping for %s",
+                                     w.seq.request_id)
+                    w.seq.progress_cb = None
         for s in plan.decode:
             self.scheduler.commit_computed(s, len(s.tokens))
 
@@ -1070,6 +1106,516 @@ class AsyncTorchEngine:
         seq.sink.put_nowait(out)
         if reason is not None:
             seq.sink.put_nowait(None)
+
+    # ------------------------------------------------------- disagg support
+    #
+    # The port's cache tensors are written in place and never rebound: the
+    # captured graphs hold their addresses. A gather is an indexing copy
+    # enqueued on the device's stream, so it reads the cache as every step
+    # launched before it left it, and no later step can change what it
+    # copied; a scatter writes only the freshly allocated blocks it is
+    # given. Host staging goes through pinned memory and is waited for off
+    # the event loop.
+
+    async def _stage_host(self, *tensors) -> list:
+        """Host copies of device tensors (the gathers' outputs), waited for
+        in a worker thread; on the CPU the gathers are copies already."""
+        if self.device.type == "cpu":
+            return list(tensors)
+        pinned = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            pinned.append(h)
+        landed = torch.cuda.Event()
+        landed.record()
+        await asyncio.to_thread(landed.synchronize)
+        return pinned
+
+    async def stage_bundle(self, bundle) -> tuple:
+        """A received bundle's k and v on the engine's device: pinned in a
+        worker thread, then one non-blocking copy each, queued on the
+        stream ahead of the scatter that reads them."""
+        if self.device.type == "cpu":
+            return bundle.k, bundle.v
+        k, v = await asyncio.to_thread(
+            lambda: (bundle.k.pin_memory(), bundle.v.pin_memory()))
+        return (k.to(self.device, non_blocking=True),
+                v.to(self.device, non_blocking=True))
+
+    def _prefill_only(self, req: PreprocessedRequest) -> PreprocessedRequest:
+        """``req`` cut to its prefill: one token, whatever it is."""
+        sc = dataclasses.replace(req.stop_conditions, max_tokens=1,
+                                 min_tokens=1, ignore_eos=True)
+        return dataclasses.replace(req, stop_conditions=sc)
+
+    async def prefill_extract(self, req: PreprocessedRequest, ctx=None):
+        """Run the prefill only and return a PrefillResponse: the first
+        token, its logprob and the prompt's blocks as one KvBundle (token
+        -1 and no bundle when the step failed). The blocks are held past
+        the sequence's finish for the gather, then released, whatever
+        happens (cancellation included)."""
+        from dynamo_tpu_torch.disagg.protocols import KvBundle, PrefillResponse
+
+        self._ensure_loop()
+        sink: asyncio.Queue = asyncio.Queue()
+        seq = await self._new_seq(self._prefill_only(req), ctx, sink,
+                                  hold_blocks=True)
+        self.scheduler.add(seq)
+        self._wake.set()
+        token, logp = None, None
+        try:
+            while True:
+                out = await sink.get()
+                if out is None:
+                    break
+                if out.token_ids:
+                    token = out.token_ids[0]
+                    logp = (out.log_probs or [None])[0]
+                if out.finish_reason is not None:
+                    break
+            if token is None or not seq.block_table:
+                return PrefillResponse(token_id=-1, logprob=None, bundle=None)
+            bs = self.args.block_size
+            n = (seq.prompt_len + bs - 1) // bs
+            k, v = await self._stage_host(
+                gather_blocks(self.k_cache, seq.block_table[:n],
+                              block_size=bs),
+                gather_blocks(self.v_cache, seq.block_table[:n],
+                              block_size=bs))
+            return PrefillResponse(token_id=token, logprob=logp,
+                                   bundle=KvBundle(k=k, v=v,
+                                                   num_tokens=seq.prompt_len,
+                                                   block_size=bs))
+        finally:
+            self.scheduler.abort(seq)
+            self._wake.set()
+
+    async def prefill_extract_stream(self, req: PreprocessedRequest,
+                                     ctx=None):
+        """Pipelined prefill: yields KvChunkFrame wires for blocks whose KV
+        is final WHILE later chunks still compute, then (when the decode
+        worker advertised ``kv_layers``) the last chunk's blocks as
+        KvLayerFrames of a layer group each, then the final
+        PrefillResponse with what was not shipped yet.
+
+        A chunk's gather is enqueued inside the progress callback, right
+        after the chunk commits and before any later step is launched.
+        Shipping is monotonic: a preemption recompute re-fires progress
+        with smaller ends, which are skipped (their content is the same).
+        When more than four frames wait for the consumer, a chunk is not
+        shipped (it rides the next one or the tail). No frame carries more
+        than ``FRAME_BYTES`` of pages: a larger range ships as several
+        frames of consecutive blocks (the JAX engine ships one frame a
+        chunk, which the response plane's 256 MiB frame cap refuses for a
+        2048-token chunk of Llama-3-8B's bf16 KV)."""
+        from dynamo_tpu_torch.disagg.protocols import (
+            KvBundle, KvChunkFrame, KvLayerFrame, PrefillResponse,
+        )
+
+        self._ensure_loop()
+        layer_groups = self._kv_layer_groups(req.annotations)
+        bs = self.args.block_size
+        sink: asyncio.Queue = asyncio.Queue()
+        events: asyncio.Queue = asyncio.Queue()
+        state = {"shipped": 0}
+        rec = {"id": getattr(ctx, "id", None), "prompt": len(req.token_ids),
+               "frames": []}
+
+        L = cache_shape(self.k_cache)[0]
+        per_frame = self._frame_blocks(L)
+
+        def gather(lo: int, hi: int) -> tuple:
+            ids = seq.block_table[lo:hi]
+            return (gather_blocks(self.k_cache, ids, block_size=bs),
+                    gather_blocks(self.v_cache, ids, block_size=bs))
+
+        def on_progress(end: int) -> None:
+            if layer_groups is not None and end >= seq.prompt_len:
+                return  # the final commit: the last chunk is the tail
+            full = end // bs
+            while state["shipped"] < full and events.qsize() < 4:
+                lo = state["shipped"]
+                hi = min(full, lo + per_frame)
+                t0 = time.time()
+                events.put_nowait(("chunk", (lo, *gather(lo, hi), t0)))
+                state["shipped"] = hi
+
+        seq = await self._new_seq(self._prefill_only(req), ctx, sink,
+                                  hold_blocks=True, progress_cb=on_progress)
+
+        async def drain_sink():
+            while True:
+                out = await sink.get()
+                events.put_nowait(("out", out))
+                if out is None or out.finish_reason is not None:
+                    return
+
+        drainer = asyncio.get_running_loop().create_task(drain_sink())
+        self.scheduler.add(seq)
+        self._wake.set()
+        token, logp = None, None
+
+        def frame(kind, bundle, t0, wrap):
+            wire = wrap(bundle).to_wire()
+            rec["frames"].append((kind, bundle.nbytes, t0, time.time()))
+            return wire
+
+        try:
+            done = False
+            while not done:
+                kind, val = await events.get()
+                if kind == "chunk":
+                    start, kb, vb, t0 = val
+                    k, v = await self._stage_host(kb, vb)
+                    yield frame("chunk", KvBundle(
+                        k=k, v=v, num_tokens=(start + k.shape[1]) * bs,
+                        block_size=bs, start_block=start), t0, KvChunkFrame)
+                elif val is None:
+                    done = True
+                else:
+                    if val.token_ids:
+                        token = val.token_ids[0]
+                        logp = (val.log_probs or [None])[0]
+                    if val.finish_reason is not None:
+                        done = True
+            if token is None or not seq.block_table:
+                yield PrefillResponse(token_id=-1, logprob=None,
+                                      bundle=None).to_wire()
+                return
+            total = (seq.prompt_len + bs - 1) // bs
+            bundle = None
+            if layer_groups:
+                # a gather a frame's blocks, then a layer group at a time:
+                # the wire and scatter of group g overlap the staging of
+                # g + 1
+                step = self._frame_blocks(max(g1 - g0
+                                              for g0, g1 in layer_groups))
+                for lo in range(state["shipped"], total, step):
+                    t0 = time.time()
+                    kb, vb = gather(lo, min(total, lo + step))
+                    for g0, g1 in layer_groups:
+                        k, v = await self._stage_host(kb[g0:g1], vb[g0:g1])
+                        yield frame("layer", KvBundle(
+                            k=k, v=v, num_tokens=seq.prompt_len,
+                            block_size=bs, start_block=lo, start_layer=g0,
+                            total_layers=L), t0, KvLayerFrame)
+                        t0 = time.time()
+            else:
+                # chunk frames, then the last frame's worth in the response
+                for lo in range(state["shipped"], total, per_frame):
+                    hi = min(total, lo + per_frame)
+                    t0 = time.time()
+                    k, v = await self._stage_host(*gather(lo, hi))
+                    b = KvBundle(k=k, v=v, num_tokens=min(hi * bs,
+                                                          seq.prompt_len),
+                                 block_size=bs, start_block=lo)
+                    if hi < total:
+                        yield frame("chunk", b, t0, KvChunkFrame)
+                    else:
+                        bundle = b
+            # what the decode worker's placed blocks must hold
+            rec["digest"] = self.blocks_digest(seq.block_table[:total])
+            wire = PrefillResponse(token_id=token, logprob=logp,
+                                   bundle=bundle).to_wire()
+            if bundle is not None:
+                rec["frames"].append(("tail", bundle.nbytes, t0, time.time()))
+            yield wire
+        finally:
+            drainer.cancel()
+            self.scheduler.abort(seq)
+            self._wake.set()
+            self.extract_log.append(rec)
+
+    def blocks_digest(self, ids) -> torch.Tensor:
+        """``ops.block_copy.blocks_digest`` of blocks ``ids`` of both
+        caches, enqueued behind every step launched so far."""
+        return blocks_digest((self.k_cache, self.v_cache), ids,
+                             block_size=self.args.block_size)
+
+    def extract_records(self) -> list:
+        """``extract_log`` with each digest read back (the device waits)."""
+        return [{**r, "digest": int(r["digest"])} if "digest" in r else r
+                for r in self.extract_log]
+
+    def _frame_blocks(self, layers: int) -> int:
+        """Blocks one transfer frame of ``layers`` layers carries while its
+        pages (k and v) stay within ``FRAME_BYTES``."""
+        kv_dtype = "int8" if is_quant_cache(self.k_cache) else None
+        per = (kv_block_bytes(self.cfg, self.args.block_size, self.dtype,
+                              kv_dtype) * layers // self.cfg.num_layers)
+        return max(1, FRAME_BYTES // max(1, per))
+
+    def _kv_layer_groups(self, annotations) -> Optional[list]:
+        """Contiguous (start, end) layer ranges of the layer-interleaved
+        tail, or None for a whole-bundle tail: only when the decode peer
+        advertised ``kv_layers``, this engine splits
+        (``kv_transfer_layer_groups`` > 1) and the model is deep enough."""
+        from dynamo_tpu_torch.disagg.handlers import KV_LAYERS_ANNOTATION
+
+        g = self.args.kv_transfer_layer_groups or 0
+        if g <= 1 or KV_LAYERS_ANNOTATION not in (annotations or []):
+            return None
+        L = cache_shape(self.k_cache)[0]
+        g = min(g, L)
+        if g <= 1:
+            return None
+        base, rem = divmod(L, g)
+        out, s = [], 0
+        for i in range(g):
+            e = s + base + (1 if i < rem else 0)
+            out.append((s, e))
+            s = e
+        return out
+
+    # ------------------------------------------------- decode-side injection
+
+    def alloc_inject(self, n_blocks: int) -> Optional[list[int]]:
+        """Blocks for externally computed KV, within the admission limits
+        (injection bypasses the waiting queue). None = cannot place."""
+        free_frac = self.pool.num_free_blocks / max(1, self.pool.num_blocks)
+        if (len(self.scheduler.running) >= self.args.max_num_seqs
+                or free_frac < self.args.watermark):
+            return None
+        return self.pool.allocate(n_blocks)
+
+    def release_inject(self, ids) -> None:
+        self.pool.release(ids)
+
+    def check_bundle_dims(self, bundle) -> bool:
+        """True when ``bundle`` fits this cache: the block size, the k
+        pages' geometry (a packed int8 bundle's byte width) and, for a
+        layer slice, the depth and the slice's range. An MLA bundle is
+        checked on its latent (k) pages, as the JAX engine checks it."""
+        L, _slots, KV, hd = cache_shape(self.k_cache)
+        bs = self.args.block_size
+        if bundle.block_size != bs:
+            return False
+        k = bundle.k
+        tl = bundle.total_layers
+        if tl is None:
+            want_layers = L
+        else:
+            sl = bundle.start_layer or 0
+            if tl != L or sl < 0 or sl + k.shape[0] > L:
+                return False
+            want_layers = k.shape[0]
+        if k.dim() == 3:  # packed int8 bundle [nL, n, X]
+            return (k.shape[0] == want_layers and k.dtype == torch.uint8
+                    and k.shape[2] == packed_block_width(bs, KV, hd))
+        return (k.dim() == 5 and k.shape[0] == want_layers
+                and tuple(k.shape[2:]) == (bs, KV, hd))
+
+    def scatter_chunk(self, ids, k, v, start_layer=None) -> None:
+        """Write received pages (device tensors: :meth:`stage_bundle`) into
+        blocks ``ids`` of the caches, in place; ``start_layer`` set means
+        k and v are a layer slice from that layer on."""
+        bs = self.args.block_size
+        scatter_blocks(self.k_cache, ids, k, block_size=bs,
+                       start_layer=start_layer)
+        scatter_blocks(self.v_cache, ids, v, block_size=bs,
+                       start_layer=start_layer)
+
+    async def generate_prefilled(self, req: PreprocessedRequest,
+                                 token_id: int, logprob, ids, ctx=None
+                                 ) -> AsyncIterator[LLMEngineOutput]:
+        """Decode a request whose prompt KV is already scattered into
+        ``ids`` (their ownership passes to the sequence). The prefill
+        worker's token is the stream's first output: the guided cursor
+        (and so the device FSM state the next step reads) advances past
+        it, the draws resume at the next position, and the penalty
+        history counts it as a generated token."""
+        self._ensure_loop()
+        sink: asyncio.Queue = asyncio.Queue()
+        seq = await self._new_seq(req, ctx, sink)
+        if seq.guided_state is not None:
+            # a new DFA state on the host oracle walks the vocabulary once
+            await asyncio.to_thread(seq.guided_state.advance, token_id)
+        self.scheduler.add_prefilled(seq, ids)
+        first = LLMEngineOutput(token_ids=[token_id],
+                                log_probs=[logprob]
+                                if logprob is not None else None)
+        self.scheduler.append_token(seq, token_id)
+        reason = self.scheduler.check_finish(seq, token_id)
+        if reason is not None:
+            first.finish_reason = reason
+            self.scheduler.finish(seq, reason)
+            yield first
+            return
+        yield first
+        self._wake.set()
+        while True:
+            out = await sink.get()
+            if out is None:
+                return
+            yield out
+            if out.finish_reason is not None:
+                return
+
+    async def generate_injected(self, req: PreprocessedRequest, prefill,
+                                ctx=None) -> AsyncIterator[LLMEngineOutput]:
+        """Decode a request whose prompt KV arrives as one whole KvBundle
+        (the unpipelined path). A bundle that cannot be placed (token -1,
+        wrong geometry, no blocks, a failed scatter) is recomputed by a
+        local generate."""
+        bundle = prefill.bundle
+        ok = (bundle is not None and prefill.token_id >= 0
+              and bundle.start_block == 0 and self.check_bundle_dims(bundle))
+        ids = self.alloc_inject(bundle.num_blocks) if ok else None
+        if ids is not None:
+            try:
+                self.scatter_chunk(ids, *await self.stage_bundle(bundle))
+            except Exception:
+                logger.exception("KV bundle scatter failed; local prefill")
+                self.pool.release(ids)
+                ids = None
+        if ids is None:
+            if bundle is not None and not ok:
+                logger.warning("KV bundle %s does not fit cache %s; local "
+                               "prefill", tuple(bundle.k.shape),
+                               cache_shape(self.k_cache))
+            async for out in self.generate(req, ctx):
+                yield out
+            return
+        async for out in self.generate_prefilled(req, prefill.token_id,
+                                                 prefill.logprob, ids, ctx):
+            yield out
+
+    # ------------------------------------------------- KV-restore migration
+    #
+    # A migrated request's recoverable prefix is pulled from peers and
+    # attached HERE through the prefix cache (registered, announced), so the
+    # following generate() prefix-matches it and recomputes only the tail.
+    # The attach charges nothing to QoS: prefix hits never do. The port
+    # serves and attaches from the device prefix cache only (the KVBM host
+    # and disk tiers are ROADMAP A8e).
+
+    def restore_probe(self, req: PreprocessedRequest):
+        """The hash chain over the request's matchable full blocks, which
+        restore pulls and attaches against; None when restore cannot apply
+        (prefix caching off, or nothing matchable)."""
+        if not self.args.enable_prefix_caching:
+            return None
+        bs = self.args.block_size
+        # never the whole prompt: one token is computed to give logits
+        matchable = (len(req.token_ids) - 1) // bs
+        if matchable <= 0:
+            return None
+        return TokenBlockSequence.from_tokens(
+            list(req.token_ids[: matchable * bs]), bs, KV_HASH_SEED)
+
+    def resident_prefix_blocks(self, probe) -> int:
+        """Leading blocks of ``probe`` held here without a pull: in the
+        device prefix cache (the port has no host tier yet)."""
+        n = 0
+        for h in probe.sequence_hashes():
+            if self.pool.lookup(h) is None:
+                break
+            n += 1
+        return n
+
+    def attach_restored(self, probe, start: int, blocks: list) -> int:
+        """Scatter pulled blocks [(seq_hash, k, v), ...] into fresh blocks
+        and register them, extending the restored prefix from block
+        ``start``. Validation stops at the first torn entry (a hash out of
+        order, a shape that does not fit); a torn run is cut there, never
+        half-scattered. Returns the blocks attached; 0 leaks nothing."""
+        if not blocks:
+            return 0
+        bs = self.args.block_size
+        hashes = probe.sequence_hashes()
+
+        def per_block(cache):
+            L, _s, H, d = cache_shape(cache)
+            if is_quant_cache(cache):
+                return (L, packed_block_width(bs, H, d)), torch.uint8
+            return (L, bs, H, d), None
+
+        (want_k, kdt), (want_v, vdt) = (per_block(self.k_cache),
+                                        per_block(self.v_cache))
+        ks, vs = [], []
+        for i, (h, k, v) in enumerate(blocks):
+            pos = start + i
+            if pos >= len(hashes) or h != hashes[pos]:
+                logger.warning("restore bundle torn at block %d (hash "
+                               "mismatch); keeping %d blocks", pos, len(ks))
+                break
+            if (tuple(k.shape) != want_k or tuple(v.shape) != want_v
+                    or (kdt is not None and k.dtype != kdt)
+                    or (vdt is not None and v.dtype != vdt)):
+                logger.warning("restore bundle block %d shape %s does not "
+                               "fit cache %s; truncating", pos,
+                               tuple(k.shape), want_k)
+                break
+            ks.append(k)
+            vs.append(v)
+        if not ks:
+            return 0
+        ids = self._scatter_register(probe, start, ks, vs)
+        if ids is None:
+            return 0
+        # park in the LRU (refcount 0): generate()'s prefix match takes
+        # them moments later; a failed restore leaks nothing
+        self.pool.release(ids)
+        return len(ks)
+
+    def _scatter_register(self, probe, start: int, ks: list, vs: list):
+        """Attach externally sourced blocks: allocate, scatter the per-block
+        k and v stacks, register each block's hash, announce ONE chained
+        stored event. Returns the ids (refcount 1) or None, leaking
+        nothing."""
+        bs = self.args.block_size
+        ids = self.pool.allocate(len(ks))
+        if ids is None:
+            return None
+        try:
+            dev = self.device
+            scatter_blocks(self.k_cache, ids,
+                           torch.stack(ks, 1).to(dev), block_size=bs)
+            scatter_blocks(self.v_cache, ids,
+                           torch.stack(vs, 1).to(dev), block_size=bs)
+        except Exception:
+            self.pool.release(ids)
+            logger.exception("block attach scatter failed")
+            return None
+        stored = []
+        parent = (probe.blocks[start].parent_sequence_hash
+                  if start < len(probe.blocks) else None)
+        for i, bid in enumerate(ids):
+            blk = probe.blocks[start + i]
+            if self.pool.register(bid, blk.sequence_hash):
+                stored.append(StoredBlock(block_hash=blk.sequence_hash,
+                                          tokens_hash=blk.block_hash))
+        if stored and self.event_cb:
+            self.event_cb(KvCacheEvent.stored(next(self._event_id), parent,
+                                              stored))
+        return ids
+
+    async def export_blocks(self, hashes: list[int],
+                            max_blocks: Optional[int] = None):
+        """Serve a peer's pull: yield (seq_hash, k, v) host tensors for the
+        longest LEADING run of ``hashes`` in the device prefix cache (at
+        most ``max_blocks``), pinned across the asynchronous gather."""
+        bs = self.args.block_size
+        budget = max_blocks if max_blocks is not None else len(hashes)
+        run: list[tuple[int, int]] = []
+        for h in hashes[:max(0, budget)]:
+            bid = self.pool.lookup(h)
+            if bid is None:
+                break
+            run.append((h, bid))
+        if not run:
+            return
+        ids = [bid for _, bid in run]
+        self.pool.acquire(ids)
+        try:
+            kb, vb = await self._stage_host(
+                gather_blocks(self.k_cache, ids, block_size=bs),
+                gather_blocks(self.v_cache, ids, block_size=bs))
+        finally:
+            self.pool.release(ids)
+        for i, (h, _bid) in enumerate(run):
+            yield h, kb[:, i], vb[:, i]
 
     # ------------------------------------------------------------- events
 

@@ -1,24 +1,39 @@
 """``python -m dynamo_tpu_torch.engine.main`` — run a torch engine worker.
 
-The port of ``dynamo_tpu/engine/main.py`` in the aggregated role: it builds
-the engine (from a checkpoint directory, or a preset with random weights),
-joins the control plane, serves ``generate``, ``embed`` and
-``clear_kv_blocks``, publishes KV events and load metrics, registers the
-model card, and on SIGTERM or SIGINT drains, revokes its lease and leaves
-discovery. The JAX package's frontend and router find it as they find a
-JAX worker.
+The port of ``dynamo_tpu/engine/main.py``: it builds the engine (from a
+checkpoint directory, or a preset with random weights), joins the control
+plane, serves its role's endpoints, publishes KV events and load metrics,
+and on SIGTERM or SIGINT drains, revokes its lease and leaves discovery.
+The JAX package's frontend and router find it as they find a JAX worker.
 
-It takes the JAX worker's command line. The flags of what the port does
-not serve yet (the decode and prefill roles, every ``EngineArgs`` knob in
-``UNPORTED_KNOBS``, KVBM, multimodal encode, multi-host, profiling) are
-refused with the ROADMAP id that ports them. The guided-decoding alphabet
-comes from the tokenizer's ``tokenizer.json`` (``llm/tokenizer.py``). One flag is the port's own:
+Roles (``--role``):
+
+- ``aggregated`` (default): ``generate`` prefills and decodes every
+  request; the model card is registered.
+- ``decode``: as aggregated, but a prompt longer than
+  ``--max-local-prefill-length`` (live: ``DisaggConfig.KEY`` on the
+  control plane) is prefilled by the ``--prefill-component`` fleet, through
+  the prefill queue unless ``--no-prefill-queue``, and its KV scattered
+  here.
+- ``prefill``: ``generate`` of the prefill component runs prefills and
+  streams their KV (chunk frames, then ``--kv-layer-groups`` layer frames
+  of the last chunk); it pops the prefill queue and registers no model and
+  no ``embed``.
+
+Every role serves ``kv_pull`` (peers' restore and onboard pulls from the
+device prefix cache) and ``clear_kv_blocks``. It takes the JAX worker's
+command line. The flags of what the port does not serve yet (every
+``EngineArgs`` knob in ``UNPORTED_KNOBS``, the KVBM tiers, multimodal
+encode, multi-host, profiling) are refused with the ROADMAP id that ports
+them. The guided-decoding alphabet comes from the tokenizer's
+``tokenizer.json`` (``llm/tokenizer.py``). One flag is the port's own:
 ``--device`` (default "cuda"; "cpu" only when asked for). The model dtype
 is the checkpoint config's, as the JAX worker reads it.
 
 The worker prints ``WORKER_READY`` once registered, and at exit a line
-``WORKER_EXIT {json}`` with its engine steps and the launches of each
-kernel wrapper in this process.
+``WORKER_EXIT {json}`` with its engine steps, the launches of each kernel
+wrapper in this process, the blocks still in use, and its role's transfer
+counts and records.
 """
 
 from __future__ import annotations
@@ -31,7 +46,14 @@ import os
 import signal
 from typing import Optional
 
-from dynamo_tpu_torch.disagg.handlers import DecodeWorkerHandler
+from dynamo_tpu_torch.disagg.handlers import (
+    DecodeWorkerHandler, DisaggConfigWatcher, KvPullHandler,
+    PrefillWorkerHandler,
+)
+from dynamo_tpu_torch.disagg.protocols import DisaggConfig
+from dynamo_tpu_torch.disagg.queue import (
+    PrefillQueueClient, PrefillQueueWorker, engine_capacity_gate,
+)
 from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
 from dynamo_tpu_torch.llm.model_card import (
     ModelDeploymentCard, register_llm, resolve_eos_token_ids,
@@ -51,10 +73,9 @@ REFUSED_FLAGS = {
     "dp_rank": (None, "A11"),
     "num_ranks": (1, "A11"),
     "speculative_draft_layers": (0, "A7"),
-    "kv_layer_groups": (4, "A8"),
-    "kvbm_g4_gb": (0.0, "A8"),
-    "kvbm_distributed": (False, "A8"),
-    "kvbm_leader_workers": (0, "A8"),
+    "kvbm_g4_gb": (0.0, "A8e"),
+    "kvbm_distributed": (False, "A8e"),
+    "kvbm_leader_workers": (0, "A8e"),
     "profile_dir": (None, "A12"),
     "mm_encode": (False, "A9"),
     "mm_vision_model": (None, "A9"),
@@ -81,9 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--component", default=None, help="default: backend")
     ap.add_argument("--role", default="aggregated",
                     choices=["aggregated", "decode", "prefill"],
-                    help="only aggregated is ported (decode and prefill: "
-                         "ROADMAP A8)")
-    # the decode role's knobs: accepted, unused in the aggregated role
+                    help="aggregated serving, or one side of disaggregated "
+                         "prefill/decode serving")
+    # the decode role's knobs
     ap.add_argument("--prefill-component", default="prefill")
     ap.add_argument("--prefill-queue", action="store_true", default=True)
     ap.add_argument("--no-prefill-queue", dest="prefill_queue",
@@ -134,7 +155,9 @@ def build_parser() -> argparse.ArgumentParser:
     # off is accepted, and it is off
     ap.add_argument("--no-preempt-swap", dest="preempt_swap",
                     action="store_false", default=False)
-    ap.add_argument("--kv-layer-groups", type=int, default=4)
+    ap.add_argument("--kv-layer-groups", type=int, default=4,
+                    help="layer groups the last prefill chunk's KV ships "
+                         "in (<= 1: one bundle)")
     ap.add_argument("--no-prefix-caching", action="store_true")
     ap.add_argument("--tool-call-parser", default=None,
                     choices=["hermes", "llama3_json", "mistral", "phi4",
@@ -175,9 +198,6 @@ def configure(cli) -> tuple[ModelConfig, EngineArgs, list[int], str]:
     """Everything the command line decides, checked before any heavy work:
     (model config, engine args, EOS ids, tokenizer reference). Raises
     SystemExit naming what is wrong or not ported."""
-    if cli.role != "aggregated":
-        raise SystemExit(f"--role {cli.role}: the torch worker serves the "
-                         "aggregated role only (ROADMAP A8)")
     for dest, (off, item) in REFUSED_FLAGS.items():
         if getattr(cli, dest) != off:
             flag = "--" + dest.replace("_", "-")
@@ -245,7 +265,8 @@ def configure(cli) -> tuple[ModelConfig, EngineArgs, list[int], str]:
             pipeline_decode=cli.pipeline_decode,
             structured_device=cli.structured_device,
             structured_table_mb=cli.structured_table_mb,
-            warmup_buckets=cli.warmup_buckets)
+            warmup_buckets=cli.warmup_buckets,
+            kv_transfer_layer_groups=cli.kv_layer_groups)
     except ValueError as e:
         raise SystemExit(str(e))
     return cfg, args, eos, tokenizer_ref
@@ -305,12 +326,14 @@ def kernel_launches() -> dict:
 async def serve(cli, engine, args: EngineArgs, eos: list[int],
                 tokenizer_ref: str, stop: asyncio.Event) -> dict:
     """Join the plane (after ``engine.warmup()`` when ``--warmup-buckets``
-    is given: no request can race the dummy steps), serve until ``stop``
-    is set, then drain and leave. Returns the exit report (engine steps,
-    kernel launches, captures)."""
+    is given: no request can race the dummy steps), serve the role's
+    endpoints until ``stop`` is set, then drain and leave. Returns the
+    exit report (engine steps, kernel launches, captures, blocks in use,
+    the role's transfer counts)."""
     if args.warmup_buckets:
         await engine.warmup(seq_lens=warmup_seq_lens(cli))
     runtime = await DistributedRuntime.create()
+    handles, stoppers = [], []
     try:
         lease = await runtime.primary_lease()
         kv_pub = KvEventPublisher(runtime.plane, worker_id=lease,
@@ -320,48 +343,100 @@ async def serve(cli, engine, args: EngineArgs, eos: list[int],
         engine.metrics_cb = WorkerMetricsPublisher(
             runtime.plane, worker_id=lease).publish_sync
 
-        component = cli.component or "backend"
+        prefill = cli.role == "prefill"
+        component = cli.component or ("prefill" if prefill else "backend")
         ns = runtime.namespace(cli.namespace)
-        ep = ns.component(component).endpoint("generate")
-        handle = await ep.serve_endpoint(DecodeWorkerHandler(engine).generate,
-                                         lease_id=lease)
-        embed_handle = await ns.component(component).endpoint(
-            "embed").serve_endpoint(engine.embed_handler, lease_id=lease)
+        comp = ns.component(component)
+        ep = comp.endpoint("generate")
+        decode = None
+        if prefill:
+            serve_fn = PrefillWorkerHandler(engine).generate
+        else:
+            prefill_client = prefill_queue = None
+            # restore pull sources: peers of this component, and in a
+            # disagg deployment the prefill fleet (it still holds the
+            # prompts it prefilled)
+            pull_clients = [await comp.endpoint("kv_pull").client().start()]
+            dconf = DisaggConfig(
+                max_local_prefill_length=cli.max_local_prefill_length)
+            if cli.role == "decode":
+                pcomp = ns.component(cli.prefill_component)
+                prefill_client = await pcomp.endpoint(
+                    "generate").client().start()
+                pull_clients.append(
+                    await pcomp.endpoint("kv_pull").client().start())
+                if cli.prefill_queue:
+                    prefill_queue = PrefillQueueClient(
+                        runtime.plane, metrics=runtime.metrics)
+                watcher = await DisaggConfigWatcher(runtime.plane,
+                                                    dconf).start()
+                stoppers.append(watcher.stop)
+            stoppers += [c.stop for c in pull_clients]
+            if prefill_client is not None:
+                stoppers.append(prefill_client.stop)
+            decode = DecodeWorkerHandler(
+                engine, prefill_client, dconf, prefill_queue=prefill_queue,
+                metrics=runtime.metrics, pull_clients=pull_clients,
+                plane=runtime.plane)
+            decode.instance_id = lease
+            serve_fn = decode.generate
+        handle = await ep.serve_endpoint(serve_fn, lease_id=lease)
+        puller = KvPullHandler(engine, metrics=runtime.metrics)
+        handles.append(await comp.endpoint("kv_pull").serve_endpoint(
+            puller.generate, lease_id=lease))
+        if not prefill:  # embeddings ride the decode/aggregated fleet
+            handles.append(await comp.endpoint("embed").serve_endpoint(
+                engine.embed_handler, lease_id=lease))
 
         async def clear_kv_handler(request, ctx):
             """Admin flush: the device prefix cache."""
             engine.pool.clear()
             yield {"ok": True, "message": "KV cache cleared"}
 
-        clear_handle = await ns.component(component).endpoint(
-            "clear_kv_blocks").serve_endpoint(clear_kv_handler,
-                                              lease_id=lease)
-        card = ModelDeploymentCard(
-            display_name=cli.model, kv_cache_block_size=args.block_size,
-            eos_token_ids=eos, tokenizer_ref=tokenizer_ref)
-        card.runtime_config.total_kv_blocks = engine.num_blocks
-        card.runtime_config.max_num_seqs = args.max_num_seqs
-        card.runtime_config.max_num_batched_tokens = \
-            args.max_num_batched_tokens
-        if cli.migration_limit is not None:
-            card.migration_limit = cli.migration_limit
-        card.runtime_config.tool_call_parser = cli.tool_call_parser
-        card.runtime_config.reasoning_parser = cli.reasoning_parser
-        await register_llm(runtime, ep, card, lease_id=lease)
+        handles.append(await comp.endpoint("clear_kv_blocks").serve_endpoint(
+            clear_kv_handler, lease_id=lease))
+        if prefill and cli.prefill_queue:
+            queue_worker = await PrefillQueueWorker(
+                runtime.plane, instance_id=lease,
+                capacity_gate=engine_capacity_gate(engine),
+                metrics=runtime.metrics).start()
+            stoppers.insert(0, queue_worker.stop)
+        if not prefill:  # the prefill fleet is internal, not a model server
+            card = ModelDeploymentCard(
+                display_name=cli.model, kv_cache_block_size=args.block_size,
+                eos_token_ids=eos, tokenizer_ref=tokenizer_ref)
+            card.runtime_config.total_kv_blocks = engine.num_blocks
+            card.runtime_config.max_num_seqs = args.max_num_seqs
+            card.runtime_config.max_num_batched_tokens = \
+                args.max_num_batched_tokens
+            if cli.migration_limit is not None:
+                card.migration_limit = cli.migration_limit
+            card.runtime_config.tool_call_parser = cli.tool_call_parser
+            card.runtime_config.reasoning_parser = cli.reasoning_parser
+            await register_llm(runtime, ep, card, lease_id=lease)
 
         print("WORKER_READY", flush=True)
         await stop.wait()
-        await embed_handle.stop(graceful=False)
-        await clear_handle.stop(graceful=False)
+        for fn in stoppers:
+            await fn()
+        for h in handles:
+            await h.stop(graceful=False)
         await handle.stop(graceful=True, timeout=runtime.config.drain_timeout)
         await kv_pub.stop()
+        active = engine.pool.num_active_blocks
         await engine.close()
     finally:
         await runtime.shutdown()
-    return {"steps": engine.steps, "pipelined_steps": engine.pipelined_steps,
-            "forward_steps": engine.forward_steps,
-            "launches": kernel_launches(),
-            "compile_events": engine.compile_events}
+    report = {"steps": engine.steps, "pipelined_steps": engine.pipelined_steps,
+              "forward_steps": engine.forward_steps,
+              "launches": kernel_launches(),
+              "compile_events": engine.compile_events,
+              "active_blocks": active, "served_pulls": puller.served}
+    if decode is not None:
+        report["disagg"] = decode.report()
+    if prefill:
+        report["extract"] = engine.extract_records()
+    return report
 
 
 async def amain(argv=None) -> None:

@@ -3,9 +3,12 @@
 The port's copy of ``dynamo_tpu/engine/scheduler.py``. Pure host logic: it
 must make the same plans as the JAX package's scheduler, or the two
 engines' streams diverge. The parts the port does not serve yet are left
-out: preempt-to-swap and KVBM onboarding (ROADMAP A8) and disagg attach.
-Preemption is therefore always release-and-recompute, which is what the
-JAX scheduler does when it has no swap budget.
+out: preempt-to-swap and KVBM onboarding (ROADMAP A8e). Preemption is
+therefore always release-and-recompute, which is what the JAX scheduler
+does when it has no swap budget. Disaggregated serving is in: a prefill
+sequence can hold its blocks past its finish (``hold_blocks``) and report
+each committed chunk (``progress_cb``), and a decode engine admits a
+sequence whose prompt KV was computed elsewhere (``add_prefilled``).
 
 - A sequence's lifecycle: waiting → running (prefill chunks → decode
   steps) → finished.
@@ -79,6 +82,15 @@ class SeqState:
     priority: str = "standard"
     qos_enqueue_t: float = 0.0
     qos_arrival: Optional[int] = None
+    #: disagg: keep the KV blocks past finish (the owner gathers them,
+    #: then releases them)
+    hold_blocks: bool = False
+    #: disagg pipelining: called with num_computed after each prefill
+    #: chunk commits, so the owner ships finished blocks while later
+    #: chunks run
+    progress_cb: Optional[Callable] = None
+    #: the owner vanished (``Scheduler.abort``): reaped at the next plan
+    aborted: bool = False
 
     @property
     def remaining(self) -> int:
@@ -231,13 +243,16 @@ class Scheduler:
 
     # -- post-step bookkeeping ----------------------------------------------
 
-    def commit_computed(self, seq: SeqState, new_num_computed: int) -> None:
+    def commit_computed(self, seq: SeqState, new_num_computed: int,
+                        charge: bool = True) -> None:
         """Advance num_computed; hash/register/event newly-filled blocks.
         Stored events batch per request: chunks of a long prompt publish
-        as one chained event when the prompt completes."""
+        as one chained event when the prompt completes. ``charge=False``
+        attaches KV computed (and charged) elsewhere."""
         old = seq.num_computed
         seq.num_computed = new_num_computed
-        self.qos.charge(seq.tenant, seq.priority, new_num_computed - old)
+        if charge:
+            self.qos.charge(seq.tenant, seq.priority, new_num_computed - old)
         seq.hashes.extend(seq.tokens[len(seq.hashes): new_num_computed])
         bs = self.args.block_size
         full = new_num_computed // bs
@@ -319,14 +334,45 @@ class Scheduler:
         self._flush_stored(seq)
         if seq in self.running:
             self.running.remove(seq)
+        if not seq.hold_blocks:
+            self.pool.release(seq.block_table)
+            seq.block_table = []
+
+    def release_held(self, seq: SeqState) -> None:
+        """Free the blocks of a finished hold_blocks sequence."""
         self.pool.release(seq.block_table)
         seq.block_table = []
+
+    def add_prefilled(self, seq: SeqState, block_table: list[int]) -> None:
+        """Admit a sequence whose prompt KV was computed elsewhere and is
+        already scattered into ``block_table``: its prompt blocks are
+        hashed, registered and announced as a local prefill's would be,
+        and its draws resume at the position after the prompt."""
+        seq.tokens = list(seq.req.token_ids)
+        self._stamp_qos(seq)
+        seq.prompt_len = len(seq.tokens)
+        seq.step_idx = seq.prompt_len  # position-anchored PRNG (see add())
+        seq.hashes = self._new_hashes()
+        seq.block_table = list(block_table)
+        self.running.append(seq)
+        # charge=False: the prefill worker computed (and charged) the KV
+        self.commit_computed(seq, seq.prompt_len, charge=False)
+
+    def abort(self, seq: SeqState) -> None:
+        """The owner vanished (a cancelled prefill_extract): the sequence's
+        blocks return to the pool whatever state it is in."""
+        if seq.finished is not None:
+            if seq.block_table:
+                self.release_held(seq)
+            return
+        seq.hold_blocks = False  # the eventual finish() releases
+        seq.aborted = True
 
     # -- internals -----------------------------------------------------------
 
     def _reap_cancelled(self) -> None:
         def dead(s):
-            return getattr(s.ctx, "cancelled", False)
+            return s.aborted or getattr(s.ctx, "cancelled", False)
 
         def expired(s):
             return getattr(s.ctx, "expired", False)

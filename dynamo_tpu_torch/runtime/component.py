@@ -269,6 +269,14 @@ class Endpoint:
         pod = os.environ.get("DYN_POD_NAME")
         if pod and "pod" not in meta:
             meta["pod"] = pod
+        # locality labels, read by a decode worker that picks a near
+        # prefill instance (router/topology.py); none set, none published
+        if "topo" not in meta:
+            from dynamo_tpu_torch.router.topology import TopologyLabels
+
+            topo = TopologyLabels.from_env()
+            if topo:
+                meta["topo"] = topo.to_metadata()
         inst = Instance(ns, comp, ep, lease, metadata=meta)
         value = packb(inst.to_wire())
         key = instance_key(ns, comp, ep, lease)

@@ -213,6 +213,12 @@ class ResponseStreamServer:
                         return
             except (asyncio.IncompleteReadError, ConnectionError):
                 _put_sentinel(q, {"t": "err", "msg": STREAM_ERR_MSG})
+            except Exception:
+                # a frame the codec refuses (over MAX_FRAME, undecodable):
+                # the stream ends in an error instead of leaving its
+                # consumer waiting forever
+                logger.exception("response stream %s failed", stream_id)
+                _put_sentinel(q, {"t": "err", "msg": STREAM_ERR_MSG})
             finally:
                 cancel_task.cancel()
         except Exception:

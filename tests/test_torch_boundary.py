@@ -3,9 +3,10 @@
 - No module of ``dynamo_tpu_torch`` and nothing in ``chip_smoke.py``
   imports ``jax`` (or ``jaxlib``, ...) or the ``dynamo_tpu`` package: the
   port keeps its own copies, and runs where JAX is not installed. Nor do
-  they import ``msgpack``, ``safetensors`` or ``aiohttp``, and the worker
-  entry point imports in an interpreter where those, ``jinja2``,
-  ``tokenizers`` and ``transformers`` cannot be imported.
+  they import ``msgpack``, ``safetensors``, ``aiohttp`` or ``ml_dtypes``
+  (the disagg wire carries bf16 without it), and the worker entry point
+  (every role's handlers with it) imports in an interpreter where those,
+  ``jinja2``, ``tokenizers`` and ``transformers`` cannot be imported.
 - The port's pure-Python XXH3-64 gives the JAX package's (xxhash) block and
   sequence hashes bit for bit, the KV identity a mixed fleet shares.
 """
@@ -57,7 +58,8 @@ def test_no_wire_package_imports(path):
     """The port keeps its own msgpack and safetensors reader, and serves no
     HTTP: the card's machine need not have these packages."""
     bad = sorted(m for m in _imports(path)
-                 if m.split(".")[0] in ("msgpack", "safetensors", "aiohttp"))
+                 if m.split(".")[0] in ("msgpack", "safetensors", "aiohttp",
+                                        "ml_dtypes"))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -100,7 +102,8 @@ def test_xxh3_refuses_long_input():
 #: packages the card's machine need not have; the worker's import closure
 #: must load none of them
 ABSENT_ON_CARD = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "safetensors",
-                  "aiohttp", "jinja2", "tokenizers", "transformers")
+                  "aiohttp", "jinja2", "tokenizers", "transformers",
+                  "ml_dtypes")
 
 
 def test_worker_imports_with_jax_and_wire_packages_blocked():
@@ -116,6 +119,7 @@ def test_worker_imports_with_jax_and_wire_packages_blocked():
         "    sys.modules[name] = None\n"
         "import dynamo_tpu_torch.engine.main as m\n"
         "import dynamo_tpu_torch.engine.loader, dynamo_tpu_torch.engine.engine\n"
+        "import dynamo_tpu_torch.disagg.transfer, dynamo_tpu_torch.kvbm.distributed\n"
         "import chip_smoke\n"
         "cli = m.build_parser().parse_args(['--arch', 'tiny', '--device',\n"
         "    'cpu', '--allow-test-metadata'])\n"

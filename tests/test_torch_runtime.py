@@ -203,6 +203,45 @@ async def test_endpoint_streams_errors_and_cancel_over_tcp():
         await hub.stop()
 
 
+async def test_refused_frame_ends_the_stream_in_an_error(monkeypatch):
+    """A response frame the codec refuses (over ``MAX_FRAME``) ends the
+    stream in a StreamError at the caller: before, the server's reader
+    died and the caller waited forever (a 2048-token chunk frame of
+    Llama-3-8B's bf16 KV is over 256 MiB)."""
+    from dynamo_tpu_torch.runtime import codec
+
+    hub = control_plane.ControlPlaneServer()
+    addr = await hub.start()
+    worker = await DistributedRuntime.create(address=addr)
+    caller = await DistributedRuntime.create(address=addr)
+
+    async def handler(request, ctx):
+        yield {"small": b"x"}
+        yield {"large": b"x" * 4096}
+
+    monkeypatch.setattr(codec, "MAX_FRAME", 1024)
+    try:
+        ep = worker.namespace("ns").component("comp").endpoint("gen")
+        await ep.serve_endpoint(handler)
+        client = await caller.namespace("ns").component("comp").endpoint(
+            "gen").client().start()
+        await client.wait_for_instances()
+        got = []
+
+        async def consume():
+            async for f in await client.generate({}):
+                got.append(f)
+
+        with pytest.raises(context.StreamError):
+            await asyncio.wait_for(consume(), 10)
+        assert got == [{"small": b"x"}]
+        await client.stop()
+    finally:
+        await caller.shutdown()
+        await worker.shutdown()
+        await hub.stop()
+
+
 async def test_runtime_refuses_the_system_status_server(monkeypatch):
     monkeypatch.setenv("DYN_SYSTEM_PORT", "9090")
     with pytest.raises(NotImplementedError, match="A12"):

@@ -18,7 +18,10 @@ checkpoint:
   logprobs the JAX engine gives on the same weights, and a
   ``response_format`` json_schema request returns JSON that parses and
   fits the schema (the worker reads its guided alphabet from the
-  checkpoint's ``tokenizer.json``).
+  checkpoint's ``tokenizer.json``);
+- a ``--role prefill`` and a ``--role decode`` torch worker answer a chat
+  request with the text transformers predicts, its KV moved between them
+  over TCP, and only the decode worker registers the model.
 """
 
 import asyncio
@@ -314,3 +317,87 @@ async def test_sampled_and_guided_requests_behind_jax_frontend(
         assert set(doc) == {"ok", "n", "tags"}
         assert isinstance(doc["ok"], bool) and doc["n"] in (1, 2, 3)
         assert len(doc["tags"]) <= 2 and set(doc["tags"]) <= {"a", "b"}
+
+
+LONG = ("the quick brown fox jumps over the lazy dog and paris is the "
+        "capital of france")
+
+
+async def test_prefill_and_decode_torch_workers_behind_jax_frontend(
+        ckpt, monkeypatch):
+    """``--role prefill`` and ``--role decode`` torch workers behind the
+    JAX hub, frontend and KV router: a chat request whose prompt is past
+    the decode worker's threshold is prefilled by the prefill worker (its
+    KV in chunk frames and layer frames over TCP, through the prefill
+    queue) and answered with the text transformers predicts; only the
+    decode worker registers the model."""
+    rendered = jinja2.Environment(keep_trailing_newline=True).from_string(
+        CHAT_TEMPLATE).render(messages=[{"role": "user", "content": LONG}],
+                              add_generation_prompt=True)
+    ids = TokenizerWrapper.from_dir(ckpt).encode(rendered)
+    # the frontend's streaming detokenizer holds back the incomplete UTF-8
+    # bytes of a last byte-level token, which decode() shows as U+FFFD
+    expected = TokenizerWrapper.from_dir(ckpt).decode(
+        _hf_greedy(ckpt, ids)).rstrip("\ufffd")
+    hub = ControlPlaneServer()
+    addr = await hub.start()
+    monkeypatch.setenv("DYN_CONTROL_PLANE", addr)
+    workers = {}
+    engines = {}
+    for role, extra in (("prefill", ["--max-num-batched-tokens", "8"]),
+                        ("decode", ["--max-local-prefill-length", "4"])):
+        cli = worker_main.build_parser().parse_args(
+            ["--model", MODEL, "--model-path", ckpt, "--device", "cpu",
+             "--role", role, *ENGINE, *extra])
+        cfg, args, eos, tokenizer_ref = worker_main.configure(cli)
+        cfg.dtype = "float32"
+        engines[role] = worker_main.build_engine(cli, cfg, args)
+        stop = asyncio.Event()
+        workers[role] = (stop, asyncio.get_running_loop().create_task(
+            worker_main.serve(cli, engines[role], args, eos, tokenizer_ref,
+                              stop)))
+    rt = await DistributedRuntime.create(address=addr)
+    manager = ModelManager()
+    watcher = await ModelWatcher(rt, manager, router_mode="kv").start()
+    service = HttpService(manager, port=0)
+    await service.start()
+    reports = {}
+    try:
+        await _until(lambda: MODEL in manager.list_models(), "registration")
+        pre_gen = await rt.namespace("dynamo").component("prefill").endpoint(
+            "generate").client().start()
+        await pre_gen.wait_for_instances()
+        async with aiohttp.ClientSession() as http:
+            resp = await http.post(
+                f"http://127.0.0.1:{service.port}/v1/chat/completions",
+                json={"model": MODEL, "stream": False, "temperature": 0.0,
+                      "max_tokens": N_NEW, "ignore_eos": True,
+                      "messages": [{"role": "user", "content": LONG}]})
+            assert resp.status == 200, await resp.text()
+            body = await resp.json()
+        assert body["choices"][0]["message"]["content"] == expected
+        assert body["usage"]["completion_tokens"] == N_NEW
+        cards = await rt.plane.kv_get_prefix(f"models/{MODEL}/")
+        (decode_lease,) = manager.get(MODEL).client.instance_ids()
+        (prefill_lease,) = pre_gen.instance_ids()
+        assert prefill_lease != decode_lease
+        assert cards and all(f"/{decode_lease:x}/" in k for k in cards)
+        await pre_gen.stop()
+    finally:
+        for role, (stop, task) in workers.items():
+            stop.set()
+            reports[role] = await asyncio.wait_for(task, 30)
+        await service.stop()
+        await watcher.stop()
+        await rt.shutdown()
+        await hub.stop()
+    dis = reports["decode"]["disagg"]
+    assert dis["remote_prefills"] == {"placed": 1} and "fallbacks" not in dis
+    (xfer,) = dis["transfers"]
+    kinds = [f[0] for f in xfer["frames"]]
+    assert kinds.count("chunk") >= 1 and kinds.count("layer") == 2
+    (extract,) = reports["prefill"]["extract"]
+    assert [f[0] for f in extract["frames"]] == kinds
+    assert reports["decode"]["active_blocks"] == 0
+    assert reports["prefill"]["active_blocks"] == 0
+    assert "disagg" not in reports["prefill"]
