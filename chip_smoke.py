@@ -48,9 +48,11 @@ prints any result:
      kernel against its plain version on [8, 128256] logits with the
      top-k/top-p cuts of a mixed batch: the tokens must be equal.
 3. Serving: ``AsyncTorchEngine`` with the llama3_8b preset at full width
-   and depth on random weights from a seeded generator, eight concurrent
-   greedy requests after one warm-up request, on the depth-2 pipelined
-   decode loop (the default). The kernels' launch counts are set to 0 just
+   and depth on random weights from a seeded generator, ``warmup()``
+   first (every token bucket's steps and the greedy sampler captured, so
+   no measured run pays a capture: every serving engine below runs it),
+   eight concurrent greedy requests after one warm-up request, on the
+   depth-2 pipelined decode loop (the default). The kernels' launch counts are set to 0 just
    before and read just after; the ragged kernel must have launched 32
    times a step. Then, on the same engine and an emptied prefix cache
    each time, the same requests on the serial loop, whose eight streams
@@ -58,8 +60,11 @@ prints any result:
    alone on both loops, whose tokens must agree; TTFT, ITL, tok/s and the
    decode step wall of both loops are printed. Every later serving run
    (phases 7, 9 and 10) compares its eight streams across the two loops
-   in the same way. Then sampling on the same engine: eight seeded
-   sampled requests (mixed temperature, top-k, top-p) on both loops,
+   in the same way, and none of the greedy runs may capture anything.
+   Then sampling on the same engine: one short unmeasured request a
+   sampler branch set (their captures), then eight seeded sampled
+   requests (mixed temperature, top-k, top-p) on both loops, capturing
+   nothing,
    whose streams must be equal (the draw kernel's launches counted in the
    pipelined run), with the decode step wall and ITL beside the greedy
    run's; a logprobs, a penalties and a logit_bias request on the serial
@@ -127,9 +132,10 @@ prints any result:
    nothing else; no capture but the warmup's. It also serves each of the
    eight prompts alone on an emptied prefix cache.
    Then disaggregated serving on the same checkpoint: a ``--role
-   prefill`` and a ``--role decode --max-local-prefill-length 64
-   --warmup-buckets`` worker process, 4096 blocks each, sharing the card
-   behind a new hub. Each of the eight prompts alone (both caches
+   prefill --warmup-buckets`` and a ``--role decode
+   --max-local-prefill-length 64 --warmup-buckets`` worker process, 4096
+   blocks each, sharing the card behind a new hub; their KV moves device
+   to device over CUDA IPC (``disagg/transfer.py``). Each of the eight prompts alone (both caches
    emptied) must stream what the aggregated worker streamed for it alone;
    the eight together give TTFT, ITL and tok/s beside the aggregated
    worker's, and each request's transfer (MB, chunk and layer frames,
@@ -144,15 +150,23 @@ prints any result:
    the remote run over the prefill worker's blocks streams (where it
    leaves the stream alone is printed: its tail runs in a smaller step).
    Every request past the threshold must have
-   gone remote and been placed (no fallback), with blocks whose digest
-   equals the prefill worker's, no block may stay in use on either worker,
-   each worker's ragged launches must be 32 a forward step, and the
-   decode worker may capture nothing past its warmup. Each request of
-   the pair fails the phase after ``DISAGG_REQUEST_S``.
+   gone remote and been placed (no fallback), over ``ipc`` (no pull
+   failure), with blocks whose digest equals the prefill worker's; no
+   block may stay in use on either worker, no offer outstanding and no
+   handle mapped, and the prefill worker's allocated device bytes at exit
+   must equal those at its registration; each worker's ragged launches
+   must be 32 a forward step, and neither may capture anything past its
+   warmup. Then a host-staged pair (both ``--no-kv-transfer-direct``)
+   serves the warm-up, the eight together and the long prompt under the
+   same gates (paths ``host``): TTFT, ITL and tok/s of both pairs beside
+   the aggregated worker's, and each request's split (direct: gather,
+   open, scatter and release; host-staged: gather + staging, wire and
+   scatter) and the open time a pull. Each request of a pair fails the
+   phase after ``DISAGG_REQUEST_S``.
 9. DeepSeek-V2-Lite serving (the Llama engines released first: the two
    models never share the card): ``AsyncTorchEngine`` with the
    deepseek_v2_lite preset at full width and depth (MLA + MoE, random
-   seeded weights), the eight requests of phase 3 (79-881 prompt tokens
+   seeded weights), ``warmup()``, the eight requests of phase 3 (79-881 prompt tokens
    from the same seed); the MLA decode kernel must launch 27 times a step,
    the MLA prefill kernel 27 times in each step with chunk tokens, and no
    other attention kernel at all; the eager and captured runs of phase 3;
@@ -163,8 +177,8 @@ prints any result:
    versions, the step profile, and one embedding call (2 inputs of up to
    1024 tokens) through the MLA prefill kernel against the plain attention,
    and the block copy of phase 7 on the latent and rope pools.
-10. DeepSeek-V2-Lite from an int8 latent pool, on the same weights: the
-   eight requests again (both MLA kernels on int8 pages, the same launch
+10. DeepSeek-V2-Lite from an int8 latent pool, on the same weights:
+   ``warmup()``, the eight requests again (both MLA kernels on int8 pages, the same launch
    rule), the pool's blocks beside the bf16 pool's, one full-width int8
    step against its plain version, and the step profile.
 
@@ -1521,6 +1535,9 @@ async def serve(engine, model, prompts, max_tokens, events=None,
                             f"stream {i}: graphs {graphs} gave {b[2]}, the "
                             f"first run {a[2]}")
             engine.use_graphs = True
+        # the captures of the greedy runs (sampled and burst runs capture
+        # their own samplers and bursts: each checks its measured runs)
+        out["captures_greedy"] = dict(engine.compile_events)
         if extra is not None:
             out["extra"] = await extra(engine, clock, settle, out)
         return out
@@ -1548,7 +1565,8 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     run as the engine's captured graphs (a replay counts the launches it
     holds); ``compare_eager`` adds an eager and a captured run of the
     same requests (``serve``). ``warmup`` runs ``engine.warmup()`` first,
-    and then no greedy request may capture anything."""
+    and then no greedy request may capture anything (the sampled and
+    burst runs of ``extra`` check their measured runs themselves)."""
     cfg = get_model_config(model)
     args = EngineArgs(block_size=16, max_num_seqs=8,
                       max_num_batched_tokens=2048, max_model_len=4096,
@@ -1594,9 +1612,9 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     max_tokens = 32
     out = asyncio.run(serve(engine, model, prompts, max_tokens, events,
                             SOLO if solo else (), extra, compare_eager))
-    if warmup and engine.compile_events != warm:
+    if warmup and out["captures_greedy"] != warm:
         raise AssertionError(f"captures after warmup: {warm} -> "
-                             f"{engine.compile_events}")
+                             f"{out['captures_greedy']}")
     res, steps, chunk_steps = out["res"], out["steps"], out["chunk_steps"]
     # launches each attention wrapper must show: one a layer per step (per
     # step with chunk tokens for the MLA prefill kernel), none elsewhere
@@ -1647,7 +1665,8 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
             f"{eager['ttft_mean']:.2f} vs {graphs['ttft_mean']:.2f} ms")
     log(f"  [{smi}] {label}: {graph_line(engine)}")
     if warmup:
-        log(f"  no capture after warmup: {engine.compile_events}")
+        log(f"  no greedy run captured anything after warmup: "
+            f"{out['captures_greedy']}")
     if solo:
         log(f"  solo prompts {[len(p) for p, _ in out['solo']]} tokens: the "
             f"same {max_tokens} tokens on both loops; "
@@ -1801,6 +1820,14 @@ async def sampled_serving(engine, model, prompts, clock, settle,
     on the host oracle. Returns the kernel's launches and the two loops'
     stats."""
     opts = sampled_options(seed)
+    # one short request a sampler branch set (the draw; with top-k; with
+    # top-p; with both), unmeasured: the sampled samplers' captures stay
+    # out of the measured runs, as warmup() keeps the greedy steps'
+    for k, p in ((0, 1.0), (20, 1.0), (0, 0.9), (20, 0.9)):
+        await stream(engine, model, list(range(1, 17)), 3, SamplingOptions(
+            temperature=0.7, top_k=k or None, top_p=p, seed=1))
+    await settle()
+    captured = dict(engine.compile_events)
 
     async def run(pipeline: bool):
         engine.args.pipeline_decode = pipeline
@@ -1827,9 +1854,13 @@ async def sampled_serving(engine, model, prompts, clock, settle,
     if launches < 32:
         raise AssertionError(f"gumbel_argmax launched {launches} times in "
                              f"{steps} steps of 8 sampled requests")
+    if engine.warmed_up and engine.compile_events != captured:
+        raise AssertionError(f"a measured sampled run captured: {captured} "
+                             f"-> {engine.compile_events}")
     log(f"  [{smi}] {model}: 8 seeded sampled streams x 32 tokens "
         f"(temperature, top_k, top_p {SAMPLED}) equal on both loops; "
-        f"gumbel_argmax launched {launches} times in {steps} steps")
+        f"gumbel_argmax launched {launches} times in {steps} steps; "
+        f"captures before and after the measured runs {captured}")
     log(f"  [{smi}] {model}, sampled, pipelined decode loop: "
         f"{stats_line(st)}")
     log(f"  [{smi}] {model}, sampled, serial decode loop: "
@@ -2389,7 +2420,7 @@ def mla_phase(seed: int, smi: str) -> dict:
     model = "deepseek_v2_lite"
     engine, served, streams, _ = serving_phase(
         seed, smi, model=model, extra=sampled_extra(model, seed, smi, False),
-        compare_eager=True)
+        compare_eager=True, warmup=True)
     launches = {"mla_paged_decode": served["mla_paged_decode"],
                 "flash_mla_prefill": served["flash_mla_prefill_paged"]}
     graph_step_check(engine, model, seed)
@@ -2403,7 +2434,8 @@ def mla_phase(seed: int, smi: str) -> dict:
     del engine
     # the int8 latent pool takes the freed pool's memory; same weights
     engine, served, streams8, _ = serving_phase(seed, smi, "int8",
-                                                model=model, params=params)
+                                                model=model, params=params,
+                                                warmup=True)
     del params
     launches["mla_paged_decode_int8"] = served["mla_paged_decode"]
     same = sum(a == b for a, b in zip(streams8, streams))
@@ -2637,6 +2669,11 @@ def _named(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
+#: what warmup() captures on a worker: each token bucket (8 to 2048) as a
+#: mixed and a decode-only step, and the greedy sampler of 8 rows
+WARMUP_CAPTURES = {"ragged": 9, "ragged_dec": 9, "sample": 1}
+
+
 async def _spawn_worker(addr: str, log_path, *extra: str):
     """``python -m dynamo_tpu_torch.engine.main`` on the checkpoint, joined
     to the hub at ``addr``, its stderr into ``log_path``."""
@@ -2825,10 +2862,8 @@ def worker_phase(ref: dict, smi: str, direct: dict) -> dict:
         if n != want.get(name, 0) or (name in want and n == 0):
             raise AssertionError(f"worker launches {launches}, want {want} "
                                  f"({report['steps']} steps)")
-    # every capture is the warmup's: each token bucket (8 to 2048) as a
-    # mixed and a decode-only step, and the greedy sampler of 8 rows
-    if report["compile_events"] != {"ragged": 9, "ragged_dec": 9,
-                                    "sample": 1}:
+    # every capture is the warmup's
+    if report["compile_events"] != WARMUP_CAPTURES:
         raise AssertionError(f"worker captures {report['compile_events']}: "
                              f"not only the warmup's")
     log(f"  [{smi}] worker: registered {out['ready_s']:.1f} s after spawn "
@@ -2870,14 +2905,17 @@ def _exit_report(stdout: str) -> dict:
 
 def transfer_split(decode: dict, prefill: dict) -> dict:
     """One remote prefill's transfer from both workers' records (same
-    request id, frames in the same order): MB moved, the chunk and layer
-    frames, and its seconds summed over the frames: gather + host staging
-    (prefill side: the gather's launch to the frame's bytes), wire (the
-    frame's bytes ready to its arrival at the decode handler: the
-    response plane's encoding, TCP, decoding) and scatter (decode side:
-    parsing, pinning, the copy and scatter launches). Fails unless the
-    decode worker's placed blocks hold the bytes of the prefill worker's
-    blocks (their digests), whatever else ran beside the request."""
+    request id, frames in the same order): its link path, MB moved, the
+    chunk and layer frames, and its seconds summed over the frames: gather
+    (prefill side: the gather's launch to the frame's bytes on the host,
+    or to its offer on a direct path), wire (the frame ready to its arrival
+    at the decode handler: the response plane's encoding, TCP, decoding),
+    open (decode side: a direct pull's claim and CUDA IPC mapping), scatter
+    (decode side: parsing and pinning on the host path, the copy and
+    scatter launches) and release (a direct pull: the wait for its scatter
+    on the device, the unmapping). Fails unless the decode worker's placed
+    blocks hold the bytes of the prefill worker's blocks (their digests),
+    whatever else ran beside the request."""
     pf, df = prefill["frames"], decode["frames"]
     if [f[0] for f in pf] != [f[0] for f in df]:
         raise AssertionError(f"request {decode['id']}: prefill frames "
@@ -2887,13 +2925,36 @@ def transfer_split(decode: dict, prefill: dict) -> dict:
         raise AssertionError(f"request {decode['id']}: the decode worker's "
                              f"blocks digest {decode.get('digest')}, the "
                              f"prefill worker's {prefill['digest']}")
-    return {"mb": sum(f[1] for f in df) / 1e6,
+    if decode["path"] != prefill["mode"]:
+        raise AssertionError(f"request {decode['id']}: the decode worker "
+                             f"placed over {decode['path']}, the prefill "
+                             f"worker offered {prefill['mode']}")
+    return {"path": decode["path"], "mb": sum(f[1] for f in df) / 1e6,
             "chunks": sum(f[0] == "chunk" for f in df),
             "layers": sum(f[0] == "layer" for f in df),
             "stage_s": sum(t1 - t0 for _k, _n, t0, t1 in pf),
             "wire_s": sum(d[2] - p[3] for p, d in zip(pf, df)),
+            "open_s": [f[4] for f in df if decode["path"] != "host"],
             "scatter_s": sum(f[3] for f in df),
+            "release_s": decode["release_s"],
             "stream_s": decode["stream_s"]}
+
+
+def split_line(sp: dict) -> str:
+    """A transfer's split as ``disagg_phase`` prints it."""
+    frames = (f"{sp['mb']:.1f} MB in {sp['chunks']} chunk + {sp['layers']} "
+              f"layer frames")
+    if sp["path"] == "host":
+        return (f"{frames}; gather+staging {sp['stage_s'] * 1e3:.1f} ms, "
+                f"wire {sp['wire_s'] * 1e3:.1f} ms, scatter "
+                f"{sp['scatter_s'] * 1e3:.1f} ms (frame sums); stream "
+                f"{sp['stream_s'] * 1e3:.1f} ms")
+    return (f"{frames} over {sp['path']}; gather {sp['stage_s'] * 1e3:.1f} "
+            f"ms, wire {sp['wire_s'] * 1e3:.1f} ms, open "
+            f"{sum(sp['open_s']) * 1e3:.1f} ms ({len(sp['open_s'])} pulls), "
+            f"scatter {sp['scatter_s'] * 1e3:.1f} ms, release "
+            f"{sp['release_s'] * 1e3:.1f} ms (sums); stream "
+            f"{sp['stream_s'] * 1e3:.1f} ms")
 
 
 def first_diff(a: list, b: list):
@@ -2904,22 +2965,29 @@ def first_diff(a: list, b: list):
     return None if len(a) == len(b) else min(len(a), len(b))
 
 
-async def _disagg_run(ref: dict, agg: dict) -> dict:
+async def _disagg_run(ref: dict, agg: dict, direct: bool = True) -> dict:
     """The disaggregated pair on an event loop: the hub, a prefill and a
-    decode worker process, a client runtime; the requests of the phase."""
+    decode worker process, a client runtime; the requests of the phase.
+    ``direct`` False: both workers host-staged (``--no-kv-transfer-
+    direct``), and only the warm-up, the eight together and the long
+    prompt remotely."""
     from dynamo_tpu_torch.runtime import ControlPlaneServer, DistributedRuntime
 
     hub = ControlPlaneServer()
     addr = await hub.start()
-    logs = {role: CKPT_DIR / f"{role}.log" for role in ("prefill", "decode")}
+    tag = "" if direct else "-host"
+    logs = {role: CKPT_DIR / f"{role}{tag}.log"
+            for role in ("prefill", "decode")}
+    off = () if direct else ("--no-kv-transfer-direct",)
     t_spawn = time.perf_counter()
     procs = {
         "prefill": await _spawn_worker(addr, logs["prefill"], "--role",
-                                       "prefill", "--num-blocks", "4096"),
+                                       "prefill", "--num-blocks", "4096",
+                                       "--warmup-buckets", *off),
         "decode": await _spawn_worker(
             addr, logs["decode"], "--role", "decode",
             "--max-local-prefill-length", str(DISAGG_THRESHOLD),
-            "--num-blocks", "4096", "--warmup-buckets")}
+            "--num-blocks", "4096", "--warmup-buckets", *off)}
     rt = await DistributedRuntime.create(address=addr)
     try:
         ns = rt.namespace("dynamo")
@@ -2983,19 +3051,21 @@ async def _disagg_run(ref: dict, agg: dict) -> dict:
             await rt.plane.kv_put(DisaggConfig.KEY, str(n).encode())
             await asyncio.sleep(1.0)  # the decode worker's watch applies it
 
-        log(f"  pair up in {ready_s:.1f} s; requests:")
+        log(f"  {'direct' if direct else 'host-staged'} pair up in "
+            f"{ready_s:.1f} s; requests:")
         await one(list(range(1, 17)), "warmup")  # local: under the threshold
         log("    warm-up (local) done")
-        # each prompt alone on emptied caches: the aggregated worker's
-        # stream of the same prompt alone
-        for i, (prompt, want) in enumerate(zip(ref["prompts"],
-                                               agg["alone"])):
-            await emptied("backend", "prefill")
-            got = (await one(prompt, f"solo-{i}"))[2]
-            if got != want:
-                raise AssertionError(f"disagg solo stream {i}: {got} != the "
-                                     f"aggregated worker's {want}")
-            log(f"    solo-{i} done")
+        if direct:
+            # each prompt alone on emptied caches: the aggregated worker's
+            # stream of the same prompt alone
+            for i, (prompt, want) in enumerate(zip(ref["prompts"],
+                                                   agg["alone"])):
+                await emptied("backend", "prefill")
+                got = (await one(prompt, f"solo-{i}"))[2]
+                if got != want:
+                    raise AssertionError(f"disagg solo stream {i}: {got} != "
+                                         f"the aggregated worker's {want}")
+                log(f"    solo-{i} done")
         # the eight concurrently, as the worker phase sent them
         await emptied("backend", "prefill")
         t0 = time.perf_counter()
@@ -3011,43 +3081,52 @@ async def _disagg_run(ref: dict, agg: dict) -> dict:
         long = list(map(int, rng.integers(0, vocab, LONG_PROMPT)))
         await emptied("backend")  # the prefill worker keeps the burst's
         remote = (await one(long, "long-remote"))[2]
-        await threshold(1 << 20)
-        await emptied("backend")
-        local = (await one(long, "long-local"))[2]
-        if local != remote:
-            raise AssertionError(f"the long prompt prefilled locally gave "
-                                 f"{local}, remotely {remote}")
-        log("    long prompt remote and local done")
-        # a restore pull of blocks computed for the prompt alone: both
-        # caches emptied, the prompt once through the pair (its prefill on
-        # the prefill worker), the decode worker's cache emptied, then the
-        # request with a plan naming the prefill worker; then the prompt
-        # remotely again, its tail computed over those blocks on the
-        # prefill worker: the same computation, without the pull
-        prompt = ref["prompts"][0]
-        full = (len(prompt) - 1) // 16
-        await threshold(DISAGG_THRESHOLD)
-        await emptied("backend", "prefill")
-        seeded = (await one(prompt, "restore-seed"))[2]
-        await emptied("backend")
-        restored = (await one(prompt, "restore", restore={
-            "sources": [[prefill_lease, full, 1.0]],
-            "block_size": 16}))[2]
-        await emptied("backend")
-        tail_ref = (await one(prompt, "restore-ref"))[2]
-        # the seeding run computed the blocks as the aggregated worker did
-        # for the prompt alone (and its digests matched); the restore
-        # computes the 1-15 token tail over them in a smaller step, so its
-        # stream is held against the same computation without the pull,
-        # and where it leaves the stream alone is printed
-        if seeded != agg["alone"][0]:
-            raise AssertionError(
-                f"the seeding stream {seeded} != the aggregated worker's "
-                f"stream of the prompt alone {agg['alone'][0]}")
-        if restored != tail_ref:
-            raise AssertionError(f"restored stream {restored} != the stream "
-                                 f"over the prefill worker's blocks "
-                                 f"{tail_ref}")
+        out = {"ready_s": ready_s, "stats": st, "burst": burst,
+               "long_tokens": LONG_PROMPT, "long": remote}
+        if direct:
+            await threshold(1 << 20)
+            await emptied("backend")
+            local = (await one(long, "long-local"))[2]
+            if local != remote:
+                raise AssertionError(f"the long prompt prefilled locally "
+                                     f"gave {local}, remotely {remote}")
+            log("    long prompt remote and local done")
+            # a restore pull of blocks computed for the prompt alone: both
+            # caches emptied, the prompt once through the pair (its prefill
+            # on the prefill worker), the decode worker's cache emptied,
+            # then the request with a plan naming the prefill worker; then
+            # the prompt remotely again, its tail computed over those
+            # blocks on the prefill worker: the same computation, without
+            # the pull
+            prompt = ref["prompts"][0]
+            full = (len(prompt) - 1) // 16
+            await threshold(DISAGG_THRESHOLD)
+            await emptied("backend", "prefill")
+            seeded = (await one(prompt, "restore-seed"))[2]
+            await emptied("backend")
+            restored = (await one(prompt, "restore", restore={
+                "sources": [[prefill_lease, full, 1.0]],
+                "block_size": 16}))[2]
+            await emptied("backend")
+            tail_ref = (await one(prompt, "restore-ref"))[2]
+            # the seeding run computed the blocks as the aggregated worker
+            # did for the prompt alone (and its digests matched); the
+            # restore computes the 1-15 token tail over them in a smaller
+            # step, so its stream is held against the same computation
+            # without the pull, and where it leaves the stream alone is
+            # printed
+            if seeded != agg["alone"][0]:
+                raise AssertionError(
+                    f"the seeding stream {seeded} != the aggregated worker's "
+                    f"stream of the prompt alone {agg['alone'][0]}")
+            if restored != tail_ref:
+                raise AssertionError(f"restored stream {restored} != the "
+                                     f"stream over the prefill worker's "
+                                     f"blocks {tail_ref}")
+            out.update(full=full,
+                       restored_diff=first_diff(restored, agg["alone"][0]))
+        else:
+            log("    long prompt remote done")
         for c in (gen, pre, *clear.values()):
             await c.stop()
         reports, exits = {}, {}
@@ -3059,10 +3138,7 @@ async def _disagg_run(ref: dict, agg: dict) -> dict:
             if rc != 0:
                 raise AssertionError(f"the {role} worker exited with {rc}")
             reports[role] = _exit_report((await proc.stdout.read()).decode())
-        return {"ready_s": ready_s, "stats": st, "burst": burst,
-                "reports": reports, "exits": exits, "full": full,
-                "restored_diff": first_diff(restored, agg["alone"][0]),
-                "long_tokens": LONG_PROMPT}
+        return {**out, "reports": reports, "exits": exits}
     except BaseException:
         for role, path in logs.items():
             log(f"{role} worker log (tail):\n{path.read_text()[-4000:]}")
@@ -3076,32 +3152,27 @@ async def _disagg_run(ref: dict, agg: dict) -> dict:
         await hub.stop()
 
 
-def disagg_phase(ref: dict, smi: str, agg: dict) -> None:
-    """Disaggregated serving: a ``--role prefill`` and a ``--role decode``
-    worker process on the one card, behind the port's hub, on the
-    checkpoint of the worker phase; ``agg`` is what the aggregated worker
-    measured in the same call."""
-    out = asyncio.run(_disagg_run(ref, agg))
+def _pair_gates(out: dict, ref: dict, remote: int, path: str) -> dict:
+    """The gates every pair run holds (and returns each request's split):
+    ``remote`` remote prefills, each placed over ``path`` with no fallback
+    and no failed pull, its placed blocks' digest the prefill worker's; no
+    block in use, offer outstanding or handle mapped at exit; the prefill
+    worker's allocated device bytes at exit those at its registration;
+    ragged launches 32 a forward step; no capture past the warmups."""
     L = ref["layers"]
     dec, pre = out["reports"]["decode"], out["reports"]["prefill"]
     dis = dec["disagg"]
-    # every request past the threshold went remote and was placed: the
-    # eight alone, the eight together, the long prompt, the restore's
-    # seeding and reference; the long prompt's local run and the restore
-    # stayed local
-    remote = 2 * sum(len(p) > DISAGG_THRESHOLD for p in ref["prompts"]) + 3
     if dis.get("fallbacks") or dis.get("remote_prefills") != {
             "placed": remote}:
         raise AssertionError(f"remote prefills {dis.get('remote_prefills')}"
                              f", fallbacks {dis.get('fallbacks')}: want "
                              f"{remote} placed and no fallback")
-    if (dis.get("migration") != {"restored": 1}
-            or dis["migration_blocks"]["restored"] != out["full"]
-            or pre["served_pulls"] != {"restore": out["full"]}):
-        raise AssertionError(f"restore: {dis.get('migration')}, "
-                             f"{dis.get('migration_blocks')} blocks, "
-                             f"served {pre['served_pulls']}; want "
-                             f"{out['full']} blocks restored")
+    if (dis.get("transfer_paths") != {path: remote}
+            or dis.get("direct_pull_failures")):
+        raise AssertionError(f"transfers by path {dis.get('transfer_paths')}"
+                             f", failed pulls "
+                             f"{dis.get('direct_pull_failures')}: want "
+                             f"{remote} over {path} and none failed")
     for role, rep in out["reports"].items():
         if rep["active_blocks"]:
             raise AssertionError(f"the {role} worker holds "
@@ -3112,29 +3183,69 @@ def disagg_phase(ref: dict, smi: str, agg: dict) -> None:
         if got != want or not rep["forward_steps"]:
             raise AssertionError(f"the {role} worker's launches {got}, "
                                  f"want {want}")
-    if dec["compile_events"] != {"ragged": 9, "ragged_dec": 9, "sample": 1}:
-        raise AssertionError(f"decode worker captures "
-                             f"{dec['compile_events']}: not only the "
-                             "warmup's")
+        if rep["compile_events"] != WARMUP_CAPTURES:
+            raise AssertionError(f"{role} worker captures "
+                                 f"{rep['compile_events']}: not only the "
+                                 "warmup's")
+        direct = rep.get("direct") or {}
+        if (direct.get("outstanding") or direct.get("held_bytes")
+                or direct.get("mapped") or direct.get("pull_failures")):
+            raise AssertionError(f"the {role} worker's direct transfer at "
+                                 f"exit: {direct}")
+    if path != "host" and (pre["direct"]["offers"]
+                           != dec["direct"]["pulls"]):
+        raise AssertionError(f"{pre['direct']['offers']} offers, "
+                             f"{dec['direct']['pulls']} pulls")
+    mem = pre["device_bytes"]
+    if mem["exit"] != mem["ready"]:
+        raise AssertionError(f"the prefill worker's allocated device bytes: "
+                             f"{mem['ready']} when registered, "
+                             f"{mem['exit']} at exit")
     records = {r["id"]: r for r in pre["extract"]}
     splits = {r["id"]: transfer_split(r, records[r["id"]])
               for r in dis["transfers"]}
     if len(splits) != remote:
         raise AssertionError(f"{len(splits)} transfers matched, want {remote}")
-    log(f"  [{smi}] disaggregated pair: prefill and decode workers up "
-        f"{out['ready_s']:.1f} s after spawn; {remote} remote prefills, "
-        f"all placed, no fallback; launches prefill "
-        f"{pre['launches']['ragged_paged_attention']} in "
+    return splits
+
+
+def disagg_phase(ref: dict, smi: str, agg: dict) -> None:
+    """Disaggregated serving: a ``--role prefill`` and a ``--role decode``
+    worker process on the one card, behind the port's hub, on the
+    checkpoint of the worker phase, their KV moved over CUDA IPC; then a
+    host-staged pair on the same requests. ``agg`` is what the aggregated
+    worker measured in the same call."""
+    out = asyncio.run(_disagg_run(ref, agg, direct=True))
+    dec, pre = out["reports"]["decode"], out["reports"]["prefill"]
+    dis = dec["disagg"]
+    # every request past the threshold went remote and was placed: the
+    # eight alone, the eight together, the long prompt, the restore's
+    # seeding and reference; the long prompt's local run and the restore
+    # stayed local
+    over = sum(len(p) > DISAGG_THRESHOLD for p in ref["prompts"])
+    remote = 2 * over + 3
+    splits = _pair_gates(out, ref, remote, "ipc")
+    if (dis.get("migration") != {"restored": 1}
+            or dis["migration_blocks"]["restored"] != out["full"]
+            or pre["served_pulls"] != {"restore": out["full"]}):
+        raise AssertionError(f"restore: {dis.get('migration')}, "
+                             f"{dis.get('migration_blocks')} blocks, "
+                             f"served {pre['served_pulls']}; want "
+                             f"{out['full']} blocks restored")
+    log(f"  [{smi}] disaggregated pair, direct: prefill and decode workers "
+        f"up {out['ready_s']:.1f} s after spawn; {remote} remote prefills, "
+        f"all placed over ipc, no fallback, no failed pull; "
+        f"{pre['direct']['offers']} offers, {dec['direct']['pulls']} pulls; "
+        f"launches prefill {pre['launches']['ragged_paged_attention']} in "
         f"{pre['forward_steps']} forward steps, decode "
         f"{dec['launches']['ragged_paged_attention']} in "
         f"{dec['forward_steps']}; captures prefill {pre['compile_events']},"
-        f" decode {dec['compile_events']}; no block in use on either at "
-        f"exit; exits {out['exits']['prefill']:.2f} / "
-        f"{out['exits']['decode']:.2f} s after SIGTERM")
-    log(f"  [{smi}] aggregated worker, 8 streams x "
-        f"{len(ref['solo'][0][1])} tokens: {stats_line(agg['stats'])}")
-    log(f"  [{smi}] disaggregated pair, same requests: "
-        f"{stats_line(out['stats'])}")
+        f" decode {dec['compile_events']}; at exit no block in use, no "
+        f"offer outstanding, no handle mapped, the prefill worker's "
+        f"allocated device bytes {pre['device_bytes']['exit']} = "
+        f"{pre['device_bytes']['ready']} at registration; exits "
+        f"{out['exits']['prefill']:.2f} / {out['exits']['decode']:.2f} s "
+        f"after SIGTERM")
     log(f"  every remote prefill's placed blocks equal the prefill worker's "
         f"(digests of {remote} requests); the eight prompts alone: streams "
         f"equal the aggregated worker's alone")
@@ -3149,28 +3260,52 @@ def disagg_phase(ref: dict, smi: str, agg: dict) -> None:
             f"the stream alone {first_diff(got, alone)}; the aggregated "
             f"worker's concurrent stream from its stream alone "
             f"{first_diff(together, alone)}")
-    for i in range(8):
-        sp = splits[f"burst-{i}"]
-        log(f"  burst-{i} ({len(ref['prompts'][i])} tokens): "
-            f"{sp['mb']:.1f} MB in {sp['chunks']} chunk + {sp['layers']} "
-            f"layer frames; gather+staging {sp['stage_s'] * 1e3:.1f} ms, "
-            f"wire {sp['wire_s'] * 1e3:.1f} ms, scatter "
-            f"{sp['scatter_s'] * 1e3:.1f} ms (frame sums); stream "
-            f"{sp['stream_s'] * 1e3:.1f} ms")
-    sp = splits["long-remote"]
-    log(f"  long prompt ({out['long_tokens']} tokens): {sp['mb']:.1f} MB in "
-        f"{sp['chunks']} chunk + {sp['layers']} layer frames; "
-        f"gather+staging {sp['stage_s'] * 1e3:.1f} ms, wire "
-        f"{sp['wire_s'] * 1e3:.1f} ms, scatter "
-        f"{sp['scatter_s'] * 1e3:.1f} ms; stream "
-        f"{sp['stream_s'] * 1e3:.1f} ms; prefilled locally after the live "
-        f"threshold rose: the same stream")
     log(f"  restore pull: {out['full']} blocks, computed for the prompt "
         f"alone (the seeding run's stream equals the aggregated worker's "
         f"alone), from the prefill worker, outcome restored; the stream "
         f"equals the remote run over the prefill worker's blocks; first "
         f"token differing from the aggregated worker's stream alone: "
         f"{out['restored_diff']}")
+    opens = [s for sp in splits.values() for s in sp["open_s"]]
+    log(f"  CUDA IPC open a pull (claim, map, event wait): mean "
+        f"{statistics.mean(opens) * 1e3:.3f} ms, median "
+        f"{statistics.median(opens) * 1e3:.3f} ms, max "
+        f"{max(opens) * 1e3:.3f} ms over {len(opens)} pulls; "
+        f"PYTORCH_CUDA_ALLOC_CONF "
+        f"{os.environ.get('PYTORCH_CUDA_ALLOC_CONF')!r}")
+
+    host = asyncio.run(_disagg_run(ref, agg, direct=False))
+    hsplits = _pair_gates(host, ref, over + 1, "host")
+    hpre, hdec = host["reports"]["prefill"], host["reports"]["decode"]
+    if host["long"] != out["long"]:
+        raise AssertionError(f"the long prompt through the host-staged pair "
+                             f"{host['long']}, the direct pair "
+                             f"{out['long']}")
+    log(f"  [{smi}] disaggregated pair, host-staged: up "
+        f"{host['ready_s']:.1f} s after spawn; {over + 1} remote prefills, "
+        f"all placed host-staged, no fallback; launches prefill "
+        f"{hpre['launches']['ragged_paged_attention']} in "
+        f"{hpre['forward_steps']} forward steps, decode "
+        f"{hdec['launches']['ragged_paged_attention']} in "
+        f"{hdec['forward_steps']}; no capture past the warmups, no block in "
+        f"use at exit; the long prompt streams as over the direct pair")
+    n = len(ref["solo"][0][1])
+    log(f"  [{smi}] aggregated worker, 8 streams x {n} tokens: "
+        f"{stats_line(agg['stats'])}")
+    log(f"  [{smi}] disaggregated pair, direct (CUDA IPC), same requests: "
+        f"{stats_line(out['stats'])}")
+    log(f"  [{smi}] disaggregated pair, host-staged, same requests: "
+        f"{stats_line(host['stats'])}")
+    for name, sps in (("direct", splits), ("host-staged", hsplits)):
+        for i in range(8):
+            rid = f"burst-{i}"
+            if rid in sps:
+                log(f"  {name} {rid} ({len(ref['prompts'][i])} tokens): "
+                    f"{split_line(sps[rid])}")
+        log(f"  {name} long prompt ({out['long_tokens']} tokens): "
+            f"{split_line(sps['long-remote'])}")
+    log("  the long prompt prefilled locally after the live threshold rose: "
+        "the same stream as remotely")
 
 
 def block_copy_check(engine, label: str, smi: str, n: int = 56) -> dict:
@@ -3233,7 +3368,7 @@ def main() -> int:
     engine, served, streams, phase3 = serving_phase(
         a.seed, smi, solo=True, extra=sampled_extra("llama3_8b", a.seed, smi,
                                                     True, burst=True),
-        compare_eager=True)
+        compare_eager=True, warmup=True)
     launches = {"ragged_paged_attention": served["ragged_paged_attention"],
                 "gumbel_argmax": phase3["extra"]["launches"]}
     greedy, drawn = phase3["stats"], phase3["extra"]["stats"]

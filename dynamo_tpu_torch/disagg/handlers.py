@@ -22,10 +22,15 @@ disaggregation and the KV pulls between workers.
   and onboard pulls.
 - ``DisaggConfigWatcher`` keeps the threshold live from the control plane.
 
-KV moves host-staged over the response plane. The port advertises no
-direct transfer (ROADMAP A8d) and has no KVBM tier (A8e): a plan's
-``g4_blocks`` counts as "not here", and no ``kv_session`` endpoint is
-served (A8c). Spans wait for A12b. The handlers' counts (``report()``,
+KV moves device to device when the decode worker's ``kv_direct``
+capability lets the prefill worker offer it (``disagg/transfer.py``: the
+same process, or CUDA IPC on one card); the prefill stream then carries
+KvDirectFrame descriptors, pulled, scattered and released here. Anything
+else, a JAX peer in either role included, moves host-staged over the
+response plane. A pull that fails is counted
+(``kv_direct_pull_failures_total``) and the prompt recomputed locally.
+The port has no KVBM tier (A8e): a plan's ``g4_blocks`` counts as "not
+here", and no ``kv_session`` endpoint is served (A8c). Spans wait for A12b. The handlers' counts (``report()``,
 the worker's exit report) are the one record of what they did; the
 metrics registry's counters read them at scrape time. A request the
 engine cannot serve (multimodal input: ``engine.refusal``) is rejected
@@ -48,7 +53,8 @@ from dynamo_tpu_torch.disagg.protocols import (
     DisaggConfig, KvChunkFrame, KvLayerFrame, PrefillResponse,
 )
 from dynamo_tpu_torch.disagg.transfer import (
-    OnboardConfig, RestoreConfig, pull_restore_blocks, restore_pull_timeout,
+    DirectKvBundle, KvDirectFrame, OnboardConfig, RestoreConfig, pull_bundle,
+    pull_restore_blocks, restore_pull_timeout,
 )
 from dynamo_tpu_torch.engine.engine import refusal
 from dynamo_tpu_torch.protocols import PreprocessedRequest
@@ -74,6 +80,13 @@ COUNTER_FAMILIES = {
     "kv_transfer_bytes_total": (
         "transfer_bytes", "path",
         "disagg KV bytes placed on this decode worker, by link path"),
+    "kv_transfers_total": (
+        "transfer_paths", "path",
+        "remote prefills' KV transfers on this decode worker, by link path: "
+        "proc | ipc | host"),
+    "kv_direct_pull_failures_total": (
+        "direct_pull_failures", None,
+        "direct KV pulls that failed (the prompt was recomputed locally)"),
     "prefill_claim_fallback_total": (
         "fallbacks", "reason",
         "queued prefill dispatches that degraded to round robin, and "
@@ -276,6 +289,8 @@ class DecodeWorkerHandler:
         #: first missing hash → the in-flight onboard of that prefix: a
         #: prefix arriving N-wide pulls once
         self._onboard_inflight: dict[int, asyncio.Future] = {}
+        #: direct pulls' releases still waiting for their scatter
+        self._releases: set = set()
 
     # ------------------------------------------------------------- counts
 
@@ -700,14 +715,39 @@ class DecodeWorkerHandler:
                 preq.to_wire(), ctx=ctx, mode="round_robin")
         return stream
 
+    def _release(self, bundle, rec: dict) -> None:
+        """Give a direct bundle back once its scatter completed, in a task
+        of its own (a cancelled request still releases); its seconds add
+        to the transfer record."""
+        async def run():
+            try:
+                rec["release_s"] += await coro
+            except Exception:
+                logger.exception("direct KV release failed")
+
+        coro = self.engine.direct_transfer.release(bundle)
+        task = asyncio.get_running_loop().create_task(run())
+        self._releases.add(task)
+        task.add_done_callback(self._releases.discard)
+
+    async def drain_releases(self) -> None:
+        """Wait for the direct pulls' releases still under way."""
+        if self._releases:
+            await asyncio.gather(*list(self._releases),
+                                 return_exceptions=True)
+
     async def _generate_disagg(self, req: PreprocessedRequest, ctx):
         caps = [KV_CHUNKS_ANNOTATION]
         if self.engine.args.kv_transfer_layer_groups > 1:
             caps.append(KV_LAYERS_ANNOTATION)
+        direct_cap = self.engine.direct_capability()
+        if direct_cap:
+            caps.append(direct_cap)
         preq = dataclasses.replace(
             req, annotations=list(req.annotations or []) + caps)
         stream = await self._open_prefill_stream(preq, ctx)
         eng = self.engine
+        mgr = eng.direct_transfer
         bs = eng.args.block_size
         total = (len(req.token_ids) + bs - 1) // bs
         ids = None  # decode-side blocks, allocated at the first frame
@@ -720,12 +760,18 @@ class DecodeWorkerHandler:
         # of their slice landed
         lnext = 0
         lblocks = None
+        # the link path (proc | ipc | host); each frame: (kind, bytes,
+        # arrival, scatter s, pull s); release_s: the direct releases
+        path = "host"
         rec = {"id": getattr(ctx, "id", None), "prompt": len(req.token_ids),
-               "frames": []}
+               "frames": [], "release_s": 0.0}
         t_xfer0 = time.time()
 
         async def place(bundle, start_layer=None) -> None:
-            k, v = await eng.stage_bundle(bundle)
+            if isinstance(bundle, DirectKvBundle):
+                k, v = bundle.k, bundle.v
+            else:
+                k, v = await eng.stage_bundle(bundle)
             eng.scatter_chunk(ids[bundle.start_block:
                                   bundle.start_block + bundle.num_blocks],
                               k, v, start_layer=start_layer)
@@ -733,56 +779,86 @@ class DecodeWorkerHandler:
         try:
             async for frame in stream:
                 t_recv = time.time()
+                direct = KvDirectFrame.is_wire(frame)
                 chunk = KvChunkFrame.is_wire(frame)
                 layer = KvLayerFrame.is_wire(frame)
-                if not (chunk or layer):
+                if not (chunk or layer or direct):
                     presp = PrefillResponse.from_wire(frame)
                     continue
                 if not placed:
-                    continue  # keep draining: the last frame has the token
-                ch = (KvLayerFrame.from_wire(frame) if layer
-                      else KvChunkFrame.from_wire(frame)).bundle
+                    # keep draining (the last frame has the token); an
+                    # offer that will not be pulled is dropped now
+                    if direct and mgr is not None:
+                        mgr.retract(KvDirectFrame.from_wire(frame).desc)
+                    continue
+                pull_s = 0.0
+                if direct:
+                    df = KvDirectFrame.from_wire(frame)
+                    try:
+                        if mgr is None:
+                            raise RuntimeError("direct KV frame on a worker "
+                                               "with kv_transfer_direct off")
+                        ch = pull_bundle(mgr, df)
+                    except Exception:
+                        logger.exception("direct KV pull failed; the "
+                                         "prompt is recomputed locally")
+                        if mgr is not None:
+                            mgr.retract(df.desc)
+                        self._count("direct_pull_failures", "pull")
+                        placed, why = False, "direct_pull"
+                        continue
+                    pull_s = time.time() - t_recv
+                    path = df.desc.get("mode") or path
+                    layer = ch.total_layers is not None
+                else:
+                    ch = (KvLayerFrame.from_wire(frame) if layer
+                          else KvChunkFrame.from_wire(frame)).bundle
                 n = ch.num_blocks
                 tl = ch.total_layers
-                if (not eng.check_bundle_dims(ch)
-                        or ch.start_block + n > total):
-                    placed, why = False, "bundle_dims"
-                    continue
-                if tl is None:
-                    # full depth: extends the contiguous range, and never
-                    # interleaves a torn layer assembly
-                    if ch.start_block != next_block or lnext != 0:
+                try:
+                    if (not eng.check_bundle_dims(ch)
+                            or ch.start_block + n > total):
+                        placed, why = False, "bundle_dims"
+                        continue
+                    if tl is None:
+                        # full depth: extends the contiguous range, and
+                        # never interleaves a torn layer assembly
+                        if ch.start_block != next_block or lnext != 0:
+                            placed, why = False, "torn"
+                            continue
+                    elif (ch.start_block != next_block
+                            or ch.start_layer != lnext
+                            or (lblocks is not None and lblocks != n)):
                         placed, why = False, "torn"
                         continue
-                elif (ch.start_block != next_block
-                        or ch.start_layer != lnext
-                        or (lblocks is not None and lblocks != n)):
-                    placed, why = False, "torn"
-                    continue
-                if ids is None:
-                    ids = eng.alloc_inject(total)
                     if ids is None:
-                        placed, why = False, "no_blocks"
-                        continue
-                    owned = True
-                try:
-                    if tl is None:
-                        await place(ch)
-                        next_block += n
-                    else:
-                        await place(ch, start_layer=ch.start_layer)
-                        lnext += ch.k.shape[0]
-                        lblocks = n
-                        if lnext >= tl:  # every layer landed
+                        ids = eng.alloc_inject(total)
+                        if ids is None:
+                            placed, why = False, "no_blocks"
+                            continue
+                        owned = True
+                    try:
+                        if tl is None:
+                            await place(ch)
                             next_block += n
-                            lnext, lblocks = 0, None
-                except Exception:
-                    logger.exception("KV chunk scatter failed")
-                    placed, why = False, "scatter"
-                    continue
-                rec["frames"].append(("layer" if layer else "chunk",
-                                      ch.nbytes, t_recv,
-                                      time.time() - t_recv))
+                        else:
+                            await place(ch, start_layer=ch.start_layer)
+                            lnext += ch.k.shape[0]
+                            lblocks = n
+                            if lnext >= tl:  # every layer landed
+                                next_block += n
+                                lnext, lblocks = 0, None
+                    except Exception:
+                        logger.exception("KV chunk scatter failed")
+                        placed, why = False, "scatter"
+                        continue
+                    rec["frames"].append(("layer" if layer else "chunk",
+                                          ch.nbytes, t_recv,
+                                          time.time() - t_recv - pull_s,
+                                          pull_s))
+                finally:
+                    if direct:
+                        self._release(ch, rec)
             if presp is None:
                 raise RuntimeError("prefill worker returned no response")
             t_recv = time.time()
@@ -808,7 +884,7 @@ class DecodeWorkerHandler:
                         await place(tail)
                         next_block += n
                         rec["frames"].append(("tail", tail.nbytes, t_recv,
-                                              time.time() - t_recv))
+                                              time.time() - t_recv, 0.0))
                     except Exception:
                         logger.exception("KV tail scatter failed")
                         placed, why = False, "scatter"
@@ -816,11 +892,13 @@ class DecodeWorkerHandler:
                     placed, why = False, "torn"
             if placed and next_block < total:
                 placed, why = False, "incomplete"
-            rec.update(placed=placed, stream_s=time.time() - t_xfer0)
+            rec.update(placed=placed, path=path,
+                       stream_s=time.time() - t_xfer0)
             self.transfers.append(rec)
-            self._count("transfer_bytes", "host",
+            self._count("transfer_paths", path)
+            self._count("transfer_bytes", path,
                         sum(f[1] for f in rec["frames"]))
-            self._observe("kv_transfer_seconds", rec["stream_s"], path="host")
+            self._observe("kv_transfer_seconds", rec["stream_s"], path=path)
             if not placed:
                 # the documented degradation, counted: recompute locally
                 self._count("fallbacks", f"recompute_{why}")

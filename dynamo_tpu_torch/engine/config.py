@@ -293,7 +293,6 @@ UNPORTED_KNOBS = {
     "preempt_swap": (False, "A8e"),
     "swap_host_bytes": (None, "A8e"),
     "quantization": (None, "A5"),
-    "kv_transfer_direct": (False, "A8d"),
 }
 
 
@@ -353,6 +352,10 @@ class EngineArgs:
     #: advertised ``kv_layers`` (clamped to the layer count); a decode
     #: worker advertises it when this is > 1. <= 1: whole-bundle tails
     kv_transfer_layer_groups: int = 4
+    #: direct device-to-device KV transfer for disagg (same process, or
+    #: CUDA IPC on one card: ``disagg/transfer.py``); False = host-staged
+    #: bundles only
+    kv_transfer_direct: bool = True
     # knobs of the JAX package not ported yet (UNPORTED_KNOBS)
     tp_size: int = 1
     dp_size: int = 1
@@ -365,7 +368,6 @@ class EngineArgs:
     preempt_swap: bool = False
     swap_host_bytes: Optional[int] = None
     quantization: Optional[str] = None
-    kv_transfer_direct: bool = False
 
     def __post_init__(self):
         for name, (off, item) in UNPORTED_KNOBS.items():

@@ -275,9 +275,24 @@ class AsyncTorchEngine:
         self._embed_cache: Optional[tuple] = None
         self._embed_lock = threading.Lock()
         #: the last prefill extractions' transfers, one record a request:
-        #: its context id and, for each frame, (kind, bytes, gather time,
-        #: bytes-ready time) on the wall clock
+        #: its context id, its transfer mode ("proc", "ipc", "host") and,
+        #: for each frame, (kind, bytes, gather time, bytes-ready time) on
+        #: the wall clock (a direct frame's bytes are ready when offered)
         self.extract_log: collections.deque = collections.deque(maxlen=256)
+        #: direct device-to-device KV transfer for disagg
+        #: (``disagg/transfer.py``); None = host-staged bundles only
+        self.direct_transfer = None
+        if args.kv_transfer_direct:
+            from dynamo_tpu_torch.disagg.transfer import DirectTransferManager
+
+            self.direct_transfer = DirectTransferManager(device=self.device)
+
+    def direct_capability(self) -> Optional[str]:
+        """The annotation a decode worker sends so that the prefill worker
+        can offer direct device-to-device KV pulls."""
+        if self.direct_transfer is None:
+            return None
+        return self.direct_transfer.capability()
 
     # ------------------------------------------------------------------ api
 
@@ -408,6 +423,8 @@ class AsyncTorchEngine:
                 await self._task
             except asyncio.CancelledError:
                 pass
+        if self.direct_transfer is not None:
+            self.direct_transfer.close()
 
     # ------------------------------------------------------------ main loop
 
@@ -1199,6 +1216,13 @@ class AsyncTorchEngine:
         KvLayerFrames of a layer group each, then the final
         PrefillResponse with what was not shipped yet.
 
+        When the decode worker's ``kv_direct`` capability allows a direct
+        pull (``disagg/transfer.py``), every such frame is a KvDirectFrame
+        instead, an offer of the gathered device tensors: one a chunk
+        event, one a layer group of the tail, else one for the rest of the
+        tail, and the response carries no bundle. Offers of a stream that
+        ends early are retracted (unclaimed ones are freed after a grace).
+
         A chunk's gather is enqueued inside the progress callback, right
         after the chunk commits and before any later step is launched.
         Shipping is monotonic: a preemption recompute re-fires progress
@@ -1212,23 +1236,32 @@ class AsyncTorchEngine:
         from dynamo_tpu_torch.disagg.protocols import (
             KvBundle, KvChunkFrame, KvLayerFrame, PrefillResponse,
         )
+        from dynamo_tpu_torch.disagg.transfer import KvDirectFrame
 
         self._ensure_loop()
+        mgr = self.direct_transfer
+        mode = mgr.choose_mode(req.annotations) if mgr is not None else None
         layer_groups = self._kv_layer_groups(req.annotations)
         bs = self.args.block_size
         sink: asyncio.Queue = asyncio.Queue()
         events: asyncio.Queue = asyncio.Queue()
         state = {"shipped": 0}
         rec = {"id": getattr(ctx, "id", None), "prompt": len(req.token_ids),
-               "frames": []}
+               "mode": mode or "host", "frames": []}
+        offered: list = []  # this stream's direct descriptors
+        completed = False
 
         L = cache_shape(self.k_cache)[0]
         per_frame = self._frame_blocks(L)
 
-        def gather(lo: int, hi: int) -> tuple:
+        def gather(lo: int, hi: int, offers: int = 1) -> tuple:
+            """k and v of blocks [lo, hi), and for a direct mode one ready
+            marker a coming offer of them."""
             ids = seq.block_table[lo:hi]
-            return (gather_blocks(self.k_cache, ids, block_size=bs),
-                    gather_blocks(self.v_cache, ids, block_size=bs))
+            kb = gather_blocks(self.k_cache, ids, block_size=bs)
+            vb = gather_blocks(self.v_cache, ids, block_size=bs)
+            ready = [mgr.ready(mode) for _ in range(offers)] if mode else None
+            return kb, vb, ready
 
         def on_progress(end: int) -> None:
             if layer_groups is not None and end >= seq.prompt_len:
@@ -1261,16 +1294,34 @@ class AsyncTorchEngine:
             rec["frames"].append((kind, bundle.nbytes, t0, time.time()))
             return wire
 
+        def direct(kind, k, v, ready, t0, num_tokens, start_block,
+                   **layer):
+            # the JAX engine's descriptor keys, in its order
+            desc = mgr.offer(mode, [k, v], {
+                "num_tokens": num_tokens, "n": k.shape[1], "block_size": bs,
+                "start_block": start_block, **layer}, ready=ready)
+            offered.append(desc)
+            rec["frames"].append((kind, k.numel() * k.element_size()
+                                  + v.numel() * v.element_size(), t0,
+                                  time.time()))
+            return KvDirectFrame(desc).to_wire()
+
         try:
             done = False
             while not done:
                 kind, val = await events.get()
                 if kind == "chunk":
-                    start, kb, vb, t0 = val
+                    start, kb, vb, ready, t0 = val
+                    num_tokens = (start + kb.shape[1]) * bs
+                    if mode is not None:
+                        yield direct("chunk", kb, vb, ready[0], t0,
+                                     num_tokens=num_tokens,
+                                     start_block=start)
+                        continue
                     k, v = await self._stage_host(kb, vb)
                     yield frame("chunk", KvBundle(
-                        k=k, v=v, num_tokens=(start + k.shape[1]) * bs,
-                        block_size=bs, start_block=start), t0, KvChunkFrame)
+                        k=k, v=v, num_tokens=num_tokens, block_size=bs,
+                        start_block=start), t0, KvChunkFrame)
                 elif val is None:
                     done = True
                 else:
@@ -1280,6 +1331,7 @@ class AsyncTorchEngine:
                     if val.finish_reason is not None:
                         done = True
             if token is None or not seq.block_table:
+                completed = True
                 yield PrefillResponse(token_id=-1, logprob=None,
                                       bundle=None).to_wire()
                 return
@@ -1288,27 +1340,43 @@ class AsyncTorchEngine:
             if layer_groups:
                 # a gather a frame's blocks, then a layer group at a time:
                 # the wire and scatter of group g overlap the staging of
-                # g + 1
+                # g + 1 (host), or the pulls interleave the same way
                 step = self._frame_blocks(max(g1 - g0
                                               for g0, g1 in layer_groups))
                 for lo in range(state["shipped"], total, step):
                     t0 = time.time()
-                    kb, vb = gather(lo, min(total, lo + step))
-                    for g0, g1 in layer_groups:
-                        k, v = await self._stage_host(kb[g0:g1], vb[g0:g1])
-                        yield frame("layer", KvBundle(
-                            k=k, v=v, num_tokens=seq.prompt_len,
-                            block_size=bs, start_block=lo, start_layer=g0,
-                            total_layers=L), t0, KvLayerFrame)
+                    kb, vb, ready = gather(lo, min(total, lo + step),
+                                           len(layer_groups))
+                    for i, (g0, g1) in enumerate(layer_groups):
+                        if mode is not None:
+                            yield direct("layer", kb[g0:g1], vb[g0:g1],
+                                         ready[i], t0,
+                                         num_tokens=seq.prompt_len,
+                                         start_block=lo, start_layer=g0,
+                                         total_layers=L)
+                        else:
+                            k, v = await self._stage_host(kb[g0:g1],
+                                                          vb[g0:g1])
+                            yield frame("layer", KvBundle(
+                                k=k, v=v, num_tokens=seq.prompt_len,
+                                block_size=bs, start_block=lo,
+                                start_layer=g0, total_layers=L), t0,
+                                KvLayerFrame)
                         t0 = time.time()
             else:
-                # chunk frames, then the last frame's worth in the response
+                # chunk frames, then the last frame's worth in the
+                # response (direct: offers to the end, and no bundle)
                 for lo in range(state["shipped"], total, per_frame):
                     hi = min(total, lo + per_frame)
                     t0 = time.time()
-                    k, v = await self._stage_host(*gather(lo, hi))
-                    b = KvBundle(k=k, v=v, num_tokens=min(hi * bs,
-                                                          seq.prompt_len),
+                    kb, vb, ready = gather(lo, hi)
+                    num_tokens = min(hi * bs, seq.prompt_len)
+                    if mode is not None:
+                        yield direct("chunk", kb, vb, ready[0], t0,
+                                     num_tokens=num_tokens, start_block=lo)
+                        continue
+                    k, v = await self._stage_host(kb, vb)
+                    b = KvBundle(k=k, v=v, num_tokens=num_tokens,
                                  block_size=bs, start_block=lo)
                     if hi < total:
                         yield frame("chunk", b, t0, KvChunkFrame)
@@ -1320,12 +1388,16 @@ class AsyncTorchEngine:
                                    bundle=bundle).to_wire()
             if bundle is not None:
                 rec["frames"].append(("tail", bundle.nbytes, t0, time.time()))
+            completed = True
             yield wire
         finally:
             drainer.cancel()
             self.scheduler.abort(seq)
             self._wake.set()
             self.extract_log.append(rec)
+            if not completed:
+                for desc in offered:
+                    mgr.retract(desc)
 
     def blocks_digest(self, ids) -> torch.Tensor:
         """``ops.block_copy.blocks_digest`` of blocks ``ids`` of both
@@ -1334,9 +1406,12 @@ class AsyncTorchEngine:
                              block_size=self.args.block_size)
 
     def extract_records(self) -> list:
-        """``extract_log`` with each digest read back (the device waits)."""
-        return [{**r, "digest": int(r["digest"])} if "digest" in r else r
-                for r in self.extract_log]
+        """``extract_log`` with each digest read back (the device waits);
+        the log keeps the ints, so it holds no device memory after."""
+        for r in self.extract_log:
+            if isinstance(r.get("digest"), torch.Tensor):
+                r["digest"] = int(r["digest"])
+        return [dict(r) for r in self.extract_log]
 
     def _frame_blocks(self, layers: int) -> int:
         """Blocks one transfer frame of ``layers`` layers carries while its

@@ -30,10 +30,18 @@ them. The guided-decoding alphabet comes from the tokenizer's
 ``--device`` (default "cuda"; "cpu" only when asked for). The model dtype
 is the checkpoint config's, as the JAX worker reads it.
 
+The disaggregated roles move KV device to device when they can
+(``disagg/transfer.py``: CUDA IPC between two workers on one card);
+``--no-kv-transfer-direct`` (the JAX package's ``EngineArgs.
+kv_transfer_direct`` off) keeps every transfer host-staged.
+
 The worker prints ``WORKER_READY`` once registered, and at exit a line
 ``WORKER_EXIT {json}`` with its engine steps, the launches of each kernel
-wrapper in this process, the blocks still in use, and its role's transfer
-counts and records.
+wrapper in this process, the blocks still in use, its role's transfer
+counts and records (the decode side's transfers by link path), the direct
+transfer's offers, pulls, pull failures, offers still outstanding and
+handles still mapped, and its allocated device bytes when it registered
+and at exit.
 """
 
 from __future__ import annotations
@@ -158,6 +166,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-layer-groups", type=int, default=4,
                     help="layer groups the last prefill chunk's KV ships "
                          "in (<= 1: one bundle)")
+    ap.add_argument("--no-kv-transfer-direct", dest="kv_transfer_direct",
+                    action="store_false", default=True,
+                    help="move disagg KV host-staged only: offer no direct "
+                         "device-to-device pull, advertise none")
     ap.add_argument("--no-prefix-caching", action="store_true")
     ap.add_argument("--tool-call-parser", default=None,
                     choices=["hermes", "llama3_json", "mistral", "phi4",
@@ -266,7 +278,8 @@ def configure(cli) -> tuple[ModelConfig, EngineArgs, list[int], str]:
             structured_device=cli.structured_device,
             structured_table_mb=cli.structured_table_mb,
             warmup_buckets=cli.warmup_buckets,
-            kv_transfer_layer_groups=cli.kv_layer_groups)
+            kv_transfer_layer_groups=cli.kv_layer_groups,
+            kv_transfer_direct=cli.kv_transfer_direct)
     except ValueError as e:
         raise SystemExit(str(e))
     return cfg, args, eos, tokenizer_ref
@@ -415,6 +428,7 @@ async def serve(cli, engine, args: EngineArgs, eos: list[int],
             card.runtime_config.reasoning_parser = cli.reasoning_parser
             await register_llm(runtime, ep, card, lease_id=lease)
 
+        ready_bytes = device_bytes(engine)
         print("WORKER_READY", flush=True)
         await stop.wait()
         for fn in stoppers:
@@ -423,20 +437,45 @@ async def serve(cli, engine, args: EngineArgs, eos: list[int],
             await h.stop(graceful=False)
         await handle.stop(graceful=True, timeout=runtime.config.drain_timeout)
         await kv_pub.stop()
-        active = engine.pool.num_active_blocks
+        if decode is not None:
+            await decode.drain_releases()
+        report = {"steps": engine.steps,
+                  "pipelined_steps": engine.pipelined_steps,
+                  "forward_steps": engine.forward_steps,
+                  "launches": kernel_launches(),
+                  "compile_events": engine.compile_events,
+                  "active_blocks": engine.pool.num_active_blocks,
+                  "served_pulls": puller.served}
+        if decode is not None:
+            report["disagg"] = decode.report()
+        if prefill:
+            report["extract"] = engine.extract_records()
+        mgr = engine.direct_transfer
+        if mgr is not None:
+            # the sweep frees what the decode side released
+            report["direct"] = {**mgr.stats,
+                                "outstanding": mgr.outstanding(),
+                                "held_bytes": mgr.held_bytes(),
+                                "mapped": getattr(mgr.ipc, "mapped", 0)}
+        # at rest: the bytes allocated when registered, and now (offers
+        # freed, digests read back)
+        report["device_bytes"] = {"ready": ready_bytes,
+                                  "exit": device_bytes(engine)}
         await engine.close()
     finally:
         await runtime.shutdown()
-    report = {"steps": engine.steps, "pipelined_steps": engine.pipelined_steps,
-              "forward_steps": engine.forward_steps,
-              "launches": kernel_launches(),
-              "compile_events": engine.compile_events,
-              "active_blocks": active, "served_pulls": puller.served}
-    if decode is not None:
-        report["disagg"] = decode.report()
-    if prefill:
-        report["extract"] = engine.extract_records()
     return report
+
+
+def device_bytes(engine) -> Optional[int]:
+    """Bytes the caching allocator holds allocated on the engine's card
+    (None on the CPU)."""
+    if engine.device.type != "cuda":
+        return None
+    import torch
+
+    torch.cuda.synchronize(engine.device)
+    return torch.cuda.memory_allocated(engine.device)
 
 
 async def amain(argv=None) -> None:

@@ -77,13 +77,16 @@ def _jparams():
 
 
 def make_engine(**kw) -> AsyncTorchEngine:
-    """A tiny CPU engine on the JAX package's random weights."""
+    """A tiny CPU engine on the JAX package's random weights. These tests
+    hold the host-staged transfer, so the direct one is off (two engines
+    of one process would negotiate it: test_torch_direct_transfer.py)."""
     if "torch" not in _PARAMS:
         _PARAMS["torch"] = params_from_jax(
             jax.tree.map(np.asarray, _jparams()), "cpu")
     event_cb = kw.pop("event_cb", None)
     return AsyncTorchEngine(ModelConfig.tiny(),
-                            EngineArgs(**{**SETTINGS, **kw}),
+                            EngineArgs(**{**SETTINGS,
+                                          "kv_transfer_direct": False, **kw}),
                             params=_PARAMS["torch"], device="cpu",
                             guided_vocab=VOCAB, event_cb=event_cb)
 
@@ -714,7 +717,10 @@ async def test_claim_timeout_falls_back_round_robin():
         assert f'dynamo_kv_transfer_bytes_total{{path="host"}} {nbytes}' \
             in text
         assert 'dynamo_kv_transfer_seconds_count{path="host"} 1' in text
-        assert "direct" not in text
+        # host-staged only: no direct link path, no direct pull
+        assert 'path="proc"' not in text and 'path="ipc"' not in text
+        assert not [line for line in text.splitlines() if line.startswith(
+            "dynamo_kv_direct_pull_failures_total")]
     finally:
         await pre.close()
         await dec.close()
@@ -926,8 +932,9 @@ async def test_mixed_prefill_decode_pairs_equal_jax_aggregated(direction, kv):
 
 def test_roles_flags_and_refusals():
     """Both roles configure, ``--kv-layer-groups`` reaches EngineArgs, and
-    what stays unported is refused under its new id: the direct transfer
-    (A8d), the KVBM tiers and swap (A8e)."""
+    what stays unported is refused under its new id: the KVBM tiers and
+    swap (A8e). The direct transfer (A8d) is on unless
+    ``--no-kv-transfer-direct`` turns it off."""
     from dynamo_tpu_torch.engine import main as worker_main
 
     def configure(*argv):
@@ -950,7 +957,10 @@ def test_roles_flags_and_refusals():
             continue
         with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
             configure(*argv)
-    for knob, item in (("kv_transfer_direct", "A8d"), ("preempt_swap", "A8e"),
-                       ("kvbm_host_bytes", "A8e")):
+    for knob, item in (("preempt_swap", "A8e"), ("kvbm_host_bytes", "A8e")):
         with pytest.raises(ValueError, match=f"ROADMAP {item}"):
             EngineArgs(**{knob: 1})
+    # the direct transfer is ported: on by default, off by its flag
+    assert EngineArgs().kv_transfer_direct
+    assert not configure("--role", "decode",
+                         "--no-kv-transfer-direct")[1].kv_transfer_direct

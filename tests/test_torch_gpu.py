@@ -835,3 +835,85 @@ def test_fsm_arena_update_seen_by_replay_on_card():
     got = step(True)  # replay with the new rows
     assert vocab[got] in "xyz"
     assert got == step(False)
+
+
+#: the consumer process of ``test_direct_ipc_pull_by_another_process``:
+#: once up, it waits for the descriptor in argv[1], pulls it, copies the
+#: tensors into its own memory (the scatter's read), releases, and saves
+#: them to argv[2]
+IPC_CONSUMER = """
+import asyncio, os, sys, time, torch
+from dynamo_tpu_torch.disagg.transfer import (
+    DirectTransferManager, KvDirectFrame, pull_bundle)
+from dynamo_tpu_torch.runtime.codec import unpackb
+mgr = DirectTransferManager(device="cuda")
+print(mgr.capability(), flush=True)
+while not os.path.exists(sys.argv[1]):
+    time.sleep(0.001)
+frame = KvDirectFrame.from_wire(unpackb(open(sys.argv[1], "rb").read()))
+b = pull_bundle(mgr, frame)
+k, v = b.k.clone(), b.v.clone()
+mapped = mgr.ipc.mapped
+asyncio.run(mgr.release(b))
+torch.save((k.cpu(), v.cpu()), sys.argv[2])
+print(mapped, mgr.ipc.mapped, mgr.stats["pulls"], flush=True)
+"""
+
+
+@pytest.mark.gpu
+def test_direct_ipc_pull_by_another_process(tmp_path):
+    """An "ipc" offer of two tensors on the card (one a view at an offset
+    into a larger allocation, as a layer group is), the second written
+    behind a second of device work, pulled by another process at once: it
+    reads the written bytes (its stream waited for the producer's event),
+    maps one handle a segment and unmaps them at release; the offer is
+    then freed on the producer, and ``choose_mode`` picks "ipc" for that
+    process's capability."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    from dynamo_tpu_torch.disagg.transfer import (
+        DirectTransferManager, KvDirectFrame,
+    )
+    from dynamo_tpu_torch.runtime.codec import packb
+
+    path, out = tmp_path / "desc.bin", tmp_path / "kv.pt"
+    root = pathlib.Path(__file__).resolve().parents[1]
+    proc = subprocess.Popen([sys.executable, "-c", IPC_CONSUMER, str(path),
+                             str(out)], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    mgr = DirectTransferManager(device="cuda")
+    try:
+        cap = proc.stdout.readline().strip()
+        assert mgr.choose_mode([cap]) == "ipc", proc.stderr.read()[-3000:]
+        g = torch.Generator(device="cuda").manual_seed(5)
+        big = torch.randn(8, 40, 16, 8, 128, generator=g, device="cuda",
+                          dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)  # about a second of device work
+        k = big[4:8]
+        v = big[:4] * 2
+        desc = mgr.offer("ipc", [k, v], {"num_tokens": 640, "n": 40,
+                                         "block_size": 16, "start_block": 0},
+                         ready=mgr.ready("ipc"))
+        assert desc["arrays"][0]["offset"] > 0
+        tmp = path.with_suffix(".tmp")
+        tmp.write_bytes(packb(KvDirectFrame(desc).to_wire()))
+        os.rename(tmp, path)
+        stdout, stderr = proc.communicate(timeout=300)
+        assert proc.returncode == 0, stderr[-3000:]
+        mapped, after, pulls = map(int, stdout.split())
+        handles = {bytes(a["handle"]) for a in desc["arrays"]}
+        assert (mapped, after, pulls) == (len(handles), 0, 1)
+        got_k, got_v = torch.load(out)
+        assert torch.equal(got_k, k.cpu()) and torch.equal(got_v, v.cpu())
+        assert mgr.outstanding() == 0 and mgr.held_bytes() == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        mgr.close()
