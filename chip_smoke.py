@@ -83,6 +83,28 @@ prints any result:
    ``multi_step_decode=4`` on the same engine: the eight greedy and the
    eight seeded sampled requests in bursts of four steps, every stream
    equal to the K = 1 run's, the per-token decode wall beside K = 1's.
+   Then speculative decoding on the same engine (``spec_serving``; the
+   engine is made with ``speculative_tokens=4``, which sizes its staging
+   buffer and verify scratch, and runs with 0 until here):
+   ``speculative_tokens=4`` with the governor off, ``warmup()`` again
+   (every verify bucket, plain and FSM-masked; the step signatures
+   replay), the K = 1 references phase 3 lacks (eight repetitive
+   prompts, a random 48-token segment repeated to 300-900 tokens, on both
+   loops; a greedy json_schema request on the device FSM), then,
+   capturing nothing, prompt lookup on the eight greedy requests, the
+   repetitive prompts and the guided request (verified under mask words,
+   matching the schema), and the layer-skip draft at D = 32 and 8 (a
+   warmup of its burst each). First ``spec_path_check`` (24 rows): the
+   same positions as decode rows and as verify rows, and every packed
+   position of the verify through the kernels and through the plain
+   attention, held by :func:`tie_gate`. Every spec stream equals its
+   K = 1 stream up to its first difference, where the K = 1 run's best
+   token and the spec stream's token (a serial re-run with top logprobs)
+   lie within SPEC_TIE_STEPS bf16 steps at the row's logit scale,
+   printed; the ragged kernel launches L times a verify forward and a
+   plain forward step and D times a draft step; drafts, acceptance,
+   tokens a verify, the round's wall, ITL and tok/s are printed beside
+   the K = 1 runs'.
    Then the captured step against the eager step on the same operands (a
    decode-only and a mixed step, replayed in the reverse of their capture
    order): logits and written cache slots bit-equal, the same launches.
@@ -171,6 +193,11 @@ prints any result:
    the MLA prefill kernel 27 times in each step with chunk tokens, and no
    other attention kernel at all; the eager and captured runs of phase 3;
    then the eight seeded sampled requests on both loops, streams equal;
+   prompt-lookup speculative decoding as in phase 3 on the eight greedy
+   requests and the repetitive prompts (the MLA prefill kernel 27 times a
+   verify: a verify's rows are all chunks; the decode kernel 27 times a
+   plain step and a verify, whose rows it sees at kv_len 0; DeepSeek has
+   no layer-skip draft: its dense first layer);
    the captured step against the eager step. Then one full-width MLA
    ragged step
    through the kernels against the same step through their plain
@@ -205,6 +232,7 @@ import struct
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1359,9 +1387,10 @@ def sample_kernel_phase(seed: int) -> dict:
 
 class StepClock:
     """Records each ``_execute`` of an engine: its start and end on the host
-    clock, the forward steps it ran (the pipelined loop runs many in one, a
-    burst K), whether its plan held prefill chunks, and the requests running
-    and waiting after it (as the engine's load metrics report them)."""
+    clock, the full-depth forward steps it ran (the pipelined loop runs many
+    in one, a burst K, a spec round its verify forwards), whether its plan
+    held prefill chunks, the requests running and waiting after it (as the
+    engine's load metrics report them), and its verify forwards."""
 
     def __init__(self, engine):
         self.records = []
@@ -1371,16 +1400,19 @@ class StepClock:
 
         async def timed(plan):
             f0, t0 = engine.forward_steps, time.perf_counter()
+            v0 = engine.verify_steps
             self.inflight += 1
             try:
                 await run(plan)
             finally:
                 self.inflight -= 1
             self.records.append((t0, time.perf_counter(),
-                                 engine.forward_steps - f0,
+                                 engine.forward_steps - f0
+                                 + engine.verify_steps - v0,
                                  bool(plan.prefill),
                                  len(engine.scheduler.running),
-                                 engine.scheduler.num_waiting()))
+                                 engine.scheduler.num_waiting(),
+                                 engine.verify_steps - v0))
 
         engine._execute = timed
 
@@ -1398,6 +1430,14 @@ class StepClock:
             raise AssertionError("the run had no decode-only step")
         steps = sum(r[2] for r in stretch)
         return (stretch[0][1] - stretch[-1][0]) / steps * 1e3, steps
+
+    def spec_round_ms(self) -> tuple[float, int]:
+        """Mean host wall of the run's spec rounds (draft, verify and the
+        host's part), and their count (nan, 0 without one)."""
+        walls = [r[1] - r[0] for r in self.records if r[6] and not r[3]]
+        if not walls:
+            return math.nan, 0
+        return statistics.mean(walls) * 1e3, len(walls)
 
     def admission(self, n: int = 4) -> list:
         """(running, waiting) after each of the run's first ``n`` steps:
@@ -1553,7 +1593,8 @@ SOLO = (0, 5)
 def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
                   model: str = "llama3_8b", params=None,
                   solo: bool = False, extra=None,
-                  compare_eager: bool = False, warmup: bool = False):
+                  compare_eager: bool = False, warmup: bool = False,
+                  spec_k: int = 0):
     """Eight concurrent greedy requests at full width (on ``params``, or
     weights drawn from ``seed``); returns the engine, its attention
     kernels' launches in the run by wrapper name, the streams, and what
@@ -1566,16 +1607,21 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     holds); ``compare_eager`` adds an eager and a captured run of the
     same requests (``serve``). ``warmup`` runs ``engine.warmup()`` first,
     and then no greedy request may capture anything (the sampled and
-    burst runs of ``extra`` check their measured runs themselves)."""
+    burst runs of ``extra`` check their measured runs themselves).
+    ``spec_k`` makes the engine with ``speculative_tokens=spec_k`` (its
+    staging buffer and verify scratch sized for it) and sets it to 0 at
+    once: :func:`spec_serving` switches it on."""
     cfg = get_model_config(model)
     args = EngineArgs(block_size=16, max_num_seqs=8,
                       max_num_batched_tokens=2048, max_model_len=4096,
-                      seed=seed, kv_cache_dtype=kv_cache_dtype)
+                      seed=seed, kv_cache_dtype=kv_cache_dtype,
+                      speculative_tokens=spec_k)
     label = f"{model}, {kv_cache_dtype or cfg.dtype} KV"
     t0 = time.perf_counter()
     events = []
     engine = AsyncTorchEngine(cfg, args, params=params,
                               event_cb=events.append)
+    args.speculative_tokens = 0
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(engine.params))
     block_bytes = kv_block_bytes(cfg, args.block_size, engine.dtype,
@@ -1806,6 +1852,518 @@ async def burst_serving(engine, model, prompts, clock, settle, smi: str,
         f"{k1['step_ms']:.3f} (greedy) / {sampled['stats']['step_ms']:.3f} "
         f"(sampled) ms, K = {K} burst {out['greedy']['step_ms']:.3f} / "
         f"{out['sampled']['step_ms']:.3f} ms")
+    return out
+
+
+# ------------------------------------------------------ speculative decoding
+
+#: draft tokens a spec round on the card
+SPEC_K = 4
+#: the layer-skip draft depths run on Llama-3-8B: its full depth (the draft
+#: is the model: the plumbing check) and a quarter of it
+SPEC_DRAFT_DEPTHS = (32, 8)
+#: at a stream's first difference from the K = 1 stream, the K = 1 run's
+#: logits of its own token and of the spec stream's may lie this many bf16
+#: steps apart at the row's logit scale, by model: a verify computes the
+#: position inside a chunk of K + 1 tokens, at another GEMM shape (and
+#: MoE batch) and on the kernel's chunk path, so near ties may flip. The
+#: largest distance of one logit through a decode step and through a
+#: verify, measured on 24 rows of each model on an H100 (2.88 and 6.56
+#: steps, the same with plain attention), rounded up to a whole step
+SPEC_TIE_STEPS = {"llama3_8b": 3.0, "deepseek_v2_lite": 7.0}
+#: top logprobs the tie rule's re-run asks for: the two best decide, the
+#: rest show where the spec stream's token stood
+TIE_TOPS = 5
+
+
+def repetitive_prompts(cfg, seed: int) -> list:
+    """Eight prompts prompt lookup drafts from: each a random 48-token
+    segment repeated up to a length drawn in 300-900 tokens."""
+    rng = np.random.default_rng(seed + 11)
+    out = []
+    for n in rng.integers(300, 901, 8):
+        seg = list(map(int, rng.integers(0, cfg.vocab_size, 48)))
+        out.append((seg * -(-int(n) // 48))[:int(n)])
+    return out
+
+
+def row_logit_scale(engine, tokens) -> float:
+    """The largest |logit| of the position after ``tokens``: one eager
+    ragged step over them as one prefill chunk, on fresh blocks."""
+    bs = engine.args.block_size
+    s = SeqState(request_id="scale", req=None, ctx=None, sink=None)
+    s.tokens = list(tokens)
+    s.block_table = engine.pool.allocate(-(-len(tokens) // bs))
+    try:
+        ops, _ = engine.pack(StepPlan(prefill=[
+            PrefillWork(s, 0, len(tokens), True)]))
+        logits, _, _ = engine.step_fn(
+            engine.params, *(torch.from_numpy(x).to(engine.device)
+                             for x in ops), engine.k_cache, engine.v_cache)
+        return float(logits[0].abs().max())
+    finally:
+        engine.pool.release(s.block_table)
+
+
+async def tie_rule(engine, model, label, prompts, want, got, n,
+                   opts=None, eos=()) -> list:
+    """Hold spec streams ``got`` against the K = 1 streams ``want`` of the
+    same requests: a spec stream equals its K = 1 stream up to its first
+    difference; there the spec stream's token must be a near tie of the
+    K = 1 run's: among its TIE_TOPS best (a three-way tie can hand the
+    verify a third token), its logit within SPEC_TIE_STEPS[model] bf16
+    steps of the best at that row's logit scale. The logits come from a
+    serial re-run of the same requests with top logprobs and speculation
+    off (a logprob gap is a logit gap; the re-run must stream ``want``),
+    the scale from :func:`row_logit_scale`. Past that position nothing is
+    compared. Every such position is printed with the two best's gap and
+    the spec token's; any other difference fails. Returns [(stream,
+    position, gap of the two best, gap of the spec token, allowed)]."""
+    diffs = [(i, first_diff(w, g)) for i, (w, g) in enumerate(zip(want, got))
+             if w != g]
+    if not diffs:
+        log(f"  {label}: all {len(got)} streams equal to K = 1's")
+        return []
+    K = engine.args.speculative_tokens
+    engine.args.speculative_tokens = 0
+    engine.args.pipeline_decode = False
+    engine.pool.clear()
+    frames = [[] for _ in prompts]
+    try:
+        rerun = await asyncio.gather(*(
+            stream(engine, model, p, n, o, OutputOptions(logprobs=TIE_TOPS),
+                   eos, frames=f)
+            for p, o, f in zip(prompts, opts or [None] * len(prompts),
+                               frames)))
+    finally:
+        engine.args.speculative_tokens = K
+        engine.args.pipeline_decode = True
+    out = []
+    for i, p in diffs:
+        if rerun[i][2] != want[i]:
+            raise AssertionError(f"{label} stream {i}: the logprobs re-run "
+                                 f"streamed {rerun[i][2]}, K = 1 {want[i]}")
+        if p >= min(len(want[i]), len(got[i])):
+            raise AssertionError(f"{label} stream {i}: ends at {p} where "
+                                 f"K = 1's does not: {got[i]} vs {want[i]}")
+        tops = [t for f in frames[i] for t in f.top_logprobs]
+        (a, lp_a), (b, lp_b) = tops[p][:2]
+        gap = lp_a - lp_b
+        spec_gap = {t: lp_a - lp for t, lp in tops[p]}.get(got[i][p])
+        scale = row_logit_scale(engine, prompts[i] + want[i][:p])
+        steps = SPEC_TIE_STEPS[model]
+        allowed = steps * 2.0 ** (math.floor(math.log2(scale)) - 7)
+        log(f"  {label} stream {i}: first differs at token {p} (K = 1 "
+            f"{want[i][p]}, spec {got[i][p]}); the K = 1 run's two best "
+            f"{a}, {b} lie {gap:.5f} apart, {steps:.2f} bf16 steps at "
+            f"the row's logit scale {scale:.3f} are {allowed:.5f}; the spec "
+            f"token lies "
+            + (f"{spec_gap:.5f} below the best" if spec_gap is not None
+               else f"outside the K = 1 run's {TIE_TOPS} best"))
+        if a != want[i][p] or spec_gap is None or spec_gap > allowed:
+            raise AssertionError(f"{label} stream {i}: not a near tie at "
+                                 f"token {p}: top {tops[p]}, spec "
+                                 f"{got[i][p]} {spec_gap} below the best, "
+                                 f"allowed {allowed}")
+        out.append((i, p, gap, spec_gap, allowed))
+    return out
+
+
+def token_itl(frames_of) -> tuple[float, float]:
+    """(mean, p50) ms between tokens when a frame of m tokens spreads its
+    gap from the previous frame over its m tokens (a spec round delivers
+    a row's accepted tokens in one frame)."""
+    itl = []
+    for frames in frames_of:
+        for (a, _), (b, m) in zip(frames, frames[1:]):
+            itl += [(b - a) / m] * m
+    return statistics.mean(itl) * 1e3, statistics.median(itl) * 1e3
+
+
+def tie_gate(label: str, got, want, steps: float,
+             one_step: bool = False) -> dict:
+    """Rows of logits ``got`` [N, V] (the path under test) against ``want``
+    (the path held as the reference), on the card: finite, every row within
+    STEP_RTOL of its logit scale (its largest |logit| in ``want``; with
+    ``one_step``, the largest of all the rows: the rows are one step's,
+    held by the full-width step's rule, :func:`check_logits`), and the same
+    greedy token, but where ``want``'s logit of ``got``'s pick lies within
+    ``steps`` bf16 steps at the row's scale of its best (a near tie).
+    Returns per row the max |Δlogit| in bf16 steps at the row's scale, and
+    the near ties excused with their gaps in steps."""
+    torch.cuda.synchronize()
+    scale = want.abs().amax(-1)
+    step_of = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    if one_step:
+        scale = scale.amax().expand_as(scale)
+    diff = (got - want).abs().amax(-1)
+    pick = got.argmax(-1)
+    same = pick == want.argmax(-1)
+    gap = (want.max(-1).values
+           - want.gather(1, pick[:, None])[:, 0]) / step_of
+    ties = [round(g, 2) for g, ok in zip(gap.tolist(), same.tolist())
+            if not ok]
+    if (not bool(torch.isfinite(got).all())
+            or bool((diff > STEP_RTOL * scale).any())
+            or not bool((same | (gap <= steps)).all())):
+        raise AssertionError(
+            f"{label}: |Δlogit| {diff.tolist()} against {STEP_RTOL} of the "
+            f"scale {scale.tolist()}; picks {pick.tolist()} against "
+            f"{want.argmax(-1).tolist()}, gaps in bf16 steps "
+            f"{gap.tolist()} (allowed {steps})")
+    return {"steps": (diff / step_of).tolist(), "ties": ties}
+
+
+def spec_path_check(engine, model: str, seed: int, smi: str,
+                    rounds: int = 3) -> float:
+    """The verify step on the serving engine's weights and cache (fresh
+    blocks), ``rounds`` times: 8 rows at kv 100-900 prefilled to their
+    last token, then that token as a decode row (the 8-token bucket) and as
+    the first token of a verify row of K + 1 (K = SPEC_K random drafts;
+    the verify bucket of 8 rows), through the kernels and through the
+    plain attention. Held by :func:`tie_gate` at SPEC_TIE_STEPS[model]:
+    the verify row's first position against the decode row (each path),
+    and every packed position of the verify through the kernels against
+    the same verify through the plain attention, as one step (which
+    leaves the GEMM shapes, the MoE and the rounding as the
+    decode-vs-verify difference).
+    Prints each comparison's largest |Δlogit| in bf16 steps at the row's
+    scale and its near ties. Returns the largest decode-vs-verify distance
+    through the kernels, in bf16 steps."""
+    worst = 0.0
+    for r in range(rounds):
+        paths = _path_round(engine, model, seed + 41 + r, smi)
+        worst = max(worst, max(paths["kernels"]["steps"]))
+    return worst
+
+
+def _path_round(engine, model: str, seed: int, smi: str) -> dict:
+    """One round of :func:`spec_path_check`."""
+    from dynamo_tpu_torch.engine.engine import verify_bucket
+    from dynamo_tpu_torch.engine.model import make_ragged_verify_fn
+
+    cfg, bs, args = engine.cfg, engine.args.block_size, engine.args
+    rng = np.random.default_rng(seed)
+    K, S = SPEC_K, SPEC_K + 1
+    steps = SPEC_TIE_STEPS[model]
+    seqs = []
+    for n in rng.integers(100, 900, 8):
+        s = SeqState(request_id="path", req=None, ctx=None, sink=None)
+        s.tokens = list(map(int, rng.integers(0, cfg.vocab_size, int(n))))
+        s.block_table = engine.pool.allocate(-(-(int(n) + K) // bs))
+        seqs.append(s)
+
+    def dev(ops):
+        return [torch.from_numpy(x).to(engine.device) for x in ops]
+
+    kc, vc, params = engine.k_cache, engine.v_cache, engine.params
+    for s in seqs:  # the context: everything but the newest token
+        ops, _ = engine.pack(StepPlan(prefill=[
+            PrefillWork(s, 0, len(s.tokens) - 1, False)]))
+        engine.step_fn(params, *dev(ops), kc, vc)
+    if cfg.is_mla:
+        plain = dict(attention=mla_paged_decode_ref,
+                     chunk_attention=mla_attention_seg)
+    else:
+        plain = dict(attention=ragged_attention_ref)
+    T = verify_bucket(args, len(seqs), S)
+    rows = []
+    for s in seqs:
+        base = len(s.tokens) - 1
+        rows.append(([s.tokens[-1]] + list(map(int, rng.integers(
+            0, cfg.vocab_size, K))), base,
+            [s.block_table[p // bs] * bs + p % bs
+             for p in range(base, base + S)],
+            len(s.tokens) + K, s.block_table))
+    n = len(seqs) * S  # the rows' packed positions; padding follows
+    out, every = {}, {}
+    try:
+        for label, kw in (("kernels", {}), ("plain attention", plain)):
+            step = make_ragged_step_fn(cfg, bs, **kw)
+            verify = make_ragged_verify_fn(cfg, bs, **kw)
+            dec_ops, _ = engine.pack(StepPlan(decode=seqs))
+            dec = step(params, *dev(dec_ops), kc, vc)[0][:len(seqs)]
+            buf = torch.empty((T, cfg.vocab_size), dtype=torch.float32,
+                              device=engine.device)
+            verify(params, *dev(engine._verify_operands(rows, T)), kc, vc,
+                   logits_out=buf)
+            every[label] = buf[:n].clone()
+            out[label] = g = tie_gate(
+                f"{model}: verify row's first position vs the decode row, "
+                f"{label}", every[label][::S], dec, steps)
+            log(f"  [{smi}] {model}, the same position as a decode row (T "
+                f"8) and a verify row's first token (T {T}), {label}: max "
+                f"|Δlogit| in bf16 steps at the row's scale "
+                f"{[round(x, 2) for x in g['steps']]}, near ties (gap in "
+                f"steps) {g['ties']}")
+        g = tie_gate(f"{model}: verify through the kernels vs the plain "
+                     f"attention, every packed position",
+                     every["kernels"], every["plain attention"], steps,
+                     one_step=True)
+        log(f"  [{smi}] {model}, verify (T {T}), all {n} packed positions "
+            f"through the kernels vs the plain attention: max |Δlogit| "
+            f"{max(g['steps']):.2f} bf16 steps at the row's scale, near ties "
+            f"(gap in steps) {g['ties']}, allowed {steps}")
+        out["every"] = g
+    finally:
+        for s in seqs:
+            engine.pool.release(s.block_table)
+    return out
+
+
+async def spec_run(engine, model, label, prompts, want, clock, settle, smi,
+                   n=32, draft_layers=0, require_verify=True) -> dict:
+    """One measured spec run of greedy ``prompts`` on an emptied prefix
+    cache: the tie rule against the K = 1 streams ``want``, the launches of
+    each attention kernel against the forwards run (ragged: L a verify
+    forward and a plain forward step and D a draft step; MLA: the decode
+    kernel L a plain step and a verify, the prefill kernel L a verify and a
+    step with chunk tokens), no capture, at least one verify when
+    ``require_verify``, and the run's counts and stats, printed: ITL per
+    frame (stats_line) and per token (:func:`token_itl`)."""
+    L = engine.cfg.num_layers
+    K = engine.args.speculative_tokens
+    engine.pool.clear()
+    clock.records.clear()
+    caps = dict(engine.compile_events)
+    s0 = dataclasses.replace(engine.spec_stats)
+    f0, v0, d0, c0 = (engine.forward_steps, engine.verify_steps,
+                      engine.draft_steps, engine.chunk_steps)
+    r0 = engine.spec_rounds
+    reset_counts()
+    frames = [[] for _ in prompts]
+    t0 = time.perf_counter()
+    res = await asyncio.gather(*(stream(engine, model, p, n, frames=f)
+                                 for p, f in zip(prompts, frames)))
+    st = serving_stats(res, time.perf_counter() - t0)
+    st["itl_tok_mean"], st["itl_tok_p50"] = token_itl(
+        [list(zip(r[1], (len(f.token_ids) for f in fr)))
+         for r, fr in zip(res, frames)])
+    st["step_ms"], st["step_n"] = clock.decode_step_ms()
+    st["round_ms"], st["rounds_timed"] = clock.spec_round_ms()
+    await settle()
+    fwd, ver, drafts, chunks = (engine.forward_steps - f0,
+                                engine.verify_steps - v0,
+                                engine.draft_steps - d0,
+                                engine.chunk_steps - c0)
+    rounds = engine.spec_rounds - r0
+    stats = {k: getattr(engine.spec_stats, k) - getattr(s0, k)
+             for k in vars(s0)}
+    launches = {k["wrapper"]: k["wrapper"].launches for k in KERNELS}
+    if engine.cfg.is_mla:
+        want_l = {mla_paged_decode: L * (fwd + ver),
+                  flash_mla_prefill_paged: L * (chunks + ver)}
+    else:
+        want_l = {ragged_paged_attention: L * (fwd + ver)
+                  + draft_layers * K * drafts}
+    for w, k in want_l.items():
+        if launches[w] != k or (require_verify and ver == 0):
+            raise AssertionError(
+                f"{label}: {w.__name__} launched {launches[w]} times, want "
+                f"{k} ({fwd} plain forward steps, {chunks} with chunk "
+                f"tokens, {ver} verify forwards, {drafts} draft bursts)")
+    if engine.compile_events != caps:
+        raise AssertionError(f"{label}: a measured spec run captured: "
+                             f"{caps} -> {engine.compile_events}")
+    ends = [r[3] for r in res]
+    got = [r[2] for r in res]
+    if any(e != "length" or len(g) != n for e, g in zip(ends, got)):
+        raise AssertionError(f"{label}: finishes {ends}")
+    ties = await tie_rule(engine, model, label, prompts, want, got, n)
+    st.update(stats=stats, rounds=rounds, verify=ver, drafts=drafts,
+              forward=fwd, ties=ties, streams=got,
+              launches={w.__name__: launches[w] for w in want_l})
+    acc = stats["num_accepted_tokens"] / max(1, stats["num_draft_tokens"])
+    log(f"  [{smi}] {label}: {rounds} spec rounds ({ver} verify forwards, "
+        f"{drafts} draft bursts) beside {fwd} plain forward steps; drafts "
+        f"{stats['num_drafts']}, drafted {stats['num_draft_tokens']}, "
+        f"accepted {stats['num_accepted_tokens']} ({acc:.3f}), "
+        f"{stats['num_spec_tokens']} tokens from verifies "
+        f"({stats['num_spec_tokens'] / max(1, ver):.2f} a verify forward, "
+        f"{stats['num_spec_tokens'] / max(1, stats['num_drafts']):.2f} a "
+        f"row a round); "
+        f"launches {st['launches']}; spec round wall {st['round_ms']:.3f} "
+        f"ms ({st['rounds_timed']} rounds); {stats_line(st)}; ITL a token "
+        f"mean {st['itl_tok_mean']:.2f} p50 {st['itl_tok_p50']:.2f} ms; "
+        f"{len(ties)} streams cut at a near tie")
+    return st
+
+
+async def spec_serving(engine, model, prompts, clock, settle, smi: str,
+                       seed: int, served: dict, guided: bool,
+                       repetitive: bool, draft_depths=()) -> dict:
+    """Speculative decoding on the serving engine, its knobs switched as
+    :func:`burst_serving` switches the burst's (the same weights and pool):
+    K = SPEC_K, the governor off (``spec_gain_window`` 0: every decode-only
+    plan with a draft verifies), ``warmup()`` again first (the verify
+    signatures, masked too with ``guided``; the engine was made with
+    ``speculative_tokens=SPEC_K``, so its staging buffer and verify scratch
+    already hold them, and the step signatures replay); then
+    :func:`spec_path_check`. Then, with
+    speculation off, the K = 1 references phase 3 has not run: with
+    ``repetitive`` eight repetitive prompts on the serial and the
+    pipelined loop, with ``guided`` a greedy json_schema request over a
+    synthetic alphabet on the device FSM. Then, capturing nothing, prompt
+    lookup on the eight greedy requests, the repetitive prompts, and the
+    guided request (``verify_fsm``, matching the schema); then the
+    layer-skip draft at each of ``draft_depths`` on the greedy requests,
+    each after a warmup of its draft burst. Every stream passes
+    :func:`tie_rule` against its K = 1 stream, and the launches add up
+    (:func:`spec_run`). Returns
+    each run's stats."""
+    from dynamo_tpu_torch.llm.guided import CharDfa, guided_pattern
+    from dynamo_tpu_torch.structured import (
+        StructuredRuntime, arena_states, table_budget_bytes,
+    )
+
+    args = engine.args
+    cfg = engine.cfg
+    out = {}
+    t_spec = time.perf_counter()
+    marks = []
+
+    def mark(what: str) -> None:
+        marks.append(f"{what} {time.perf_counter() - t_spec:.1f}")
+
+    k1_greedy = [r[2] for r in served["res"]]
+    k1 = (served["eager_vs_graphs"][True] if "eager_vs_graphs" in served
+          else served["stats"])
+    rep_prompts = repetitive_prompts(cfg, seed) if repetitive else []
+    g_opt = g_prompt = None
+    if guided:
+        V = cfg.vocab_size
+        vocab = synthetic_vocab(V, seed)
+        engine.guided_vocab = vocab
+        engine.structured = StructuredRuntime(
+            V, arena_states(V, table_budget_bytes()), engine.device)
+        g_opt = SamplingOptions(temperature=0.0,
+                                guided={"json": GUIDED_SCHEMA})
+        g_prompt = prompts[3]
+    try:
+        args.speculative_tokens = SPEC_K
+        args.speculative_method = "prompt_lookup"
+        args.spec_gain_window = 0
+        rep = await engine.warmup()
+        mark("warmup")
+        log(f"  [{smi}] {model}, speculative_tokens={SPEC_K} (prompt "
+            f"lookup), warmup(): verify signatures {rep['verify']} in "
+            f"{rep['seconds']:.2f} s with every step signature replayed; "
+            f"{graph_line(engine)}")
+        path_steps = spec_path_check(engine, model, seed, smi)
+        mark("path check")
+        out["path_steps"] = path_steps
+        log(f"  [{smi}] {model}: the decode and verify paths put a logit up "
+            f"to {path_steps:.2f} bf16 steps apart (24 rows); the tie rule "
+            f"allows {SPEC_TIE_STEPS[model]:.2f}")
+        # the K = 1 references that phase 3 has not run, speculation off
+        args.speculative_tokens = 0
+        for pipeline in (False, True) if repetitive else ():
+            args.pipeline_decode = pipeline
+            engine.pool.clear()
+            clock.records.clear()
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*(stream(engine, model, p, 32)
+                                         for p in rep_prompts))
+            st = serving_stats(res, time.perf_counter() - t0)
+            st["step_ms"], st["step_n"] = clock.decode_step_ms()
+            await settle()
+            out["repetitive_k1", pipeline] = st
+            streams = [r[2] for r in res]
+            if pipeline and streams != out["repetitive_streams"]:
+                raise AssertionError("repetitive prompts: the pipelined "
+                                     "loop's streams differ from the serial "
+                                     "loop's")
+            out["repetitive_streams"] = streams
+            log(f"  [{smi}] {model}, 8 repetitive prompts "
+                f"{sorted(len(p) for p in rep_prompts)} x 32 tokens, K = 1, "
+                f"{'pipelined' if pipeline else 'serial'} loop: "
+                f"{stats_line(st)}")
+        if guided:
+            # also the greedy FSM sampler's capture (keyed by the arena)
+            g_k1 = await stream(engine, model, g_prompt, 48, g_opt,
+                                eos=LLAMA3_EOS)
+            await settle()
+        args.pipeline_decode = True
+        args.speculative_tokens = SPEC_K
+        mark("K = 1 references")
+        # random prompts draft only once a stream repeats itself
+        out["greedy"] = await spec_run(
+            engine, model, f"{model}, prompt lookup K = {SPEC_K}, 8 greedy "
+            f"requests", prompts, k1_greedy, clock, settle, smi,
+            require_verify=False)
+        if repetitive:
+            out["repetitive"] = await spec_run(
+                engine, model, f"{model}, prompt lookup K = {SPEC_K}, 8 "
+                f"repetitive prompts", rep_prompts,
+                out["repetitive_streams"], clock, settle, smi)
+        if guided:
+            caps = dict(engine.compile_events)
+            g = await stream(engine, model, g_prompt, 48, g_opt,
+                             eos=LLAMA3_EOS)
+            await settle()
+            ties = await tie_rule(engine, model, f"{model}, guided, prompt "
+                                  f"lookup K = {SPEC_K}", [g_prompt],
+                                  [g_k1[2]], [g[2]], 48, [g_opt], LLAMA3_EOS)
+            text = "".join(vocab[t] for t in g[2] if t not in LLAMA3_EOS)
+            sigs = {k for k in engine.compiled_signatures
+                    if k[0] == "verify_fsm"}
+            if (g[3] != "stop" or not sigs or engine.compile_events != caps
+                    or not CharDfa(guided_pattern({"json": GUIDED_SCHEMA})
+                                   ).fullmatch(text)):
+                raise AssertionError(f"guided spec: {g[2:]} ({text!r}), "
+                                     f"verify_fsm {sigs}, captures {caps} "
+                                     f"-> {engine.compile_events}")
+            json.loads(text)
+            log(f"  [{smi}] {model}, guided json_schema, greedy, prompt "
+                f"lookup K = {SPEC_K}: {text!r}, {len(g[2])} tokens, "
+                f"verified under mask words ({sorted(sigs)}); K = 1 "
+                f"device-FSM stream {'equal' if g[2] == g_k1[2] else 'cut at a near tie'}")
+            out["guided"] = {"ties": ties, "tokens": len(g[2])}
+        mark("prompt lookup runs")
+        for D in draft_depths:
+            args.speculative_method = "draft_layers"
+            args.speculative_draft_layers = D
+            rep = await engine.warmup()
+            log(f"  [{smi}] {model}, layer-skip draft D = {D}: warmup() "
+                f"draft bursts of rows {rep['draft']}; {graph_line(engine)}")
+            out[f"draft_{D}"] = await spec_run(
+                engine, model, f"{model}, layer-skip draft D = {D}, K = "
+                f"{SPEC_K}, 8 greedy requests", prompts, k1_greedy, clock,
+                settle, smi, draft_layers=D)
+            mark(f"draft D = {D}")
+    finally:
+        args.speculative_tokens = 0
+        args.speculative_method = "prompt_lookup"
+        args.speculative_draft_layers = 0
+        args.spec_gain_window = 64
+        args.pipeline_decode = True
+        engine.structured = None
+        engine.guided_vocab = None
+    k1s = served["stats_serial"]
+    line = [f"K = 1 pipelined {k1['step_ms']:.3f} ms a step, ITL mean "
+            f"{k1['itl_mean']:.2f} p50 {k1['itl_p50']:.2f} ms, "
+            f"{k1['tok_s']:.2f} tok/s; K = 1 serial {k1s['step_ms']:.3f} "
+            f"ms a step, ITL mean {k1s['itl_mean']:.2f} p50 "
+            f"{k1s['itl_p50']:.2f} ms, {k1s['tok_s']:.2f} tok/s"]
+    for name in ["greedy"] + [f"draft_{D}" for D in draft_depths]:
+        st = out[name]
+        line.append(f"{name}: round {st['round_ms']:.3f} ms, ITL a token "
+                    f"mean {st['itl_tok_mean']:.2f} p50 "
+                    f"{st['itl_tok_p50']:.2f} ms, {st['tok_s']:.2f} tok/s")
+    log(f"  [{smi}] {model}, 8 greedy requests x 32 tokens, same call: "
+        + "; ".join(line))
+    log(f"  {model}: the spec phase took "
+        f"{time.perf_counter() - t_spec:.1f} s (cumulative s: "
+        f"{', '.join(marks)})")
+    if repetitive:
+        a, b = out["repetitive_k1", True], out["repetitive"]
+        log(f"  [{smi}] {model}, 8 repetitive prompts x 32 tokens, same "
+            f"call: K = 1 pipelined ITL mean {a['itl_mean']:.2f} p50 "
+            f"{a['itl_p50']:.2f} ms, {a['tok_s']:.2f} tok/s; serial "
+            f"{out['repetitive_k1', False]['tok_s']:.2f} tok/s; prompt lookup "
+            f"K = {SPEC_K}: round {b['round_ms']:.3f} ms, ITL a token mean "
+            f"{b['itl_tok_mean']:.2f} p50 {b['itl_tok_p50']:.2f} ms, "
+            f"{b['tok_s']:.2f} tok/s")
     return out
 
 
@@ -2394,10 +2952,11 @@ def mla_embedding(engine, seed: int, smi: str) -> int:
 
 
 def sampled_extra(model: str, seed: int, smi: str, host_and_guided: bool,
-                  burst: bool = False):
+                  burst: bool = False, spec: Optional[dict] = None):
     """The ``extra`` of ``serve`` that runs :func:`sampled_serving` on the
-    serving run's prompts, and with ``burst`` then
-    :func:`burst_serving`."""
+    serving run's prompts, with ``burst`` then :func:`burst_serving`, and
+    with ``spec`` (:func:`spec_serving`'s keyword arguments) then
+    :func:`spec_serving`."""
     prompts = serving_prompts(get_model_config(model), seed)
     async def extra(engine, clock, settle, served):
         out = await sampled_serving(engine, model, prompts, clock, settle,
@@ -2406,6 +2965,10 @@ def sampled_extra(model: str, seed: int, smi: str, host_and_guided: bool,
             out["burst"] = await burst_serving(
                 engine, model, prompts, clock, settle, smi, seed, served,
                 out)
+        if spec is not None:
+            out["spec"] = await spec_serving(
+                engine, model, prompts, clock, settle, smi, seed, served,
+                **spec)
         return out
 
     return extra
@@ -2419,8 +2982,10 @@ def mla_phase(seed: int, smi: str) -> dict:
     MLA kernels' launches in the two serving runs by KERNELS name."""
     model = "deepseek_v2_lite"
     engine, served, streams, _ = serving_phase(
-        seed, smi, model=model, extra=sampled_extra(model, seed, smi, False),
-        compare_eager=True, warmup=True)
+        seed, smi, model=model, extra=sampled_extra(
+            model, seed, smi, False,
+            spec=dict(guided=False, repetitive=True)),
+        compare_eager=True, warmup=True, spec_k=SPEC_K)
     launches = {"mla_paged_decode": served["mla_paged_decode"],
                 "flash_mla_prefill": served["flash_mla_prefill_paged"]}
     graph_step_check(engine, model, seed)
@@ -3361,14 +3926,22 @@ def main() -> int:
     a = ap.parse_args()
     t_start = time.perf_counter()
     smi, kind = device_phase()
+
+    def mark(what: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
+
     main_case = kernel_phase(a.seed)
+    mark("phases 1 (device, kernel build) and 2 (attention kernels)")
     main_case.update(sample_kernel_phase(a.seed))
+    mark("phase 2 (the draw kernel)")
     gc.collect()
     torch.cuda.empty_cache()
     engine, served, streams, phase3 = serving_phase(
-        a.seed, smi, solo=True, extra=sampled_extra("llama3_8b", a.seed, smi,
-                                                    True, burst=True),
-        compare_eager=True, warmup=True)
+        a.seed, smi, solo=True, extra=sampled_extra(
+            "llama3_8b", a.seed, smi, True, burst=True,
+            spec=dict(guided=True, repetitive=True,
+                      draft_depths=SPEC_DRAFT_DEPTHS)),
+        compare_eager=True, warmup=True, spec_k=SPEC_K)
     launches = {"ragged_paged_attention": served["ragged_paged_attention"],
                 "gumbel_argmax": phase3["extra"]["launches"]}
     greedy, drawn = phase3["stats"], phase3["extra"]["stats"]
@@ -3379,6 +3952,7 @@ def main() -> int:
         f"{greedy['itl_p50']:.2f} vs {drawn['itl_p50']:.2f} ms; the draw "
         f"kernel {main_case['gumbel_argmax']['ms']:.4f} ms a step against "
         f"its bound {main_case['gumbel_argmax']['bound_ms']:.5f} ms")
+    mark("phase 3")
     graph_step_check(engine, "llama3_8b", a.seed)
     full_width_step(engine, "llama3_8b", a.seed)
     step_profile(engine, "llama3_8b", a.seed)
@@ -3393,17 +3967,21 @@ def main() -> int:
         "solo_hashes": phase3["solo_hashes"],
         "embed": (prompts[1], embed_vec)})  # releases the engine
     del engine
+    mark("phases 4-6")
     launches["ragged_paged_attention_int8"] = int8_phase(
         a.seed, smi, bf16_blocks, streams)
+    mark("phase 7")
     try:
         # the parent holds no model: the worker sizes its pool from what is
         # free; then two workers share the card, each with a fixed pool
         agg = worker_phase(ref, smi, phase3["stats"])
         disagg_phase(ref, smi, agg)
+        mark("phase 8")
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     # the Llama engines are gone: DeepSeek-V2-Lite has the card to itself
     launches.update(mla_phase(a.seed, smi))
+    mark("phases 9-10")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for k in KERNELS:

@@ -286,7 +286,6 @@ UNPORTED_KNOBS = {
     "dp_size": (1, "A11"),
     "pp_size": (1, "A11"),
     "use_pallas_attention": (False, "B1: the port's kernel is always on"),
-    "speculative_tokens": (0, "A7"),
     "kvbm_host_bytes": (0, "A8e"),
     "kvbm_disk_dir": (None, "A8e"),
     "kvbm_disk_bytes": (0, "A8e"),
@@ -356,12 +355,30 @@ class EngineArgs:
     #: CUDA IPC on one card: ``disagg/transfer.py``); False = host-staged
     #: bundles only
     kv_transfer_direct: bool = True
+    #: speculative decoding: draft up to this many tokens and verify them
+    #: in ONE ragged forward, greedy-invariant (the tokens plain greedy
+    #: decode gives). 0 = off. Greedy batches without logprobs, logit
+    #: edits or host-oracle rows only
+    speculative_tokens: int = 0
+    #: how drafts are made: "prompt_lookup" (the trailing n-gram matched
+    #: in the sequence's own history) or "draft_layers" (layer-skip
+    #: self-drafting: the first speculative_draft_layers layers and the
+    #: shared LM head, ``model.make_draft_fn``)
+    speculative_method: str = "prompt_lookup"
+    #: layer count of the layer-skip draft (speculative_method=
+    #: "draft_layers"), in (0, num_layers]
+    speculative_draft_layers: int = 0
+    #: speculative-decode auto-disable: when the rolling measured gain over
+    #: spec_gain_window verify dispatches stays < 1, fall back to plain
+    #: decode and re-probe after spec_reprobe_steps engine steps. 0
+    #: disables the governor
+    spec_gain_window: int = 64
+    spec_reprobe_steps: int = 4096
     # knobs of the JAX package not ported yet (UNPORTED_KNOBS)
     tp_size: int = 1
     dp_size: int = 1
     pp_size: int = 1
     use_pallas_attention: bool = False
-    speculative_tokens: int = 0
     kvbm_host_bytes: int = 0
     kvbm_disk_dir: Optional[str] = None
     kvbm_disk_bytes: int = 0
@@ -370,6 +387,15 @@ class EngineArgs:
     quantization: Optional[str] = None
 
     def __post_init__(self):
+        if self.speculative_method not in ("prompt_lookup", "draft_layers"):
+            raise ValueError(
+                f"speculative_method={self.speculative_method!r} unknown "
+                "(prompt_lookup or draft_layers)")
+        if (self.speculative_method == "draft_layers"
+                and self.speculative_tokens > 0
+                and self.speculative_draft_layers < 1):
+            raise ValueError("speculative_method='draft_layers' needs "
+                             "speculative_draft_layers >= 1")
         for name, (off, item) in UNPORTED_KNOBS.items():
             if getattr(self, name) != off:
                 raise ValueError(

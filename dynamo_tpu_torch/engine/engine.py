@@ -25,15 +25,27 @@ never moves, and its tokens come back the same way. With
 ``EngineArgs.multi_step_decode`` K > 1, a decode-only batch that needs no
 host round trip runs K steps and their draws in one burst
 (``model.make_multi_decode_fn``) and each sequence gets one output per
-burst. Speculative decoding is not ported yet (ROADMAP A7), and
-multimodal requests are refused at ``generate()``.
+burst. With ``EngineArgs.speculative_tokens`` K > 0, a greedy decode-only
+batch that needs no host round trip drafts up to K tokens a row (prompt
+lookup in the row's own history, or the layer-skip draft: a greedy burst
+through the first ``speculative_draft_layers`` layers) and verifies them
+in ONE ragged forward, each row a chunk of K + 1 tokens
+(``model.make_ragged_verify_fn``; FSM-constrained rows under per-position
+mask words walked on the host). Each row accepts its longest matching
+draft prefix plus the verify's own next token, the tokens plain greedy
+decode gives, in one output. A governor suspends speculation while it
+loses (the JAX engine's ``spec_gain_window`` and ``spec_reprobe_steps``);
+``spec_stats`` counts drafts and acceptance. Multimodal requests are
+refused at ``generate()``.
 
 On the card every step runs as a CUDA graph (``engine/graphs.py``): the
 first use of a signature (a mixed step's or a decode-only step's token
 bucket, a sampler's rows and branches, a burst's rows) runs eagerly and
 is captured, and every later use replays the capture, as the JAX engine
-compiles one program per signature. ``warmup()`` runs every token bucket's
-signatures before serving; ``compiled_signatures``, ``compile_events`` and
+compiles one program per signature (speculative decoding adds
+``("verify" | "verify_fsm", T)`` and a draft burst's ``("draft", R,
+K, D)``). ``warmup()`` runs every token bucket's signatures, and the verify
+and draft signatures the batch sizes can reach, before serving; ``compiled_signatures``, ``compile_events`` and
 ``compile_seconds`` count them as the JAX engine does. ``use_graphs =
 False`` runs the same steps eagerly. Batches whose sampler needs the host
 (logit edits, top logprobs) sample eagerly after a captured forward.
@@ -96,7 +108,8 @@ from dynamo_tpu_torch.engine.config import (
 from dynamo_tpu_torch.engine.graphs import GraphCache
 from dynamo_tpu_torch.engine.model import (
     RAGGED_TILE, check_kernel_geometry, check_supported, init_params,
-    make_embed_fn, make_multi_decode_fn, make_ragged_step_fn, torch_dtype,
+    make_draft_fn, make_embed_fn, make_multi_decode_fn,
+    make_ragged_step_fn, make_ragged_verify_fn, torch_dtype,
 )
 from dynamo_tpu_torch.engine.scheduler import Scheduler, SeqState, StepPlan
 from dynamo_tpu_torch.ops.block_copy import (
@@ -106,7 +119,8 @@ from dynamo_tpu_torch.protocols import (
     FinishReason, LLMEngineOutput, PreprocessedRequest,
 )
 from dynamo_tpu_torch.router.protocols import (
-    ForwardPassMetrics, KvCacheEvent, KvStats, StoredBlock, WorkerStats,
+    ForwardPassMetrics, KvCacheEvent, KvStats, SpecDecodeStats, StoredBlock,
+    WorkerStats,
 )
 from dynamo_tpu_torch.tokens import KV_HASH_SEED, TokenBlockSequence
 
@@ -225,18 +239,20 @@ class AsyncTorchEngine:
         #: bucket up (the JAX engine's dynamo_step_padded_tokens_total)
         self.padded_tokens_total = 0
         #: distinct step signatures dispatched, as the JAX engine names
-        #: them: ("ragged" | "ragged_dec", T) and ("multi" | "multi_fsm", R)
+        #: them: ("ragged" | "ragged_dec", T), ("multi" | "multi_fsm", R),
+        #: ("verify" | "verify_fsm", T) and ("draft", R)
         self.compiled_signatures: set = set()
         #: captures (the port's compiles) and their seconds by kind
-        #: ("ragged", "ragged_dec", "sample", "multi", "multi_fsm"), the
-        #: eager first use included
+        #: ("ragged", "ragged_dec", "sample", "multi", "multi_fsm",
+        #: "verify", "verify_fsm", "draft"), the eager first use included
         self.compile_events: dict[str, int] = {}
         self.compile_seconds: dict[str, float] = {}
         #: warmup asked for (the worker runs it before registering), and
         #: done: a capture after it is logged as a warning
         self.warmup_requested = args.warmup_buckets
         self.warmed_up = False
-        self._staging = _Staging(args, self.device)
+        self._staging = _Staging(staging_words(args, cfg.vocab_size),
+                                 self.device)
         #: steps run as CUDA graphs (the card's default); False runs the
         #: same steps eagerly
         self.use_graphs = self.device.type == "cuda"
@@ -248,6 +264,38 @@ class AsyncTorchEngine:
         self._logits: dict = {}
         #: (K, fsm) -> the burst function
         self._multi_fns: dict = {}
+        #: speculative decoding: masked -> the verify function, (D, K) ->
+        #: the draft burst; the one f32 [T, V] buffer every verify bucket's
+        #: logits land in (the largest bucket's rows), sized, as the staging
+        #: buffer's mask words are, for the K the engine was made with
+        self._verify_fns: dict = {}
+        self._draft_fns: dict = {}
+        self._verify_logits = (torch.empty(
+            (max(verify_buckets(args)), cfg.vocab_size),
+            dtype=torch.float32, device=self.device)
+            if args.speculative_tokens > 0 else None)
+        #: spec rounds that verified, their verify forwards (one a group)
+        #: and draft bursts
+        self.spec_rounds = 0
+        self.verify_steps = 0
+        self.draft_steps = 0
+        self.spec_stats = SpecDecodeStats()
+        #: the auto-disable governor: tokens a row of the last
+        #: spec_gain_window verify dispatches; while the measured gain stays
+        #: < 1 speculation is suspended until step _spec_resume_step
+        self._spec_window: collections.deque = collections.deque(
+            maxlen=max(1, args.spec_gain_window))
+        self._spec_resume_step = 0
+        self.spec_disabled_total = 0
+        self.spec_measured_gain: Optional[float] = None
+        #: measured walls (EWMA, ms) of one spec round (draft, verify and
+        #: the host's part) and of one plain decode-only step: the
+        #: governor's cost ratio (_spec_dispatch_cost)
+        self._spec_round_ms: Optional[float] = None
+        self._decode_step_ms: Optional[float] = None
+        if (args.speculative_tokens > 0
+                and args.speculative_method == "draft_layers"):
+            self._draft_fn(args.speculative_tokens)  # refusals raise here
         self.guided_vocab = guided_vocab
         #: the device FSM arena constraints compile into; None = every
         #: constraint runs on the host oracle (no vocabulary,
@@ -466,12 +514,19 @@ class AsyncTorchEngine:
                 and self._can_pipeline(plan.decode)):
             if await self._run_decode_pipelined(plan.decode):
                 return
-        # decode-only plans may take the burst before falling back to the
-        # one packed launch
+        # decode-only plans may take a spec round or the burst before
+        # falling back to the one packed launch
         if not plan.prefill and plan.decode:
             if await self._run_decode_fast(plan.decode):
                 return
+        t0 = time.perf_counter()
         await self._run_ragged(plan)
+        if not plan.prefill and plan.decode:
+            # a plain decode-only step's wall: the spec governor's baseline
+            wall = (time.perf_counter() - t0) * 1000
+            self._decode_step_ms = (
+                wall if self._decode_step_ms is None
+                else 0.8 * self._decode_step_ms + 0.2 * wall)
 
     # --------------------------------------------------------------- warmup
 
@@ -481,12 +536,17 @@ class AsyncTorchEngine:
         so no request pays a first use (on the card: the eager run and the
         capture). The signature space is the token-bucket list: each bucket
         T as a mixed step and as a decode-only step, and a greedy sampler
-        for each row count R. ``seq_lens`` and ``prefill_batches`` are
-        accepted, as the JAX engine accepts them, and choose nothing: the
-        table width never enters a signature. The dummy steps write only
-        the null block. Refused once work is scheduled. Returns the JAX
-        engine's report: ``{"ragged": [(kind, T, R, W), ...], "sample":
-        [R, ...], "seconds": s}``."""
+        for each row count R. With speculative decoding on, also every
+        verify bucket that 1 .. max_num_seqs rows can pick
+        (:func:`verify_groups`), masked too when the engine has a device
+        FSM arena, and the layer-skip draft burst of each row count.
+        ``seq_lens`` and ``prefill_batches`` are accepted, as the JAX
+        engine accepts them, and choose nothing: the table width never
+        enters a signature. The dummy steps write only the null block.
+        Refused once work is scheduled. Returns the JAX engine's report:
+        ``{"ragged": [(kind, T, R, W), ...], "sample": [R, ...], "seconds":
+        s}``, with ``"verify": [(kind, T), ...]`` and ``"draft": [R, ...]``
+        when speculation is on."""
         if self.scheduler.has_work:
             raise RuntimeError(
                 "bucket warmup must run before serving traffic (sequences "
@@ -513,15 +573,47 @@ class AsyncTorchEngine:
                     report["ragged"].append((kind, T, R, W))
                 if R not in report["sample"]:
                     report["sample"].append(R)
+            K = args.speculative_tokens
+            if K > 0:
+                report["verify"], report["draft"] = [], []
+                S = K + 1
+                masks = (False, True) if self.structured is not None else (
+                    False,)
+                row = ([0] * S, 0, [NULL_BLOCK * args.block_size
+                                    + p % args.block_size for p in range(S)],
+                       S, [])
+                for T in verify_buckets(args):
+                    ops = self._verify_operands([row], T)
+                    for masked in masks:
+                        mw = (np.full((T, -(-self.cfg.vocab_size // 32)),
+                                      -1, np.int32) if masked else None)
+                        out = self._verify(ops, mw)
+                        report["verify"].append(
+                            ("verify_fsm" if masked else "verify", T))
+                if args.speculative_method == "draft_layers":
+                    W = args.max_blocks_per_seq
+                    for R in sorted({
+                            args.ragged_rows(args.bucket_ragged_tokens(n))
+                            for n in range(1, args.max_num_seqs + 1)}):
+                        ints3 = np.zeros((3, R), np.int32)
+                        ints3[2, 0] = 1  # one row attending a null slot
+                        out = self._draft(
+                            ints3, np.full((R, W), NULL_BLOCK, np.int32), K)
+                        report["draft"].append(R)
             if out is not None and out["copied"] is not None:
                 out["copied"].synchronize()
             return report
 
+        # its own captures are not warnings, also when it runs again after
+        # a knob (speculative_tokens, the draft depth) widened the set
+        self.warmed_up = False
         report = await asyncio.to_thread(run)
         self.warmed_up = True
         report["seconds"] = round(time.perf_counter() - t_start, 2)
-        logger.info("ragged warmup: %d token-bucket signatures in %.1fs",
-                    len(report["ragged"]), report["seconds"])
+        logger.info("ragged warmup: %d token-bucket signatures, %d verify "
+                    "and %d draft signatures in %.1fs",
+                    len(report["ragged"]), len(report.get("verify", ())),
+                    len(report.get("draft", ())), report["seconds"])
         return report
 
     def _note_compile(self, kind: str, sig: tuple, seconds: float) -> None:
@@ -845,12 +937,14 @@ class AsyncTorchEngine:
     def _can_pipeline(self, seqs: list[SeqState]) -> bool:
         """True when the decode batch qualifies for the depth-2 pipelined
         loop: every running sequence decodes in this batch, nothing waits
-        for admission, and no row needs a host round trip between its draw
-        and its emission (logprob capture, logit edits, host-oracle guided
-        rows; device FSM rows ride the loop, their mask and advance inside
-        the sampling step)."""
+        for admission, neither the burst nor speculative decoding is
+        configured (as in the JAX engine), and no row needs a host round
+        trip between its draw and its emission (logprob capture, logit
+        edits, host-oracle guided rows; device FSM rows ride the loop,
+        their mask and advance inside the sampling step)."""
         if (not self.args.pipeline_decode or self.scheduler.waiting
-                or self.args.multi_step_decode > 1):
+                or self.args.multi_step_decode > 1
+                or self.args.speculative_tokens > 0):
             return False
         # a running seq still mid-prefill needs plan() interleaving
         if len(seqs) != len(self.scheduler.running):
@@ -976,28 +1070,356 @@ class AsyncTorchEngine:
         self.steps += max(0, done - 1)
         return done > 0
 
+    # ---------------------------------------------- speculative decoding
+
+    @staticmethod
+    def _draft_tokens(s, k: int) -> list[int]:
+        """Prompt-lookup draft (the JAX engine's): match the trailing 3- or
+        2-gram earlier in the sequence and propose up to ``k`` tokens that
+        followed it, the newest match first.
+
+        O(new tokens) a call: ``s.ngram_pos`` maps each n-gram to the END
+        position of its newest occurrence and is extended incrementally.
+        The current trailing gram's own end stays unindexed until the
+        sequence grows past it, so a lookup never matches itself."""
+        tokens = s.tokens
+        n_tok = len(tokens)
+        idx = s.ngram_pos
+        for e in range(max(s.ngram_indexed + 1, 2), n_tok):  # end-exclusive
+            idx[(tokens[e - 2], tokens[e - 1])] = e
+            if e >= 3:
+                idx[(tokens[e - 3], tokens[e - 2], tokens[e - 1])] = e
+        s.ngram_indexed = max(s.ngram_indexed, n_tok - 1)
+        for n in (3, 2):
+            if n_tok <= n:
+                continue
+            e = idx.get(tuple(tokens[-n:]))
+            if e is not None:
+                cont = tokens[e:e + k]
+                if cont:
+                    return cont
+        return []
+
+    def _draft_fn(self, K: int):
+        D = self.args.speculative_draft_layers
+        fn = self._draft_fns.get((D, K))
+        if fn is None:
+            fn = self._draft_fns[D, K] = make_draft_fn(
+                self.cfg, self.args.block_size, D, K)
+        return fn
+
+    def _verify_fn(self, masked: bool):
+        fn = self._verify_fns.get(masked)
+        if fn is None:
+            fn = self._verify_fns[masked] = make_ragged_verify_fn(
+                self.cfg, self.args.block_size, masked=masked)
+        return fn
+
+    async def _run_draft_model(self, seqs: list[SeqState],
+                               K: int) -> list[list[int]]:
+        """Layer-skip draft dispatch: K greedy tokens a row from the first
+        ``speculative_draft_layers`` layers, in one burst of the row count
+        a decode-only step of these rows has. Draft KV lands in the tokens'
+        real slots: the caller has preallocated their blocks."""
+        args = self.args
+        R = args.ragged_rows(args.bucket_ragged_tokens(len(seqs)))
+        W = args.max_blocks_per_seq
+        ints3 = np.zeros((3, R), np.int32)
+        bt = np.full((R, W), NULL_BLOCK, np.int32)
+        for i, s in enumerate(seqs):
+            ints3[:, i] = (s.tokens[-1], len(s.tokens) - 1, len(s.tokens))
+            n = min(len(s.block_table), W)
+            bt[i, :n] = s.block_table[:n]
+        out = await asyncio.to_thread(self._draft, ints3, bt, K)
+        toks = (await self._host_tokens(out))[0]
+        return [[t[i] for t in toks] for i in range(len(seqs))]
+
+    def _draft(self, ints3, bt, K: int) -> dict:
+        """One draft burst on the device (a worker thread): its operands
+        staged, the burst replayed under graphs as ("draft", R, K, D), and
+        the copy of the tokens [K, R] to the host started."""
+        R = ints3.shape[1]
+        ints3_t, bt_t = self._staging.put([ints3, bt])
+        fn = self._draft_fn(K)
+        params, kc, vc = self.params, self.k_cache, self.v_cache
+
+        def run():
+            return fn(params, ints3_t, bt_t, kc, vc)
+
+        self.compiled_signatures.add(("draft", R))
+        self.draft_steps += 1
+        graphs = self._graph_cache()
+        if graphs is None:
+            toks = run()
+        else:
+            # the depth joins the key: a draft of another depth is another
+            # launch sequence
+            D = self.args.speculative_draft_layers
+            toks, secs = graphs.run(("draft", R, K, D), run)
+            if secs is not None:
+                self._note_compile("draft", (R, K, D), secs)
+        return self._to_host(toks, None, [toks])
+
+    async def _run_spec_decode(self, seqs: list[SeqState]) -> bool:
+        """Draft and verify: one forward over [newest token, draft...] a
+        row accepts the longest greedy-matching draft prefix plus one
+        token of the verify's own, 1 .. K + 1 tokens a row, exactly the
+        tokens plain greedy decode gives. False (the plain step runs) when
+        no row drafts anything or the blocks cannot be preallocated."""
+        args = self.args
+        K = args.speculative_tokens
+        t0 = time.perf_counter()
+        if args.speculative_method == "draft_layers":
+            # the draft writes KV into the draft slots: blocks first
+            if not self._prealloc_blocks(seqs, K):
+                return False
+            drafts = await self._run_draft_model(seqs, K)
+        else:
+            drafts = [self._draft_tokens(s, K) for s in seqs]
+            if not any(drafts):
+                return False
+            if not self._prealloc_blocks(seqs, K):
+                return False
+        await self._verify_and_commit(seqs, drafts)
+        self.spec_rounds += 1
+        wall = (time.perf_counter() - t0) * 1000
+        self._spec_round_ms = (wall if self._spec_round_ms is None
+                               else 0.8 * self._spec_round_ms + 0.2 * wall)
+        return True
+
+    def _verify_operands(self, rows: list, T: int):
+        """Packed operands of a verify step of bucket ``T``: each row one
+        chunk of S tokens, given as (tokens [S], position of the first,
+        slots [S], kv_len, block table), over ceil(S / tile) chunk-grid
+        tiles; padding tokens point at the grid's dump tile."""
+        args = self.args
+        R = args.ragged_rows(T)
+        W = args.max_blocks_per_seq
+        C, S_C = ragged_grid_shape(T)
+        ints5 = np.zeros((5, T), np.int32)
+        ints5[3] = C
+        rows3 = np.zeros((R, 3), np.int32)
+        grid_rows = np.zeros((C,), np.int32)
+        bt = np.full((R, W), NULL_BLOCK, np.int32)
+        t = tile = 0
+        for i, (toks, base, slots, kv_len, table) in enumerate(rows):
+            S = len(toks)
+            ints5[0, t:t + S] = toks
+            ints5[1, t:t + S] = base + np.arange(S)
+            ints5[2, t:t + S] = slots
+            for off in range(0, S, S_C):
+                width = min(S_C, S - off)
+                grid_rows[tile] = i
+                ints5[3, t + off:t + off + width] = tile
+                ints5[4, t + off:t + off + width] = np.arange(width)
+                tile += 1
+            rows3[i] = (t, S, kv_len)
+            n = min(len(table), W)
+            bt[i, :n] = table[:n]
+            t += S
+        if tile > C:
+            raise AssertionError(f"verify grid overflow: {tile} > {C}")
+        return ints5, rows3, grid_rows, bt
+
+    async def _verify_and_commit(self, seqs: list[SeqState],
+                                 drafts: list[list[int]]) -> None:
+        """Verify on the packed ragged layout: each row is a ragged chunk
+        of S = K + 1 tokens, its draft padded with token 0 (kv_len is
+        len(tokens) + K all the same: slots past the accepted tokens hold
+        garbage that no read reaches). The rows go in one step of the
+        smallest token bucket that holds their tokens and their chunk-grid
+        tiles, or in groups when even the largest cannot
+        (:func:`verify_groups`). Constrained rows verify under mask words
+        walked on the host along each draft. Each row then gets its
+        accepted drafts and the verify's next token as ONE output, and
+        ``spec_stats`` counts what was delivered."""
+        args = self.args
+        K = args.speculative_tokens
+        S = K + 1
+        bs = args.block_size
+        total_emitted = 0
+        for grp, T in verify_groups(args, len(seqs), S):
+            rows = []
+            for gi in grp:
+                s = seqs[gi]
+                base = len(s.tokens) - 1
+                slots = [s.block_table[p // bs] * bs + p % bs
+                         for p in range(base, base + S)]
+                d = drafts[gi]
+                rows.append(([s.tokens[-1]] + d + [0] * (K - len(d)), base,
+                             slots, len(s.tokens) + K, s.block_table))
+            operands = self._verify_operands(rows, T)
+            self.padded_tokens_total += T - len(grp) * S
+            cursors = [_guided_fsm(seqs[gi]) for gi in grp]
+            mw = None
+            if any(c is not None for c in cursors):
+                # walk each constrained row's table along its draft: a
+                # draft token the mask forbids never matches the masked
+                # argmax, so it is rejected where masked single-step decode
+                # would reject it, and the token at the first mismatch
+                # comes from the correctly advanced state
+                mw = np.full((T, -(-self.cfg.vocab_size // 32)),
+                             0xFFFFFFFF, np.uint32)  # padding: all allowed
+                for i, c in enumerate(cursors):
+                    if c is None:
+                        continue
+                    d = drafts[grp[i]]
+                    fsm = c.seg.fsm
+                    st = 0 if c.done else (c.state - c.seg.offset)
+                    for j in range(S):
+                        mw[i * S + j] = fsm.mask[st]
+                        if j < len(d):
+                            tok = d[j]
+                            if tok in c._eos_set or not 0 <= tok < fsm.V:
+                                st = 0
+                            else:
+                                st = int(fsm.next[st, tok])
+                mw = mw.view(np.int32)
+            out = await asyncio.to_thread(self._verify, operands, mw)
+            ids, lps = await self._host_tokens(out)
+            for i, gi in enumerate(grp):
+                s, d = seqs[gi], drafts[gi]
+                row_ids = ids[i * S:(i + 1) * S]
+                row_lps = lps[i * S:(i + 1) * S]
+                accepted = 0
+                while accepted < len(d) and d[accepted] == row_ids[accepted]:
+                    accepted += 1
+                # each commit marks the current tokens' KV resident (the
+                # verify computed it: accepted drafts are the real tokens)
+                emitted = self._deliver_batch(s, row_ids[:accepted + 1],
+                                              row_lps[:accepted + 1])
+                # what was DELIVERED: a row finishing mid-way must not
+                # inflate the acceptance counts
+                self.spec_stats.num_drafts += 1
+                self.spec_stats.num_draft_tokens += len(d)
+                self.spec_stats.num_accepted_tokens += min(accepted, emitted)
+                self.spec_stats.num_spec_tokens += emitted
+                total_emitted += emitted
+        self._note_spec_result(total_emitted, len(seqs))
+
+    def _verify(self, operands, mask_words) -> dict:
+        """One verify step on the device (a worker thread): the operands
+        (and the mask words) staged, the forward replayed under graphs as
+        ("verify" | "verify_fsm", T) with its logits in the one scratch
+        buffer, and the copy of the ids and logprobs [T] to the host
+        started."""
+        masked = mask_words is not None
+        kind = "verify_fsm" if masked else "verify"
+        T = operands[0].shape[1]
+        graphs = self._graph_cache()
+        buf = self._verify_logits
+        staged = self._staging.put(
+            [*operands, mask_words] if masked else list(operands))
+        ints5, rows3, grid_rows, bt = staged[:4]
+        fn = self._verify_fn(masked)
+        params, kc, vc = self.params, self.k_cache, self.v_cache
+        extra = staged[4:]
+
+        def run():
+            ids, lps, _, _ = fn(params, ints5, rows3, grid_rows, bt, *extra,
+                                kc, vc, logits_out=buf)
+            return ids, lps
+
+        self.compiled_signatures.add((kind, T))
+        self.verify_steps += 1
+        if graphs is None:
+            ids, lps = run()
+        else:
+            (ids, lps), secs = graphs.run((kind, T), run)
+            if secs is not None:
+                self._note_compile(kind, (T,), secs)
+        return self._to_host(ids, None, [ids, lps])
+
+    # ------------------------------------------ spec auto-disable governor
+
+    def _spec_active(self) -> bool:
+        """False while the governor has speculation suspended (the rolling
+        measured gain fell below 1); it re-probes once
+        ``spec_reprobe_steps`` engine steps have passed."""
+        return self.steps >= self._spec_resume_step
+
+    def _spec_dispatch_cost(self) -> float:
+        """A spec round's cost in plain decode steps: the measured ratio
+        of the two walls when both exist, floored at 1.01 (a round computes
+        more than a step) and capped at the static estimate (1 + K·D/L for
+        the layer-skip draft, 1.05 for prompt lookup), so a noisy sample
+        never suspends harder than the estimate would."""
+        args = self.args
+        if (args.speculative_method == "draft_layers"
+                and args.speculative_draft_layers > 0):
+            static = 1.0 + (args.speculative_tokens
+                            * args.speculative_draft_layers
+                            / max(1, self.cfg.num_layers))
+        else:
+            static = 1.05  # prompt lookup: free drafts, small overhead
+        if (self._spec_round_ms is not None
+                and self._decode_step_ms is not None
+                and self._decode_step_ms > 0):
+            return min(static,
+                       max(1.01, self._spec_round_ms / self._decode_step_ms))
+        return static
+
+    def _note_spec_result(self, emitted: int, n_seqs: int) -> None:
+        """Feed the governor one verify round's outcome: when the mean
+        tokens a row over the window, divided by the round's cost, stays
+        under 1, suspend speculation for ``spec_reprobe_steps`` steps."""
+        if self.args.spec_gain_window <= 0:
+            return
+        self._spec_window.append(emitted / max(1, n_seqs))
+        if len(self._spec_window) < (self._spec_window.maxlen or 1):
+            return
+        gain = (sum(self._spec_window) / len(self._spec_window)
+                / self._spec_dispatch_cost())
+        self.spec_measured_gain = gain
+        if gain < 1.0:
+            self.spec_disabled_total += 1
+            self._spec_resume_step = (self.steps
+                                      + max(1, self.args.spec_reprobe_steps))
+            self._spec_window.clear()
+            logger.warning(
+                "speculative decode suspended: measured gain %.3f < 1 over "
+                "%d dispatches (accept rate %.3f); re-probing after %d "
+                "steps", gain, self.args.spec_gain_window,
+                self.spec_stats.num_accepted_tokens
+                / max(1, self.spec_stats.num_draft_tokens),
+                self.args.spec_reprobe_steps)
+
     # ------------------------------------------------------ multi-step burst
 
     async def _run_decode_fast(self, seqs: list[SeqState]) -> bool:
-        """The decode-only fast path: K = ``multi_step_decode`` steps in
-        one burst, gated as the JAX engine gates it: no row wants
-        logprobs, ``logit_bias``, penalties or the host oracle (device FSM
-        rows mask and advance inside the burst). A row within K of its
-        limit does not disqualify the batch: its overshoot is dropped.
-        False: the caller's packed ragged step runs."""
-        if self.args.multi_step_decode <= 1 or not seqs:
+        """The decode-only fast paths, gated as the JAX engine gates them:
+        no row wants logprobs, ``logit_bias``, penalties or the host oracle
+        (device FSM rows verify under mask words, or mask and advance
+        inside the burst). A speculative round comes first, for greedy
+        batches while the governor has speculation on and every row is at
+        least 2 tokens from its limit; then K = ``multi_step_decode`` steps
+        in one burst, where a row within K of its limit does not disqualify
+        the batch (its overshoot is dropped). False: the caller's packed
+        ragged step runs."""
+        args = self.args
+        if not seqs or (args.speculative_tokens <= 0
+                        and args.multi_step_decode <= 1):
             return False
         for s in seqs:
             if (s.req.output_options.logprobs is not None
                     or s.req.sampling_options.logit_bias
                     or _has_penalties(s) or _guided_host_only(s)):
                 return False
+        if (args.speculative_tokens > 0 and self._spec_active()
+                and all(s.sampling_tuple()[0] == 0.0 for s in seqs)
+                and all(s.req.stop_conditions.max_tokens is None
+                        or s.req.stop_conditions.max_tokens - s.generated >= 2
+                        for s in seqs)
+                and await self._run_spec_decode(seqs)):
+            return True
+        if args.multi_step_decode <= 1:
+            return False
         return await self._run_multi_decode(seqs)
 
     def _prealloc_blocks(self, seqs: list[SeqState], extra: int) -> bool:
-        """All-or-nothing block preallocation for the burst: a partial
-        extension left behind would deepen the memory pressure that made
-        it fail."""
+        """All-or-nothing block preallocation for the burst and the spec
+        round: a partial extension left behind would deepen the memory
+        pressure that made it fail."""
         extended: list = []
         for s in seqs:
             before = len(s.block_table)
@@ -1726,7 +2148,9 @@ class AsyncTorchEngine:
                 gpu_cache_usage_perc=self.pool.usage(),
                 gpu_prefix_cache_hit_rate=(
                     sched.prefix_hit_tokens / sched.prefix_query_tokens
-                    if sched.prefix_query_tokens else 0.0)))
+                    if sched.prefix_query_tokens else 0.0)),
+            spec_decode_stats=(self.spec_stats
+                               if self.spec_stats.num_drafts else None))
 
 
 class _Staging:
@@ -1747,20 +2171,14 @@ class _Staging:
     behind its last copy has completed, so a copy in flight never reads a
     buffer that is being rewritten."""
 
-    def __init__(self, args: EngineArgs, device: torch.device):
-        T = args.ragged_token_buckets[-1]
-        R = args.ragged_rows(T)
-        C, _ = ragged_grid_shape(T)
-        # sampling.pack_rows' [5, R] and the FSM states [R], then ints5,
-        # rows3, the grid rows and the tables (a burst needs fewer)
-        n = 6 * R + 5 * T + 3 * R + C + R * args.max_blocks_per_seq
+    def __init__(self, words: int, device: torch.device):
         self.cuda = device.type == "cuda"
-        self.dev = torch.empty(n, dtype=torch.int32, device=device)
-        # on the CPU the same layout, copied synchronously
-        self._bufs = [torch.empty(n, dtype=torch.int32, pin_memory=self.cuda)
-                      for _ in range(2)]
         self._done: list = [None, None]
         self._turn = 0
+        self.dev = torch.empty(words, dtype=torch.int32, device=device)
+        # on the CPU the same layout, copied synchronously
+        self._bufs = [torch.empty(words, dtype=torch.int32,
+                                  pin_memory=self.cuda) for _ in range(2)]
 
     def put(self, arrays) -> list:
         i, self._turn = self._turn, self._turn ^ 1
@@ -1779,6 +2197,56 @@ class _Staging:
             self._done[i].record()
         return [self.dev[o:o + math.prod(shape)].view(shape)
                 for o, shape in spans]
+
+
+def staging_words(args: EngineArgs, vocab_size: int) -> int:
+    """int32 words of the staging buffer: a step of the largest token
+    bucket (``pack_rows``' [5, R] and the FSM states [R], then ints5,
+    rows3, the grid rows and the tables; a burst, a draft and a verify
+    need no more), and with speculative decoding the verify's mask words
+    [T, ceil(V/32)] at its largest bucket. Sized once, for the K the engine
+    is made with: a live engine may switch speculation off and on again,
+    never to a larger K."""
+    T = args.ragged_token_buckets[-1]
+    R = args.ragged_rows(T)
+    C, _ = ragged_grid_shape(T)
+    n = 6 * R + 5 * T + 3 * R + C + R * args.max_blocks_per_seq
+    if args.speculative_tokens > 0:
+        n += max(verify_buckets(args)) * -(-vocab_size // 32)
+    return n
+
+
+def verify_bucket(args: EngineArgs, n: int, S: int) -> Optional[int]:
+    """The smallest token bucket that holds n verify rows of S tokens and
+    their chunk-grid tiles (ceil(S / tile) a row), or None."""
+    for T in args.ragged_token_buckets:
+        C, S_C = ragged_grid_shape(T)
+        if T >= n * S and n * -(-S // S_C) <= C:
+            return T
+    return None
+
+
+def verify_groups(args: EngineArgs, n: int, S: int) -> list:
+    """The verify steps of n rows of S tokens, as the JAX engine splits
+    them: [(row indices, T)], one step when a bucket holds every row, else
+    groups of as many rows as the largest bucket's tokens and tiles take."""
+    T = verify_bucket(args, n, S)
+    if T is not None:
+        return [(range(n), T)]
+    Tmax = args.ragged_token_buckets[-1]
+    C, S_C = ragged_grid_shape(Tmax)
+    cap = max(1, min(C // -(-S // S_C), Tmax // S))
+    return [(range(i, min(i + cap, n)),
+             verify_bucket(args, min(i + cap, n) - i, S))
+            for i in range(0, n, cap)]
+
+
+def verify_buckets(args: EngineArgs) -> list:
+    """Every verify bucket that 1 .. max_num_seqs rows can pick, for K =
+    ``speculative_tokens`` (what ``warmup()`` runs)."""
+    S = args.speculative_tokens + 1
+    return sorted({T for n in range(1, args.max_num_seqs + 1)
+                   for _, T in verify_groups(args, n, S)})
 
 
 def ragged_grid_shape(t_bucket: int) -> tuple[int, int]:

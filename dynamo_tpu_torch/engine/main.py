@@ -35,8 +35,14 @@ The disaggregated roles move KV device to device when they can
 ``--no-kv-transfer-direct`` (the JAX package's ``EngineArgs.
 kv_transfer_direct`` off) keeps every transfer host-staged.
 
+``--speculative-tokens``, ``--speculative-method`` and
+``--speculative-draft-layers`` turn on speculative decoding (prompt lookup
+or the layer-skip draft); the ``spec_disabled_total`` counter counts the
+times its governor suspended it.
+
 The worker prints ``WORKER_READY`` once registered, and at exit a line
-``WORKER_EXIT {json}`` with its engine steps, the launches of each kernel
+``WORKER_EXIT {json}`` with its engine steps (verify forwards and draft
+bursts among them) and speculative decoding's counts, the launches of each kernel
 wrapper in this process, the blocks still in use, its role's transfer
 counts and records (the decode side's transfers by link path), the direct
 transfer's offers, pulls, pull failures, offers still outstanding and
@@ -48,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import dataclasses
 import json
 import logging
 import os
@@ -80,7 +87,6 @@ logger = logging.getLogger("dynamo_torch.engine.main")
 REFUSED_FLAGS = {
     "dp_rank": (None, "A11"),
     "num_ranks": (1, "A11"),
-    "speculative_draft_layers": (0, "A7"),
     "kvbm_g4_gb": (0.0, "A8e"),
     "kvbm_distributed": (False, "A8e"),
     "kvbm_leader_workers": (0, "A8e"),
@@ -266,6 +272,8 @@ def configure(cli) -> tuple[ModelConfig, EngineArgs, list[int], str]:
             use_pallas_attention=cli.use_pallas_attention,
             multi_step_decode=cli.multi_step_decode,
             speculative_tokens=cli.speculative_tokens,
+            speculative_method=cli.speculative_method,
+            speculative_draft_layers=cli.speculative_draft_layers,
             kvbm_host_bytes=int(cli.kvbm_host_gb * (1 << 30)),
             kvbm_disk_dir=cli.kvbm_disk_dir,
             kvbm_disk_bytes=int(cli.kvbm_disk_gb * (1 << 30)),
@@ -355,6 +363,11 @@ async def serve(cli, engine, args: EngineArgs, eos: list[int],
         engine.event_cb = kv_pub.publish_sync
         engine.metrics_cb = WorkerMetricsPublisher(
             runtime.plane, worker_id=lease).publish_sync
+        runtime.metrics.counter(
+            "spec_disabled_total",
+            "times the engine auto-suspended losing speculative "
+            "decode").add_callback(
+            lambda: {None: engine.spec_disabled_total})
 
         prefill = cli.role == "prefill"
         component = cli.component or ("prefill" if prefill else "backend")
@@ -442,6 +455,10 @@ async def serve(cli, engine, args: EngineArgs, eos: list[int],
         report = {"steps": engine.steps,
                   "pipelined_steps": engine.pipelined_steps,
                   "forward_steps": engine.forward_steps,
+                  "verify_steps": engine.verify_steps,
+                  "draft_steps": engine.draft_steps,
+                  "spec": dataclasses.asdict(engine.spec_stats),
+                  "spec_disabled": engine.spec_disabled_total,
                   "launches": kernel_launches(),
                   "compile_events": engine.compile_events,
                   "active_blocks": engine.pool.num_active_blocks,

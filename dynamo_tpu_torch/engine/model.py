@@ -16,6 +16,11 @@ The port of ``dynamo_tpu/engine/model.py``'s single-device paths:
 - ``make_multi_decode_fn`` (``multi_decode``, its ragged layout): K
   chained decode steps and their draws in one call, the burst of
   ``EngineArgs.multi_step_decode``.
+- ``make_ragged_verify_fn``: speculative decoding's verify, the ragged
+  step's forward (factored out of ``make_ragged_step_fn``, shared) with the
+  greedy token and its logprob at every packed position, optionally under
+  per-position FSM mask words; ``make_draft_fn``: the layer-skip draft, a
+  greedy burst through the first D layers.
 - ``make_forward_fn`` (``forward(ragged=None)``) for [B, S] batches: S > 1
   through the flash prefill kernel (ops/flash_prefill.py; GQA, or the MLA
   flash-prefill kernel over the layer's pages), S == 1 through the paged
@@ -58,6 +63,7 @@ Weights keep the JAX layout ``[in, out]``, so each projection is
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
@@ -714,6 +720,47 @@ def mla_ragged_olat(q_eff, q_rot, latent, rope_pages, block_tables,
 # ---------------------------------------------------------------------------
 
 
+def _make_ragged_forward(cfg: ModelConfig, block_size: int,
+                         attention: Optional[Callable],
+                         chunk_attention: Callable):
+    """The packed ragged forward that the step and the verify share:
+    ``forward(params, ints5, rows3, grid_rows, block_tables, k_cache,
+    v_cache) -> x [T, D]``, the final-normed hidden state of every packed
+    token, the caches written in place; see :func:`make_ragged_step_fn` for
+    the operands and the attention calls."""
+    check_supported(cfg)
+    rope_ = _Rope(cfg)
+    if attention is None:
+        attention = mla_paged_decode if cfg.is_mla else ragged_paged_attention
+    scale = mla_softmax_scale(cfg) if cfg.is_mla else None
+
+    def forward(params, ints5, rows3, grid_rows, block_tables, k_cache,
+                v_cache):
+        cos, sin = rope_.tables(ints5[1])
+
+        if cfg.is_mla:
+            def attend(li, q_eff, q_rot):
+                lat, rp, cs, rs = mla_layer_pages(k_cache, v_cache, li)
+                return mla_ragged_olat(
+                    q_eff, q_rot, lat, rp, block_tables, ints5[1], rows3,
+                    ints5[3], ints5[4], grid_rows,
+                    block_size=block_size, scale=scale,
+                    decode=attention,
+                    chunk=chunk_attention, c_scales=cs, r_scales=rs)
+        else:
+            def attend(li, q):
+                kc, ks = layer_pages(k_cache, li)
+                vc, vs = layer_pages(v_cache, li)
+                return attention(q, kc, vc, block_tables, rows3,
+                                 block_size=block_size, k_scales=ks,
+                                 v_scales=vs)
+
+        return _layers(cfg, params, params["embed"][ints5[0]], cos, sin,
+                       ints5[2].long(), k_cache, v_cache, attend)
+
+    return forward
+
+
 def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
                         attention: Optional[Callable] = None,
                         chunk_attention: Callable = mla_chunk_attention):
@@ -741,41 +788,77 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
     it. An int8 cache passes each layer's pages with that layer's scales
     (scale slot base 0).
     """
-    check_supported(cfg)
-    rope_ = _Rope(cfg)
-    if attention is None:
-        attention = mla_paged_decode if cfg.is_mla else ragged_paged_attention
-    scale = mla_softmax_scale(cfg) if cfg.is_mla else None
+    forward = _make_ragged_forward(cfg, block_size, attention,
+                                   chunk_attention)
 
     def fn(params, ints5, rows3, grid_rows, block_tables, k_cache, v_cache,
            logits_out=None):
         T = ints5.shape[1]
-        cos, sin = rope_.tables(ints5[1])
-
-        if cfg.is_mla:
-            def attend(li, q_eff, q_rot):
-                lat, rp, cs, rs = mla_layer_pages(k_cache, v_cache, li)
-                return mla_ragged_olat(
-                    q_eff, q_rot, lat, rp, block_tables, ints5[1], rows3,
-                    ints5[3], ints5[4], grid_rows,
-                    block_size=block_size, scale=scale, decode=attention,
-                    chunk=chunk_attention, c_scales=cs, r_scales=rs)
-        else:
-            def attend(li, q):
-                kc, ks = layer_pages(k_cache, li)
-                vc, vs = layer_pages(v_cache, li)
-                return attention(q, kc, vc, block_tables, rows3,
-                                 block_size=block_size, k_scales=ks,
-                                 v_scales=vs)
-
-        x = _layers(cfg, params, params["embed"][ints5[0]], cos, sin,
-                    ints5[2].long(), k_cache, v_cache, attend)
+        x = forward(params, ints5, rows3, grid_rows, block_tables, k_cache,
+                    v_cache)
         last = (rows3[:, 0] + rows3[:, 1] - 1).clamp(0, T - 1).long()
         logits = x[last] @ _lm_head(cfg, params)
         if logits_out is None:
             return logits.float(), k_cache, v_cache
         return logits_out.copy_(logits), k_cache, v_cache
 
+    return fn
+
+
+def make_ragged_verify_fn(cfg: ModelConfig, block_size: int,
+                          attention: Optional[Callable] = None,
+                          chunk_attention: Callable = mla_chunk_attention,
+                          masked: bool = False):
+    """Speculative verification on the packed ragged layout (the JAX
+    package's ``make_ragged_verify_fn``): each verify row is a ragged chunk
+    of q_len = draft + 1 tokens ([newest token, draft...]), run through
+    :func:`make_ragged_step_fn`'s forward, with the greedy argmax and its
+    logprob taken at EVERY packed position; the host slices each row's
+    window out of the flat result. Draft KV is written like any chunk's:
+    slots past the accepted prefix hold garbage that kv_len keeps out of
+    every later read, and the next real step overwrites.
+
+    ``fn(params, ints5 [5, T], rows3 [R, 3], grid_rows [C], block_tables
+    [R, W], [mask_words [T, ceil(V/32)],] k_cache, v_cache,
+    logits_out=None) -> (ids [T] int32, logps [T] f32, k_cache,
+    v_cache)``. ``masked`` adds ``mask_words`` (int32 views of the uint32
+    words the host walks along each constrained row's draft; padding and
+    free rows all ones): every position's logits are masked to its FSM
+    state's tokens (``FSM_MASK_FILL``) before the ``log_softmax``.
+    ``logits_out``, an f32 [T', V] buffer with T' >= T, receives the
+    logits (one scratch buffer serves every verify bucket: the [T, V]
+    logits never outlive the call). The attention arguments are
+    :func:`make_ragged_step_fn`'s."""
+    forward = _make_ragged_forward(cfg, block_size, attention,
+                                   chunk_attention)
+
+    def f(params, ints5, rows3, grid_rows, block_tables, k_cache, v_cache,
+          mask_words=None, logits_out=None):
+        T = ints5.shape[1]
+        x = forward(params, ints5, rows3, grid_rows, block_tables, k_cache,
+                    v_cache)
+        logits = x @ _lm_head(cfg, params)
+        if logits_out is None:
+            logits = logits.float()
+        else:
+            logits = logits_out[:T].copy_(logits)
+        if mask_words is not None:
+            logits = sampling.apply_mask_words(logits, mask_words)
+        lp = torch.log_softmax(logits, dim=-1)
+        ids = lp.argmax(dim=-1)
+        chosen = lp.gather(1, ids[:, None])[:, 0]
+        return ids.to(torch.int32), chosen, k_cache, v_cache
+
+    if masked:
+        def fn(params, ints5, rows3, grid_rows, block_tables, mask_words,
+               k_cache, v_cache, logits_out=None):
+            return f(params, ints5, rows3, grid_rows, block_tables, k_cache,
+                     v_cache, mask_words=mask_words, logits_out=logits_out)
+    else:
+        def fn(params, ints5, rows3, grid_rows, block_tables, k_cache,
+               v_cache, logits_out=None):
+            return f(params, ints5, rows3, grid_rows, block_tables, k_cache,
+                     v_cache, logits_out=logits_out)
     return fn
 
 
@@ -837,6 +920,54 @@ def make_multi_decode_fn(cfg: ModelConfig, block_size: int, num_steps: int,
             logps.append(lp)
             pos, kv = pos + 1, kv + 1
         return torch.stack(toks), torch.stack(logps)
+
+    return fn
+
+
+def make_draft_fn(cfg: ModelConfig, block_size: int, draft_layers: int,
+                  num_steps: int, attention: Optional[Callable] = None):
+    """Layer-skip self-drafting (the JAX package's ``make_draft_fn``):
+    ``num_steps`` greedy decode steps through only the first
+    ``draft_layers`` layers and the shared final norm and LM head, chained
+    on :func:`make_multi_decode_fn` with the layer stack sliced (views, no
+    copies) and ``cfg`` cut to ``num_layers = draft_layers``.
+
+    The draft model is the serving model's prefix: no second checkpoint,
+    no second cache. Draft KV of layers < draft_layers lands in the draft
+    tokens' real slots; the verify rewrites every layer of those slots, and
+    kv_len keeps a rejected slot out of every later read.
+
+    ``fn(params, ints3 [3, R], block_tables [R, W], k_cache, v_cache) ->
+    tokens [K, R] int64``, ``ints3`` and ``block_tables`` as for the burst.
+    A model with a dense prefix (``num_dense_prefix_layers``, DeepSeek) has
+    no uniform stack to cut and is refused, as is a depth outside (0,
+    num_layers]: the full depth is allowed, the sharpest check of the draft
+    KV's plumbing (the draft is then the model)."""
+    if cfg.num_dense_prefix_layers:
+        raise ValueError("layer-skip drafting needs a uniform layer stack "
+                         "(num_dense_prefix_layers == 0)")
+    if not 0 < draft_layers <= cfg.num_layers:
+        raise ValueError(
+            f"draft_layers={draft_layers} outside (0, {cfg.num_layers}]")
+    cfg_d = dataclasses.replace(
+        cfg, num_layers=draft_layers,
+        layer_windows=(cfg.layer_windows[:draft_layers]
+                       if cfg.layer_windows is not None else None))
+    burst = make_multi_decode_fn(cfg_d, block_size, num_steps,
+                                 attention=attention)
+
+    def fn(params, ints3, block_tables, k_cache, v_cache):
+        R = ints3.shape[1]
+        pd = dict(params)
+        pd["layers"] = {k: v[:draft_layers]
+                        for k, v in params["layers"].items()}
+        # greedy: the sampler reads no row operand but the key's step
+        rows = torch.zeros((5, R), dtype=torch.int32, device=ints3.device)
+        greedy = (np.zeros((R,), np.float32), np.zeros((R,), np.int32),
+                  np.ones((R,), np.float32))
+        toks, _ = burst(pd, ints3, rows, block_tables, k_cache, v_cache,
+                        greedy)
+        return toks
 
     return fn
 

@@ -140,8 +140,14 @@ def apply_fsm_mask(logits, states, mask_table):
     uint32 words' bits), the structured runtime's packed bitmask arena.
     State 0 is the FREE row, all allowed: an exact identity for
     unconstrained rows."""
+    return apply_mask_words(logits, mask_table[states.long()])
+
+
+def apply_mask_words(logits, words):
+    """Mask each row of ``logits`` [N, V] to the tokens whose bit is set
+    in its packed mask words [N, ceil(V/32)] int32 (uint32 bits; token t is
+    bit t % 32 of word t // 32); masked tokens take ``FSM_MASK_FILL``."""
     V = logits.shape[-1]
-    words = mask_table[states.long()]  # [B, W32]
     ids = torch.arange(V, device=logits.device)
     bits = (words[:, ids // 32] >> (ids % 32).to(words.dtype)) & 1
     return torch.where(bits.bool(), logits, FSM_MASK_FILL)

@@ -91,6 +91,11 @@ class SeqState:
     progress_cb: Optional[Callable] = None
     #: the owner vanished (``Scheduler.abort``): reaped at the next plan
     aborted: bool = False
+    #: prompt-lookup drafting index (engine ``_draft_tokens``): n-gram →
+    #: END position of its newest occurrence, extended incrementally up to
+    #: ``ngram_indexed``
+    ngram_pos: dict = field(default_factory=dict)
+    ngram_indexed: int = 0
 
     @property
     def remaining(self) -> int:

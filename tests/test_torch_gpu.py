@@ -650,9 +650,10 @@ def test_sampler_on_card_draws_with_the_kernel():
 # --------------------------------------------------------- captured steps
 
 
-def _graph_engine(kind: str, guided_vocab=None):
+def _graph_engine(kind: str, guided_vocab=None, **knobs):
     """A small engine on the card whose steps the kernels take: GQA (hd
-    64, group 4) with bf16 or int8 KV, or MLA + MoE (H 16, rank 64)."""
+    64, group 4) with bf16 or int8 KV, or MLA + MoE (H 16, rank 64);
+    ``knobs`` are further EngineArgs."""
     from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
     from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
 
@@ -672,7 +673,8 @@ def _graph_engine(kind: str, guided_vocab=None):
             max_position_embeddings=4096, dtype="bfloat16")
     args = EngineArgs(block_size=16, num_blocks=512, max_num_seqs=8,
                       max_num_batched_tokens=256, max_model_len=1024,
-                      kv_cache_dtype="int8" if kind == "gqa_int8" else None)
+                      kv_cache_dtype="int8" if kind == "gqa_int8" else None,
+                      **knobs)
     return AsyncTorchEngine(cfg, args, guided_vocab=guided_vocab)
 
 
@@ -796,6 +798,182 @@ def test_burst_graph_equals_captured_single_steps_on_card():
     assert burst() == first  # eager first use, capture
     assert burst() == first  # replay
     assert engine.compile_events["multi"] == 1  # one capture, one replay
+
+
+# ------------------------------------------------------ speculative decoding
+
+#: the full-width step rule of chip_smoke.py: logits within this share of
+#: their largest magnitude (the kernels round P to bf16 before P.V)
+STEP_RTOL = 0.05
+
+
+def _verify_case(engine, rng, K=4):
+    """Verify operands of 6 rows at kv 100-300, each [newest token, K
+    draft tokens] (the last row's draft shorter, padded with 0), and the
+    slots they write."""
+    bs = engine.args.block_size
+    rows = []
+    for i, n in enumerate(rng.integers(100, 300, 6)):
+        s = _seq(engine, rng, int(n))
+        base = len(s.tokens) - 1
+        d = list(map(int, rng.integers(0, engine.cfg.vocab_size,
+                                       K if i < 5 else 2)))
+        rows.append(([s.tokens[-1]] + d + [0] * (K - len(d)), base,
+                     [s.block_table[p // bs] * bs + p % bs
+                      for p in range(base, base + K + 1)],
+                     len(s.tokens) + K, s.block_table))
+    from dynamo_tpu_torch.engine.engine import verify_bucket
+    T = verify_bucket(engine.args, len(rows), K + 1)
+    ops = engine._verify_operands(rows, T)
+    n = len(rows) * (K + 1)
+    return ops, torch.from_numpy(ops[0][2, :n].astype(np.int64)).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,masked", [("gqa_bf16", False),
+                                         ("gqa_bf16", True),
+                                         ("gqa_int8", False),
+                                         ("mla_bf16", False)])
+def test_captured_verify_equals_eager_on_card(kind, masked):
+    """A verify step (6 rows of K + 1 = 5 tokens), captured, then run
+    eagerly, its written slots zeroed, and replayed twice: the rows' ids
+    and logprobs and every written cache slot bit-equal to the eager
+    run's, and each replay counts the eager run's kernel launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dynamo_tpu_torch.engine.graphs import COUNTED
+
+    engine = _graph_engine(kind, speculative_tokens=4)
+    ops, slots = _verify_case(engine, np.random.default_rng(17))
+    T = ops[0].shape[1]
+    mw = None
+    if masked:
+        rng = np.random.default_rng(3)
+        mw = rng.integers(0, 2**32, (T, -(-engine.cfg.vocab_size // 32)),
+                          dtype=np.uint64).astype(np.uint32).view(np.int32)
+    leaves = [t for cache in (engine.k_cache, engine.v_cache)
+              for t in (cache.values() if isinstance(cache, dict)
+                        else (cache,))]
+
+    n = slots.shape[0]
+
+    def verify():
+        before = [w.launches for w in COUNTED]
+        out = engine._verify(ops, mw)
+        out["copied"].synchronize()
+        # the rows' positions: a padding token's output is unspecified
+        return ([t[:n].clone() for t in out["host"]],
+                [t[:, slots].clone() for t in leaves],
+                [w.launches - n for w, n in zip(COUNTED, before)])
+
+    verify()  # first use and capture
+    key = ("verify_fsm" if masked else "verify", T)
+    assert key in engine.graphs
+    engine.use_graphs = False
+    want = verify()
+    for t in leaves:
+        t[:, slots] = 0
+    engine.use_graphs = True
+    for _ in range(2):
+        got = verify()
+        assert all(torch.equal(g, w) for g, w in zip(got[0], want[0]))
+        assert all(torch.equal(g, w) for g, w in zip(got[1], want[1]))
+        assert got[2] == want[2] and any(got[2])
+    assert engine.compile_events[key[0]] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gqa_bf16", "gqa_int8", "mla_bf16"])
+def test_verify_through_kernels_matches_plain_on_card(kind):
+    """The verify step through the kernels (B1/B2 for GQA, B3m for MLA's
+    chunk tokens) against the same step through their plain versions:
+    the logits of every packed position within STEP_RTOL of their scale,
+    and the argmax equal at every position but bf16 ties (the plain
+    logits of the two picks within one bf16 step at the logit scale)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import math
+
+    from dynamo_tpu_torch.engine.model import (
+        make_ragged_verify_fn, mla_attention_seg,
+    )
+
+    engine = _graph_engine(kind, speculative_tokens=4)
+    cfg, bs = engine.cfg, engine.args.block_size
+    ops, _ = _verify_case(engine, np.random.default_rng(23))
+    T = ops[0].shape[1]
+    n = 6 * 5
+    tensors = [torch.from_numpy(a).cuda() for a in ops]
+    plain = (make_ragged_verify_fn(cfg, bs, attention=mla_paged_decode_ref,
+                                   chunk_attention=mla_attention_seg)
+             if cfg.is_mla else
+             make_ragged_verify_fn(cfg, bs, attention=ragged_attention_ref))
+    outs = []
+    for fn in (plain, make_ragged_verify_fn(cfg, bs)):
+        buf = torch.empty((T, cfg.vocab_size), dtype=torch.float32,
+                          device="cuda")
+        before = (ragged_paged_attention.launches,
+                  flash_mla_prefill_paged.launches,
+                  mla_paged_decode.launches)
+        ids, _, _, _ = fn(engine.params, *tensors, engine.k_cache,
+                          engine.v_cache, logits_out=buf)
+        torch.cuda.synchronize()
+        after = (ragged_paged_attention.launches,
+                 flash_mla_prefill_paged.launches,
+                 mla_paged_decode.launches)
+        outs.append((buf[:n].clone(), ids[:n].clone(),
+                     [a - b for a, b in zip(after, before)]))
+    (want, want_ids, plain_l), (got, got_ids, kern_l) = outs
+    L = cfg.num_layers
+    assert plain_l == [0, 0, 0]
+    # MLA: the chunk kernel for the rows, and the latent-decode call as the
+    # step makes it (no row has q_len 1, so each sees kv_len 0)
+    assert kern_l == ([0, L, L] if cfg.is_mla else [L, 0, 0])
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= STEP_RTOL * scale
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    gap = want.max(-1).values - want.gather(1, got_ids[:, None].long())[:, 0]
+    same = got_ids == want_ids
+    assert bool((same | (gap <= ulp)).all()), (same, gap)
+
+
+@pytest.mark.gpu
+def test_draft_graph_equals_eager_on_card():
+    """The layer-skip draft burst (D = 1 of 2 layers, K = 4) replayed from
+    its graph gives the eager burst's tokens, and the D x K ragged
+    launches a burst."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dynamo_tpu_torch.engine.cache import NULL_BLOCK
+
+    engine = _graph_engine("gqa_bf16", speculative_tokens=4,
+                           speculative_method="draft_layers",
+                           speculative_draft_layers=1)
+    rng = np.random.default_rng(31)
+    seqs = [_seq(engine, rng, int(n)) for n in rng.integers(50, 200, 6)]
+    R = engine.args.ragged_rows(engine.args.bucket_ragged_tokens(len(seqs)))
+    W = engine.args.max_blocks_per_seq
+    ints3 = np.zeros((3, R), np.int32)
+    bt = np.full((R, W), NULL_BLOCK, np.int32)
+    for i, s in enumerate(seqs):
+        ints3[:, i] = (s.tokens[-1], len(s.tokens) - 1, len(s.tokens))
+        bt[i, :len(s.block_table)] = s.block_table
+
+    def draft():
+        before = ragged_paged_attention.launches
+        out = engine._draft(ints3, bt, 4)
+        out["copied"].synchronize()
+        return ([row[:len(seqs)] for row in out["host"][0].tolist()],
+                ragged_paged_attention.launches - before)
+
+    first = draft()  # eager first use, capture
+    engine.use_graphs = False
+    eager = draft()
+    engine.use_graphs = True
+    assert draft() == eager == first
+    assert first[1] == 4  # D x K
+    assert engine.compile_events["draft"] == 1
 
 
 @pytest.mark.gpu

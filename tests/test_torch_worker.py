@@ -401,3 +401,88 @@ async def test_prefill_and_decode_torch_workers_behind_jax_frontend(
     assert reports["decode"]["active_blocks"] == 0
     assert reports["prefill"]["active_blocks"] == 0
     assert "disagg" not in reports["prefill"]
+
+
+async def test_spec_worker_streams_plain_tokens_behind_port_hub(monkeypatch):
+    """A torch worker started with ``--speculative-tokens 4`` behind the
+    port's own hub streams what a plain worker streams for the same
+    repetitive prompt, its load metrics on the plane carry
+    ``spec_decode_stats``, its ``spec_disabled_total`` counter is
+    registered, and its exit report counts the verify forwards."""
+    from dynamo_tpu_torch.protocols import (
+        LLMEngineOutput, PreprocessedRequest, StopConditions,
+    )
+    from dynamo_tpu_torch.router.protocols import KV_METRICS_SUBJECT
+    from dynamo_tpu_torch.router.publisher import parse_load_event
+    from dynamo_tpu_torch.runtime import (
+        ControlPlaneServer as PortHub, DistributedRuntime as PortRuntime,
+    )
+
+    hub = PortHub()
+    addr = await hub.start()
+    monkeypatch.setenv("DYN_CONTROL_PLANE", addr)
+    runtimes = []
+    create = worker_main.DistributedRuntime.create
+
+    async def recording(*a, **kw):
+        runtimes.append(await create(*a, **kw))
+        return runtimes[-1]
+
+    monkeypatch.setattr(worker_main.DistributedRuntime, "create", recording)
+    prompt = [11, 12, 13, 14, 15, 16] * 4
+    out = {}
+    client_rt = await PortRuntime.create(address=addr)
+    try:
+        for label, extra in (("plain", []),
+                             ("spec", ["--speculative-tokens", "4"])):
+            cli = worker_main.build_parser().parse_args(
+                ["--arch", "tiny", "--allow-test-metadata", "--device",
+                 "cpu", "--model", f"tiny-{label}", "--component", label,
+                 *ENGINE, *extra])
+            cfg, args, eos, tokenizer_ref = worker_main.configure(cli)
+            assert args.speculative_tokens == (4 if extra else 0)
+            engine = worker_main.build_engine(cli, cfg, args)
+            stop = asyncio.Event()
+            task = asyncio.get_running_loop().create_task(worker_main.serve(
+                cli, engine, args, eos, tokenizer_ref, stop))
+            try:
+                gen = await client_rt.namespace("dynamo").component(
+                    label).endpoint("generate").client().start()
+                await asyncio.wait_for(gen.wait_for_instances(), 20)
+                loads = await client_rt.plane.subscribe(KV_METRICS_SUBJECT)
+                toks = []
+                async for frame in await gen.generate(PreprocessedRequest(
+                        model=f"tiny-{label}", token_ids=prompt,
+                        stop_conditions=StopConditions(
+                            max_tokens=20, ignore_eos=True)).to_wire()):
+                    toks.extend(LLMEngineOutput.from_wire(frame).token_ids)
+                metrics = []
+
+                async def drain():
+                    async for _subject, payload in loads:
+                        metrics.append(parse_load_event(payload)[1])
+
+                drainer = asyncio.get_running_loop().create_task(drain())
+                await _until(lambda: metrics, "load metrics")
+                await asyncio.sleep(0.2)
+                drainer.cancel()
+                await loads.cancel()
+                await gen.stop()
+                rendered = runtimes[-1].metrics.render()
+            finally:
+                stop.set()
+                report = await asyncio.wait_for(task, 30)
+            out[label] = (toks, metrics, rendered, report)
+    finally:
+        await client_rt.shutdown()
+        await hub.stop()
+    (plain, _, _, plain_rep), (spec, metrics, rendered, rep) = (
+        out["plain"], out["spec"])
+    assert len(spec) == 20 and spec == plain
+    assert "dynamo_spec_disabled_total" in rendered
+    stats = [m.spec_decode_stats for m in metrics if m.spec_decode_stats]
+    assert stats and stats[-1].num_drafts > 0
+    assert rep["spec"]["num_drafts"] >= stats[-1].num_drafts
+    assert rep["verify_steps"] > 0 and rep["spec_disabled"] == 0
+    assert plain_rep["verify_steps"] == 0
+    assert plain_rep["spec"]["num_drafts"] == 0
