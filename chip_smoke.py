@@ -11,7 +11,9 @@ prints any result:
    (one nvcc per source, started together).
 2. Kernels: each kernel against its plain PyTorch version on the card,
    with its tolerance, and its time beside the plain version's, a PyTorch
-   library call's (a yardstick the port never calls) and the least time
+   library call's (a yardstick the port never calls: SDPA, flash for
+   calls without a mask and cuDNN for those with one, ``LIBRARY_BACKENDS``;
+   for the GQA kernels only in each kernel's main case) and the least time
    the card could take (each timed with the host's work kept out of the
    window, see ``time_ms``):
    - ragged paged attention on bf16/f32 pages: small mixed cases (f32 and
@@ -28,6 +30,17 @@ prints any result:
      contract): the Llama-3-8B decode geometry (8 rows at kv 900-1100),
      window + sinks, int8 pages (also with a rebased scale table), f32,
      and a kv_len 0 row;
+   - the same three GQA kernels at head dim 256 and with the attention
+     logit softcap 50 (``gemma_kernel_phase``): small mixed cases on f32,
+     bf16 and int8 pages with window 7, sinks and the cap with and
+     without a window, tile edges at groups 1 and 2, a group of 7 at hd
+     128 (Qwen2-7B: 63 of the 64 query rows), flash prefill and paged
+     decode cases, and the Gemma-2-9B geometry (H 16, KV 8): the mixed
+     case on bf16 and int8 pages with window 4096 on a row at kv 6000, 8
+     decode rows, embeddings (B 8, S = T = 2048) and paged decode. Every
+     capped case runs on queries scaled by 12, so that the cap bends its
+     scores by several units, and the kernel run on it with the cap off
+     and with the cap doubled must both fail its check;
    - MLA latent decode: f32 and bf16 with a kv_len 0 row, a one-page row
      and a long split-K row, and the DeepSeek-V2-Lite geometry (8 decode
      rows at kv 65-3000, H = 16, R = 512, PR = 128); the MLA cases pass a
@@ -209,6 +222,31 @@ prints any result:
    rule), the pool's blocks beside the bf16 pool's, one full-width int8
    step against its plain version, and the step profile.
 
+11. Gemma-2-9B (the DeepSeek engines released first), from the published
+   ``google/gemma-2-9b`` config's fields (``GEMMA2_9B``) at full width and
+   depth on seeded random weights (9.24 B parameters): ``warmup()``, the
+   eight requests of phase 3 and one of ``GEMMA_LONG_PROMPT`` (6000)
+   tokens, past the even layers' 4096-token window, on both loops (the
+   ragged kernel 42 times a step at hd 256 with the softcap, no capture);
+   the seeded sampled requests on both loops; the captured step against
+   the eager one; a full-width step through the kernel against the plain
+   attention (a decode row at kv 6000; every logit within the final
+   softcap 30, a bound that random weights' logits, below 8, never
+   test); the final softcap on hidden rows scaled until their uncapped
+   logits reach 90 (``final_cap_check``); the S == 1 dense step through the paged decode kernel;
+   one embedding call through the flash prefill kernel; then the same
+   weights from an int8 KV pool: the requests and the full-width step.
+12. Mistral-7B (its 4096 window on a 4500-token row), Qwen2-7B (q/k/v
+   biases with seeded noise, a group of 7) and Qwen3-8B (q/k norms with
+   seeded noise) at full width and 2 layers: the captured step bit-equal
+   to the eager one, and a full-width step through the kernel against the
+   plain attention.
+The full-width steps of phases 11 and 12 hold the argmax up to the bf16
+tie rule of the S == 1 step (``check_logits``); the earlier ones strictly.
+No earlier path was cut for time: the GQA kernels' secondary cases no
+longer time the SDPA yardstick, whose cuDNN kernel builds (one a shape)
+had taken most of the kernel phase's wall.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without CUDA, or without
 the rest of the repository beside it, the script fails.
@@ -237,6 +275,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 from dynamo_tpu_torch.engine import sampling
 from dynamo_tpu_torch.engine.cache import (
@@ -246,7 +285,8 @@ from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
 from dynamo_tpu_torch.engine.loader import load_hf_params
 from dynamo_tpu_torch.engine.model import (
-    make_embed_fn, make_forward_fn, make_ragged_step_fn, mla_attention_seg,
+    lm_logits, make_embed_fn, make_forward_fn, make_ragged_step_fn,
+    mla_attention_seg,
 )
 from dynamo_tpu_torch.engine.scheduler import PrefillWork, SeqState, StepPlan
 from dynamo_tpu_torch.models import get_model_config
@@ -295,6 +335,14 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 #: differ by a bf16 step or two, carried through the residual stream: the
 #: logits may differ by this share of their largest magnitude
 STEP_RTOL = 0.05
+#: the backends of scaled_dot_product_attention for the library yardstick,
+#: in priority order: flash for the calls without a mask (decode rows),
+#: cuDNN for those with one (flash takes none, and the efficient backend no
+#: GQA). cuDNN compiles a kernel for every new shape, 10-50 s a shape on an
+#: H100 host (PERF.md §6), so only each kernel's main case is timed
+#: against the yardstick (``yardstick=True``)
+LIBRARY_BACKENDS = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]
 #: embeddings through the kernel against the same through the plain
 #: attention: per-row cosine, for the same reason as STEP_RTOL
 EMBED_COS = 0.999
@@ -365,6 +413,36 @@ KERNELS = [{
     "replaces": "dynamo_tpu/engine/sampling.py:82",
     "build": "sample",
     "wrapper": gumbel_argmax,
+}, {
+    # the GQA kernels at Gemma-2-9B's geometry: head dim 256 and the
+    # attention softcap (their launches: phase 11's runs)
+    "name": "ragged_paged_attention_gemma2",
+    "route": "cuda",
+    "source": "dynamo_tpu_torch/ops/csrc/ragged_attention.cu",
+    "replaces": "dynamo_tpu/ops/ragged_attention.py:78",
+    "build": "ragged_attention",
+    "wrapper": ragged_paged_attention,
+}, {
+    "name": "ragged_paged_attention_int8_gemma2",
+    "route": "cuda",
+    "source": "dynamo_tpu_torch/ops/csrc/ragged_attention.cu",
+    "replaces": "dynamo_tpu/ops/ragged_attention.py:78",
+    "build": "ragged_attention",
+    "wrapper": ragged_paged_attention,
+}, {
+    "name": "flash_prefill_gemma2",
+    "route": "cuda",
+    "source": "dynamo_tpu_torch/ops/csrc/flash_prefill.cu",
+    "replaces": "dynamo_tpu/ops/flash_prefill.py:46",
+    "build": "flash_prefill",
+    "wrapper": flash_prefill,
+}, {
+    "name": "paged_attention_decode_gemma2",
+    "route": "cuda",
+    "source": "dynamo_tpu_torch/ops/csrc/ragged_attention.cu",
+    "replaces": "dynamo_tpu/ops/paged_attention.py:48",
+    "build": "ragged_attention",
+    "wrapper": paged_attention_decode,
 }]
 
 #: jax.random's answers (jax 0.9.0, threefry2x32, jax_threefry_partitionable)
@@ -514,34 +592,59 @@ def row_close(got, want, rtol: float, label: str) -> float:
 
 
 def measure(label, kernel, plain, library, bound, tol, pick=lambda o: o,
-            iters=20, row_rtol=None):
+            iters=20, row_rtol=None, controls=()):
     """The kernel against its plain version on the same inputs (outputs
     cut by ``pick`` to their defined part), then the times of kernel,
     plain version and library yardstick (None: none). ``bound`` is
     (ms, "bytes" or "operations"). The outputs must agree elementwise
     within ``tol`` (absolute and relative), or with ``row_rtol`` by
-    :func:`row_close`."""
+    :func:`row_close`. ``controls``: (name, run) pairs, runs of the kernel
+    with a setting changed that must fail that same check against the
+    plain version (the case can see the setting). The log line ends with
+    the host seconds of the check and of the three timings."""
+    w0 = time.perf_counter()
     got = pick(kernel()).float()
     want = pick(plain()).float()
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{label}: non-finite kernel output")
     err = float((got - want).abs().max())
-    if row_rtol is None:
-        torch.testing.assert_close(got, want, atol=tol, rtol=tol,
-                                   msg=lambda m: f"{label}: {m}")
-    else:
-        tol = (f"row rtol {row_rtol}; worst row "
-               f"{row_close(got, want, row_rtol, label):.3e}")
-    res = dict(max_abs_err=err, tol=tol, ms=time_ms(kernel, iters),
-               plain_ms=time_ms(plain, max(3, iters // 5)),
-               library_ms=None if library is None else time_ms(library,
-                                                               iters),
-               bound_ms=bound[0], bound_by=bound[1])
+
+    def check(out, lbl):
+        if row_rtol is None:
+            torch.testing.assert_close(out, want, atol=tol, rtol=tol,
+                                       msg=lambda m: f"{lbl}: {m}")
+            return tol
+        return (f"row rtol {row_rtol}; worst row "
+                f"{row_close(out, want, row_rtol, lbl):.3e}")
+    shown = check(got, label)
+    for name, run in controls:
+        out = pick(run()).float()
+        try:
+            check(out, label)
+        except AssertionError:
+            log(f"  {label}: the kernel with {name} fails the check "
+                f"(max_abs_err {float((out - want).abs().max()):.3e})")
+            continue
+        raise AssertionError(f"{label}: the kernel with {name} passes the "
+                             f"check too: the case cannot see the setting")
+    tol = shown
+    walls = [time.perf_counter() - w0]
+    res = dict(max_abs_err=err, tol=tol, ms=time_ms(kernel, iters))
+    walls.append(time.perf_counter() - w0 - sum(walls))
+    res["plain_ms"] = time_ms(plain, max(3, iters // 5))
+    walls.append(time.perf_counter() - w0 - sum(walls))
+    with sdpa_kernel(LIBRARY_BACKENDS, set_priority=True):
+        res["library_ms"] = (None if library is None
+                             else time_ms(library, iters))
+    walls.append(time.perf_counter() - w0 - sum(walls))
+    res.update(bound_ms=bound[0], bound_by=bound[1])
     lib = "n/a" if res["library_ms"] is None else f"{res['library_ms']:.4f}"
     log(f"  {label}: max_abs_err {err:.3e} (tol {tol}) kernel "
         f"{res['ms']:.4f} ms plain {res['plain_ms']:.4f} ms library "
-        f"{lib} ms bound {res['bound_ms']:.5f} ms ({res['bound_by']})")
+        f"{lib} ms bound {res['bound_ms']:.5f} ms ({res['bound_by']}) "
+        f"[host s: check, kernel, plain, library "
+        f"{' '.join(f'{w:.2f}' for w in walls)}]")
     return res
 
 
@@ -657,9 +760,23 @@ def sdpa_ragged(case, window: int):
     return run
 
 
-def check_ragged(label, case, window=0, sinks=False, iters=20):
+def cap_controls(kernel, softcap: float) -> list:
+    """The controls of a capped case (:func:`measure`): the kernel run
+    ``kernel(cap)`` with the cap off and doubled must both fail the check,
+    so that the case would catch a kernel that drops or misscales it."""
+    if not softcap:
+        return []
+    return [(f"softcap={c:g}", functools.partial(kernel, c))
+            for c in (0.0, 2 * softcap)]
+
+
+def check_ragged(label, case, window=0, sinks=False, iters=20,
+                 softcap=0.0, yardstick=False):
     """The ragged kernel vs its plain version on one case (bf16/f32 or
-    int8 pages); returns the numbers."""
+    int8 pages); returns the numbers. ``yardstick``: also SDPA's time
+    (no sinks), which has no softcap: on a capped case it does less work
+    than the kernel. A capped case has the controls of
+    :func:`cap_controls`."""
     args = (case["q"], case["kc"], case["vc"], case["bt"], case["rows3"])
     kw = dict(block_size=case["bs"], window=window,
               sinks=case["sinks"] if sinks else None)
@@ -667,12 +784,16 @@ def check_ragged(label, case, window=0, sinks=False, iters=20):
         kw.update(k_scales=case["ks"], v_scales=case["vs"],
                   scale_slot_base=case["base"])
     t = case["t"]
+
+    def kernel(cap):
+        return ragged_paged_attention(*args, softcap=cap, **kw)
     return measure(
-        label, lambda: ragged_paged_attention(*args, **kw),
-        lambda: ragged_attention_ref(*args, **kw),
-        None if sinks else sdpa_ragged(case, window),
+        label, lambda: kernel(softcap),
+        lambda: ragged_attention_ref(*args, softcap=softcap, **kw),
+        sdpa_ragged(case, window) if yardstick and not sinks else None,
         ragged_bound(case, window), TOL[case["dtype"]],
-        pick=lambda o: o[:t], iters=iters)
+        pick=lambda o: o[:t], iters=iters,
+        controls=cap_controls(kernel, softcap))
 
 
 # flash prefill ---------------------------------------------------------------
@@ -721,29 +842,34 @@ def flash_bound(case, window: int) -> tuple[float, str]:
     return bound_of(nbytes, 4 * hd * H * seen, case["dtype"])
 
 
-def check_flash(label, case, window=0, sinks=False, iters=20):
+def check_flash(label, case, window=0, sinks=False, iters=20, softcap=0.0,
+                yardstick=False):
     args = (case["q"], case["k"], case["v"], case["pos_base"],
             case["kv_lens"])
     kw = dict(sliding_window=window or None,
               sinks=case["sinks"] if sinks else None)
     library = None
-    if not sinks:
+    if yardstick and not sinks:
         q, k, v = (case[n].transpose(1, 2) for n in ("q", "k", "v"))
         mask = dense_mask(case, window)
 
         def library():
             F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                            enable_gqa=True)
-    return measure(label, lambda: flash_prefill(*args, **kw),
-                   lambda: flash_prefill_ref(*args, **kw), library,
-                   flash_bound(case, window), TOL[case["dtype"]],
-                   iters=iters)
+
+    def kernel(cap):
+        return flash_prefill(*args, softcap=cap, **kw)
+    return measure(label, lambda: kernel(softcap),
+                   lambda: flash_prefill_ref(*args, softcap=softcap, **kw),
+                   library, flash_bound(case, window), TOL[case["dtype"]],
+                   iters=iters, controls=cap_controls(kernel, softcap))
 
 
 # paged decode ------------------------------------------------------------------
 
 
-def check_decode(label, case, window=0, sinks=False, iters=20):
+def check_decode(label, case, window=0, sinks=False, iters=20,
+                 softcap=0.0, yardstick=False):
     """The paged decode contract (one query per row, rows of q_len 1) on a
     ragged case: the kernel vs its plain version, SDPA per row as the
     library yardstick, and the ragged case's bound."""
@@ -755,12 +881,16 @@ def check_decode(label, case, window=0, sinks=False, iters=20):
         kw.update(k_scales=case["ks"], v_scales=case["vs"],
                   scale_slot_base=case["base"])
     library = None
-    if not sinks and all(kv for _, kv in case["rows"]):
+    if yardstick and not sinks and all(kv for _, kv in case["rows"]):
         library = sdpa_ragged(case, window)
-    return measure(label, lambda: paged_attention_decode(*args, **kw),
-                   lambda: paged_attention_decode_ref(*args, **kw), library,
-                   ragged_bound(case, window), TOL[case["dtype"]],
-                   iters=iters)
+
+    def kernel(cap):
+        return paged_attention_decode(*args, softcap=cap, **kw)
+    return measure(label, lambda: kernel(softcap),
+                   lambda: paged_attention_decode_ref(*args, softcap=softcap,
+                                                      **kw),
+                   library, ragged_bound(case, window), TOL[case["dtype"]],
+                   iters=iters, controls=cap_controls(kernel, softcap))
 
 
 # MLA latent decode -------------------------------------------------------------
@@ -1144,7 +1274,7 @@ def kernel_phase(seed: int) -> dict:
                       H=32, KV=8, hd=128, bs=16, dtype=torch.bfloat16,
                       pad_rows=4, pad_tokens=6, seed=seed + 2)
     main["ragged_paged_attention"] = check_ragged("llama3_8b mixed bf16",
-                                                  llama)
+                                                  llama, yardstick=True)
     mixed_parts(llama, seed + 2)
     check_ragged("llama3_8b mixed bf16 window=512 sinks=True", llama, 512,
                  True, iters=5)
@@ -1162,7 +1292,7 @@ def kernel_phase(seed: int) -> dict:
 
     log("kernel phase: ragged_paged_attention on int8 pages")
     main["ragged_paged_attention_int8"] = check_ragged(
-        "llama3_8b mixed int8 pages", int8_case(llama))
+        "llama3_8b mixed int8 pages", int8_case(llama), yardstick=True)
     check_ragged("llama3_8b mixed int8 pages window=512 sinks=True",
                  int8_case(llama), 512, True, iters=5)
     check_ragged("llama3_8b mixed int8 pages, rebased scales",
@@ -1194,7 +1324,8 @@ def kernel_phase(seed: int) -> dict:
     emb = make_dense(8, 2048, 2048, 32, 8, 128, torch.bfloat16, [0] * 8,
                      lens, seed + 5)
     main["flash_prefill"] = check_flash(f"llama3_8b embed bf16 lengths "
-                                        f"{lens}", emb, iters=10)
+                                        f"{lens}", emb, iters=10,
+                                        yardstick=True)
 
     log("kernel phase: paged_attention_decode vs paged_attention_decode_ref")
     # the Llama-3-8B S == 1 step's geometry: 8 rows at kv 900-1100
@@ -1203,7 +1334,7 @@ def kernel_phase(seed: int) -> dict:
                     dtype=torch.bfloat16, pad_rows=0, pad_tokens=0,
                     seed=seed + 6)
     main["paged_attention_decode"] = check_decode(
-        f"llama3_8b 8 decode rows bf16 kv {kvs}", dec)
+        f"llama3_8b 8 decode rows bf16 kv {kvs}", dec, yardstick=True)
     check_decode("llama3_8b 8 decode rows bf16 window=512 sinks=True", dec,
                  512, True, iters=5)
     check_decode("llama3_8b 8 decode rows int8 pages", int8_case(dec),
@@ -1225,7 +1356,128 @@ def kernel_phase(seed: int) -> dict:
     check_decode("tile edges int8 pages window=17 sinks=True, rebased "
                  "scales", int8_case(edges, rebase=True), 17, True, iters=3)
 
+    main.update(gemma_kernel_phase(seed))
     main.update(mla_kernel_phase(seed))
+    return main
+
+
+#: Gemma-2's attention logit softcap (``attn_logit_softcapping``)
+GEMMA_CAP = 50.0
+#: a capped case's queries are scaled by this: unit-variance q and k give
+#: scores of about N(0, 1) after the 1/sqrt(hd) scale, where a cap of 50
+#: moves a score by under 0.01 and no check could tell a kernel with the
+#: cap from one without it; at N(0, 144) the top scores reach 30-50, where
+#: the cap bends them by several units (the controls of cap_controls show
+#: it on every capped case)
+CAP_Q_GAIN = 12.0
+
+
+def bent(case, key: str = "q"):
+    """The case with its queries scaled by CAP_Q_GAIN (exact in bf16)."""
+    return dict(case, **{key: case[key] * CAP_Q_GAIN})
+
+
+def gemma_kernel_phase(seed: int) -> dict:
+    """The GQA kernels at head dim 256 and with the attention softcap
+    (Gemma-2), and at a group of 7 (Qwen2-7B); returns the Gemma-2-9B
+    cases of each kernel by name (``*_gemma2``). Every capped case runs
+    on queries scaled by CAP_Q_GAIN (``q x12`` in its label), where the
+    cap bends the scores, with the controls of :func:`cap_controls`."""
+    main = {}
+    cap = GEMMA_CAP
+    log("kernel phase: head dim 256 and the softcap (ragged, paged decode, "
+        "flash prefill)")
+    small = [(1, 20), (6, 24), (1, 9), (11, 11), (37, 80)]
+    for dtype in (torch.float32, torch.bfloat16):
+        case = make_case(small, H=8, KV=2, hd=256, bs=16, dtype=dtype,
+                         pad_rows=3, pad_tokens=5, seed=seed + 60)
+        name = f"small {str(dtype)[6:]} hd=256"
+        for window, sinks, c in ((0, False, 0.0), (7, False, 0.0),
+                                 (0, True, 0.0), (0, False, cap),
+                                 (7, True, cap)):
+            check_ragged(f"{name} window={window} sinks={sinks} "
+                         f"softcap={c:g}{' q x12' if c else ''}",
+                         bent(case) if c else case, window, sinks, iters=3,
+                         softcap=c)
+        for c in (0.0, cap):
+            check_ragged(f"{name} int8 pages window=7 sinks=True "
+                         f"softcap={c:g}{' q x12' if c else ''}",
+                         int8_case(bent(case) if c else case), 7, True,
+                         iters=3, softcap=c)
+    # tile edges at hd 256 (groups 1 and 2), and a group of 7 at hd 128
+    # (Qwen2-7B: 9 tokens x 7 heads = 63 of the 64 rows)
+    edge_rows = [(1, 0), (1, 1), (1, 17), (1, 2000), (45, 45), (37, 1300)]
+    for G, KV, hd in ((1, 2, 256), (2, 2, 256), (7, 4, 128)):
+        case = make_case(edge_rows, H=G * KV, KV=KV, hd=hd, bs=16,
+                         dtype=torch.bfloat16, pad_rows=1, pad_tokens=3,
+                         seed=seed + 70 + G)
+        c = cap if hd == 256 else 0.0
+        if c:
+            case = bent(case)
+        q12 = " q x12" if c else ""
+        check_ragged(f"tile edges G={G} hd={hd} bf16 window=100 sinks=True "
+                     f"softcap={c:g}{q12}", case, 100, True, iters=3,
+                     softcap=c)
+        check_ragged(f"tile edges G={G} hd={hd} int8 pages window=100 "
+                     f"sinks=True softcap={c:g}{q12}, rebased scales",
+                     int8_case(case, rebase=True), 100, True, iters=3,
+                     softcap=c)
+    dcase = make_case([(1, 0), (1, 16), (1, 700), (1, 9)], H=8, KV=2,
+                      hd=256, bs=16, dtype=torch.float32, pad_rows=0,
+                      pad_tokens=0, seed=seed + 61)
+    check_decode("paged decode small float32 hd=256 kv_len 0 row window=7 "
+                 "sinks=True softcap=50 q x12", bent(dcase), 7, True,
+                 iters=3, softcap=cap)
+    for dtype in (torch.float32, torch.bfloat16):
+        case = make_dense(3, 48, 700, 8, 2, 256, dtype, (600, 0, 0),
+                          (648, 0, 500), seed + 62)
+        name = f"flash small {str(dtype)[6:]} hd=256"
+        check_flash(name, case, iters=3)
+        check_flash(f"{name} window=33 sinks=True softcap=50 q x12",
+                    bent(case), 33, True, iters=3, softcap=cap)
+    case = make_dense(4, 45, 300, 2, 2, 256, torch.bfloat16,
+                      (0, 255, 0, 100), (45, 300, 0, 131), seed + 63)
+    check_flash("flash tile edges G=1 hd=256 bf16 window=100 sinks=True "
+                "softcap=50 q x12", bent(case), 100, True, iters=3,
+                softcap=cap)
+
+    # Gemma-2-9B attention geometry (H 16, KV 8, hd 256, softcap 50;
+    # sliding window 4096 on even layers): decode rows at kv 1000 and 6000
+    # (the window masks 1904 of the latter's keys), a fresh 512-token
+    # prefill, a 128-token chunk at kv 2048; queries scaled by CAP_Q_GAIN
+    rng = np.random.default_rng(seed + 64)
+    geo = dict(H=16, KV=8, hd=256, bs=16, dtype=torch.bfloat16)
+    gemma = bent(make_case([(1, 1000), (1, 6000), (512, 512), (128, 2048)],
+                           pad_rows=4, pad_tokens=6, seed=seed + 65, **geo))
+    main["ragged_paged_attention_gemma2"] = check_ragged(
+        "gemma2_9b mixed bf16 window=4096 softcap=50 q x12", gemma, 4096,
+        softcap=cap, yardstick=True)
+    check_ragged("gemma2_9b mixed bf16 softcap=50 q x12 (a global layer)",
+                 gemma, softcap=cap, iters=10)
+    main["ragged_paged_attention_int8_gemma2"] = check_ragged(
+        "gemma2_9b mixed int8 pages window=4096 softcap=50 q x12",
+        int8_case(gemma), 4096, softcap=cap, yardstick=True)
+    decode = bent(make_case([(1, int(k)) for k in rng.integers(65, 1057, 8)],
+                            pad_rows=0, pad_tokens=0, seed=seed + 66, **geo))
+    check_ragged("gemma2_9b 8 decode rows bf16 softcap=50 q x12", decode,
+                 softcap=cap)
+    check_ragged("gemma2_9b 8 decode rows int8 pages softcap=50 q x12",
+                 int8_case(decode), softcap=cap, iters=10)
+    lens = [2048] + [int(x) for x in rng.integers(100, 2049, 7)]
+    emb = bent(make_dense(8, 2048, 2048, 16, 8, 256, torch.bfloat16, [0] * 8,
+                          lens, seed + 67))
+    main["flash_prefill_gemma2"] = check_flash(
+        f"gemma2_9b embed bf16 softcap=50 q x12 lengths {lens}", emb, iters=10,
+        softcap=cap, yardstick=True)
+    kvs = [int(k) for k in rng.integers(900, 1101, 8)]
+    dec = bent(make_case([(1, k) for k in kvs], pad_rows=0, pad_tokens=0,
+                         seed=seed + 68, **geo))
+    main["paged_attention_decode_gemma2"] = check_decode(
+        f"gemma2_9b 8 decode rows bf16 softcap=50 q x12 kv {kvs}", dec,
+        softcap=cap, yardstick=True)
+    check_decode("gemma2_9b 8 decode rows int8 pages window=4096 "
+                 "softcap=50 q x12", int8_case(dec), 4096, iters=5,
+                 softcap=cap)
     return main
 
 
@@ -1512,6 +1764,10 @@ async def serve(engine, model, prompts, max_tokens, events=None,
         t0 = time.perf_counter()
         res = await asyncio.gather(*(one(p, max_tokens) for p in prompts))
         st = serving_stats(res, time.perf_counter() - t0)
+        # the loop's last step recorded too: when a long request decodes
+        # alone at the end, its pipelined steps are the run's only
+        # decode-only stretch, and that execute returns after the streams
+        await settle()
         st["step_ms"], st["step_n"] = clock.decode_step_ms()
         return res, st
 
@@ -1594,7 +1850,8 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
                   model: str = "llama3_8b", params=None,
                   solo: bool = False, extra=None,
                   compare_eager: bool = False, warmup: bool = False,
-                  spec_k: int = 0):
+                  spec_k: int = 0, cfg=None, max_model_len: int = 4096,
+                  prompts=None):
     """Eight concurrent greedy requests at full width (on ``params``, or
     weights drawn from ``seed``); returns the engine, its attention
     kernels' launches in the run by wrapper name, the streams, and what
@@ -1610,10 +1867,13 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     burst runs of ``extra`` check their measured runs themselves).
     ``spec_k`` makes the engine with ``speculative_tokens=spec_k`` (its
     staging buffer and verify scratch sized for it) and sets it to 0 at
-    once: :func:`spec_serving` switches it on."""
-    cfg = get_model_config(model)
+    once: :func:`spec_serving` switches it on. ``cfg`` (default: the
+    preset ``model``), ``max_model_len`` and ``prompts`` (default:
+    :func:`serving_prompts`) serve another model or other requests."""
+    cfg = cfg or get_model_config(model)
     args = EngineArgs(block_size=16, max_num_seqs=8,
-                      max_num_batched_tokens=2048, max_model_len=4096,
+                      max_num_batched_tokens=2048,
+                      max_model_len=max_model_len,
                       seed=seed, kv_cache_dtype=kv_cache_dtype,
                       speculative_tokens=spec_k)
     label = f"{model}, {kv_cache_dtype or cfg.dtype} KV"
@@ -1654,7 +1914,7 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
                 + len(rep["sample"])):
             raise AssertionError(f"warmup report {rep}, {len(engine.graphs)} "
                                  f"graphs")
-    prompts = serving_prompts(cfg, seed)
+    prompts = prompts or serving_prompts(cfg, seed)
     max_tokens = 32
     out = asyncio.run(serve(engine, model, prompts, max_tokens, events,
                             SOLO if solo else (), extra, compare_eager))
@@ -1688,7 +1948,8 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     stored = sum(len(e.stored_blocks) for e in events)
     if stored == 0:
         raise AssertionError("no KV stored events")
-    log(f"  [{smi}] {label}: 8 streams x {max_tokens} tokens, prompts "
+    log(f"  [{smi}] {label}: {len(prompts)} streams x {max_tokens} "
+        f"tokens, prompts "
         f"{sorted(len(p) for p in prompts)} (after a warm-up request): "
         f"{steps} ragged steps ({chunk_steps} with chunk tokens), "
         f"launches {launches}, {stored} KV blocks stored")
@@ -2503,9 +2764,16 @@ def _leaves(tree):
 # ------------------------------------------------------------------ phase 4
 
 
-def full_width_step(engine, model: str, seed: int) -> float:
+def full_width_step(engine, model: str, seed: int, decode_kv: int = 701,
+                    ties: bool = False) -> float:
     """One mixed ragged step at full width, kernel vs plain attention, on
-    the serving engine's weights and cache (fresh blocks)."""
+    the serving engine's weights and cache (fresh blocks): a decode row at
+    kv ``decode_kv`` (its context written by earlier steps of at most 2048
+    tokens), a 128-token chunk at kv 328 and a 64-token prefill. With a
+    final logit softcap every logit must lie within it (random weights
+    keep the logits far inside a cap of 30, so the log says how far;
+    :func:`final_cap_check` holds the cap where it bends). ``ties``: the
+    argmax is held up to :func:`check_logits`' bf16 tie rule."""
     cfg, bs = engine.cfg, engine.args.block_size
     rng = np.random.default_rng(seed + 7)
 
@@ -2515,7 +2783,7 @@ def full_width_step(engine, model: str, seed: int) -> float:
         s.block_table = engine.pool.allocate(-(-n // bs))
         return s
 
-    a, b, c = seq(701), seq(328), seq(64)
+    a, b, c = seq(decode_kv), seq(328), seq(64)
 
     def run(plan, fn):
         ops, _ = engine.pack(plan)
@@ -2530,8 +2798,14 @@ def full_width_step(engine, model: str, seed: int) -> float:
                 if cfg.is_mla else
                 make_ragged_step_fn(cfg, bs, attention=ragged_attention_ref))
     # context for the step under test
-    run(StepPlan(prefill=[PrefillWork(a, 0, 700, False),
-                          PrefillWork(b, 0, 200, False)]), kernel_fn)
+    if decode_kv <= 2048:
+        run(StepPlan(prefill=[PrefillWork(a, 0, decode_kv - 1, False),
+                              PrefillWork(b, 0, 200, False)]), kernel_fn)
+    else:
+        for off in range(0, decode_kv - 1, 2048):
+            run(StepPlan(prefill=[PrefillWork(
+                a, off, min(2048, decode_kv - 1 - off), False)]), kernel_fn)
+        run(StepPlan(prefill=[PrefillWork(b, 0, 200, False)]), kernel_fn)
     plan = StepPlan(prefill=[PrefillWork(b, 200, 128, True),
                              PrefillWork(c, 0, 64, True)], decode=[a])
     # both runs write the same slots before reading them, so the plain run
@@ -2539,10 +2813,50 @@ def full_width_step(engine, model: str, seed: int) -> float:
     want = run(plan, plain_fn)[:3]
     got = run(plan, kernel_fn)[:3]
     torch.cuda.synchronize()
+    for s_ in (a, b, c):
+        engine.pool.release(s_.block_table)
     kind = ("int8" if engine.args.kv_cache_dtype == "int8"
             else str(engine.dtype)[6:])
-    return check_logits(f"full-width step, {model}, {kind} KV (decode kv "
-                        f"701, chunk 128 at kv 328, prefill 64)", got, want)
+    label = (f"full-width step, {model}, {kind} KV (decode kv {decode_kv}, "
+             f"chunk 128 at kv 328, prefill 64)")
+    cap = cfg.final_logit_softcap
+    if cap:
+        top = float(got.abs().max())
+        if top > cap:
+            raise AssertionError(f"{label}: a logit of {top} past the final "
+                                 f"softcap {cap}")
+        log(f"{label}: largest |logit| {top:.4f} <= the final softcap "
+            f"{cap} (uncapped {cap * math.atanh(top / cap):.4f}: the cap "
+            f"moves it by {cap * math.atanh(top / cap) - top:.2e})")
+    return check_logits(label, got, want, ties=ties)
+
+
+def final_cap_check(engine, model: str, seed: int) -> None:
+    """The final logit softcap where it bends: hidden rows scaled until
+    their largest uncapped logit is three times the cap go through
+    ``lm_logits`` at full width (the tied 256000-row head); every logit
+    must lie within the cap and equal c·tanh(z/c) of the same rows'
+    uncapped logits z within 1e-4, and z must pass twice the cap."""
+    cfg, params = engine.cfg, engine.params
+    cap = cfg.final_logit_softcap
+    gen = torch.Generator(device=engine.device).manual_seed(seed + 8)
+    x = torch.randn((8, cfg.hidden_size), generator=gen,
+                    device=engine.device)
+    plain = dataclasses.replace(cfg, final_logit_softcap=0.0)
+    gain = 3 * cap / float(lm_logits(plain, params, x.to(engine.dtype))
+                           .abs().max())
+    x = (x * gain).to(engine.dtype)
+    z = lm_logits(plain, params, x)
+    got = lm_logits(cfg, params, x)
+    want = cap * torch.tanh(z.double() / cap)
+    top, ztop = float(got.abs().max()), float(z.abs().max())
+    err = float((got.double() - want).abs().max())
+    label = f"final softcap, {model}: 8 rows at gain {gain:.3f}"
+    if top > cap or ztop <= 2 * cap or err > 1e-4:
+        raise AssertionError(f"{label}: largest |logit| {top} (uncapped "
+                             f"{ztop}, cap {cap}), max |got - want| {err}")
+    log(f"{label}: uncapped logits to {ztop:.3f}, capped to {top:.4f} <= "
+        f"{cap}; max |got - c·tanh(z/c)| {err:.2e} (tol 1e-4)")
 
 
 def graph_step_check(engine, model: str, seed: int) -> None:
@@ -2725,7 +3039,8 @@ def step_profile(engine, model: str, seed: int) -> None:
             log(f"    {us / 1e3:9.3f} ms  x{n:<4d} {kname[:70]}")
 
 
-def dense_decode_step(engine, seed: int, smi: str) -> int:
+def dense_decode_step(engine, seed: int, smi: str,
+                      model: str = "llama3_8b") -> int:
     """One S == 1 step of the dense forward (``make_forward_fn``) at full
     width: 8 rows at kv 900-1100 whose context the engine's ragged step
     wrote first, through the paged decode kernel against the same step
@@ -2786,10 +3101,10 @@ def dense_decode_step(engine, seed: int, smi: str) -> int:
     if any(other.values()):
         raise AssertionError(f"the S == 1 step launched other kernels: "
                              f"{other}")
-    log(f"  [{smi}] S == 1 dense decode step, llama3_8b, 8 rows at kv "
+    log(f"  [{smi}] S == 1 dense decode step, {model}, 8 rows at kv "
         f"{sorted(kv.tolist())}: {launches} paged decode launches; wall "
         f"{wall * 1e3:.3f} ms (plain attention {plain_wall * 1e3:.3f} ms)")
-    check_logits("S == 1 dense decode step, llama3_8b", got, want,
+    check_logits(f"S == 1 dense decode step, {model}", got, want,
                  ties=True)
     for s in seqs:
         engine.pool.release(s.block_table)
@@ -2952,12 +3267,13 @@ def mla_embedding(engine, seed: int, smi: str) -> int:
 
 
 def sampled_extra(model: str, seed: int, smi: str, host_and_guided: bool,
-                  burst: bool = False, spec: Optional[dict] = None):
+                  burst: bool = False, spec: Optional[dict] = None,
+                  cfg=None):
     """The ``extra`` of ``serve`` that runs :func:`sampled_serving` on the
-    serving run's prompts, with ``burst`` then :func:`burst_serving`, and
-    with ``spec`` (:func:`spec_serving`'s keyword arguments) then
-    :func:`spec_serving`."""
-    prompts = serving_prompts(get_model_config(model), seed)
+    serving run's eight prompts (of ``cfg``, default the preset ``model``),
+    with ``burst`` then :func:`burst_serving`, and with ``spec``
+    (:func:`spec_serving`'s keyword arguments) then :func:`spec_serving`."""
+    prompts = serving_prompts(cfg or get_model_config(model), seed)
     async def extra(engine, clock, settle, served):
         out = await sampled_serving(engine, model, prompts, clock, settle,
                                     smi, seed, host_and_guided)
@@ -3014,6 +3330,135 @@ def mla_phase(seed: int, smi: str) -> dict:
     step_profile(engine, model, seed)
     _release(engine)
     return launches
+
+
+# ------------------------------------------------------------------ phase 11
+
+
+#: google/gemma-2-9b's published ``config.json``, the fields
+#: ``ModelConfig.from_hf_config`` reads (the weights are seeded random)
+GEMMA2_9B = {
+    "architectures": ["Gemma2ForCausalLM"], "vocab_size": 256000,
+    "hidden_size": 3584, "intermediate_size": 14336,
+    "num_hidden_layers": 42, "num_attention_heads": 16,
+    "num_key_value_heads": 8, "head_dim": 256,
+    "query_pre_attn_scalar": 256, "sliding_window": 4096,
+    "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+    "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+    "max_position_embeddings": 8192,
+    "hidden_activation": "gelu_pytorch_tanh", "tie_word_embeddings": True,
+}
+#: the long request of the Gemma-2 run: past the even layers' 4096-token
+#: window
+GEMMA_LONG_PROMPT = 6000
+
+
+def gemma_phase(seed: int, smi: str) -> dict:
+    """Gemma-2-9B at full width and depth (hd 256, the attention and final
+    logit softcaps, windows of 4096 on even layers, sandwich norms, GeLU,
+    the embedding scale; seeded random weights), ``warmup()`` first: the
+    eight requests of phase 3 and one of GEMMA_LONG_PROMPT tokens on both
+    loops (streams equal, the ragged kernel 42 times a step, no capture),
+    the seeded sampled requests on both loops, the captured step against
+    the eager one, a full-width step through the kernel against the plain
+    attention (every logit within the final cap), the S == 1 dense step
+    through the paged decode kernel, and an embedding call through the
+    flash prefill kernel; then the same weights from an int8 KV pool: the
+    requests and the full-width step again. Returns the launches of each
+    ``*_gemma2`` kernel by KERNELS name."""
+    model = "gemma2_9b"
+    hf = GEMMA2_9B
+    cfg = ModelConfig.from_hf_config(hf)
+    want = (hf["head_dim"], (hf["sliding_window"], 0),
+            hf["attn_logit_softcapping"], hf["final_logit_softcapping"],
+            hf["query_pre_attn_scalar"], hf["num_hidden_layers"])
+    got = (cfg.head_dim, cfg.layer_windows[:2], cfg.attn_logit_softcap,
+           cfg.final_logit_softcap, cfg.query_pre_attn_scalar,
+           cfg.num_layers)
+    if got != want or not (cfg.sandwich_norms and cfg.embed_scale
+                           and cfg.norm_plus_one and cfg.tie_word_embeddings
+                           and cfg.hidden_activation == "gelu_tanh"):
+        raise AssertionError(f"Gemma-2-9B config: {cfg}")
+    rng = np.random.default_rng(seed + 80)
+    prompts = serving_prompts(cfg, seed) + [
+        list(map(int, rng.integers(0, cfg.vocab_size, GEMMA_LONG_PROMPT)))]
+    engine, served, streams, out = serving_phase(
+        seed, smi, model=model, cfg=cfg, max_model_len=8192,
+        prompts=prompts, warmup=True,
+        extra=sampled_extra(model, seed, smi, False, cfg=cfg))
+    n_params = sum(t.numel() for t in _leaves(engine.params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(engine.params))
+    st = out["stats"]
+    log(f"  [{smi}] {model}: {n_params / 1e9:.3f} B parameters, "
+        f"{nbytes / 1e9:.2f} GB of weights: the weight-read bound of a "
+        f"decode step is {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms against a "
+        f"pipelined decode step wall of {st['step_ms']:.3f} ms")
+    launches = {"ragged_paged_attention_gemma2":
+                served["ragged_paged_attention"]}
+    graph_step_check(engine, model, seed)
+    full_width_step(engine, model, seed, decode_kv=GEMMA_LONG_PROMPT,
+                    ties=True)
+    final_cap_check(engine, model, seed)
+    launches["paged_attention_decode_gemma2"] = dense_decode_step(
+        engine, seed, smi, model)
+    launches["flash_prefill_gemma2"] = embedding_phase(engine, seed, smi)
+    params, bf16_blocks = engine.params, engine.num_blocks
+    _release(engine)
+    del engine
+    engine, served, streams8, _ = serving_phase(
+        seed, smi, "int8", model=model, params=params, cfg=cfg,
+        max_model_len=8192, prompts=prompts, warmup=True)
+    del params
+    launches["ragged_paged_attention_int8_gemma2"] = served[
+        "ragged_paged_attention"]
+    same = sum(a == b for a, b in zip(streams8, streams))
+    log(f"  int8 KV pool {engine.num_blocks} blocks vs bf16 pool "
+        f"{bf16_blocks} blocks; {same} of {len(streams)} greedy streams "
+        f"equal to the bf16 run's")
+    full_width_step(engine, model, seed, decode_kv=GEMMA_LONG_PROMPT,
+                    ties=True)
+    _release(engine)
+    return launches
+
+
+#: the dense families' step checks: preset, the decode row's kv (Mistral's
+#: past its 4096-token window), and the leaves the init draws as zeros or
+#: ones that get seeded noise first (so a bias or norm the kernels' path
+#: dropped would show)
+FAMILY_CHECKS = (("mistral_7b", 4500, ()),
+                 ("qwen2_7b", 701, ("bq", "bk", "bv")),
+                 ("qwen3_8b", 701, ("q_norm", "k_norm")))
+
+
+def family_checks(seed: int, smi: str) -> None:
+    """Mistral-7B (its sliding window on a 4500-token row), Qwen2-7B (q/k/v
+    biases, a group of 7) and Qwen3-8B (q/k norms) at full width and 2
+    layers: the captured step bit-equal to the eager one, and a full-width
+    step through the kernel against the plain attention (argmax up to the
+    bf16 tie rule)."""
+    for name, decode_kv, noisy in FAMILY_CHECKS:
+        cfg = dataclasses.replace(get_model_config(name), num_layers=2)
+        t0 = time.perf_counter()
+        engine = AsyncTorchEngine(cfg, EngineArgs(
+            block_size=16, max_num_seqs=8, max_num_batched_tokens=2048,
+            max_model_len=8192, seed=seed, num_blocks=4096))
+        gen = torch.Generator(device=engine.device).manual_seed(seed + 90)
+        for leaf in noisy:
+            t = engine.params["layers"][leaf]
+            base = 1.0 if leaf.endswith("norm") else 0.0
+            t.copy_(base + 0.3 * torch.randn(t.shape, generator=gen,
+                                             device=engine.device))
+        log(f"family check {name} (2 of {get_model_config(name).num_layers} "
+            f"layers; D{cfg.hidden_size} H{cfg.num_heads} "
+            f"KV{cfg.num_kv_heads} hd{cfg.head_dim}, window "
+            f"{cfg.sliding_window}, qkv_bias {cfg.qkv_bias}, qk_norm "
+            f"{cfg.qk_norm}; noise on {list(noisy)}): set up in "
+            f"{time.perf_counter() - t0:.1f} s")
+        graph_step_check(engine, name, seed)
+        # two layers of random weights: exact bf16 ties at the top occur
+        full_width_step(engine, name, seed, decode_kv=decode_kv, ties=True)
+        _release(engine)
+        del engine
 
 
 # ------------------------------------------------- phases 6 (end) and 8
@@ -3982,6 +4427,10 @@ def main() -> int:
     # the Llama engines are gone: DeepSeek-V2-Lite has the card to itself
     launches.update(mla_phase(a.seed, smi))
     mark("phases 9-10")
+    launches.update(gemma_phase(a.seed, smi))
+    mark("phase 11")
+    family_checks(a.seed, smi)
+    mark("phase 12")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for k in KERNELS:

@@ -107,8 +107,8 @@ from dynamo_tpu_torch.engine.config import (
 )
 from dynamo_tpu_torch.engine.graphs import GraphCache
 from dynamo_tpu_torch.engine.model import (
-    RAGGED_TILE, check_kernel_geometry, check_supported, init_params,
-    make_draft_fn, make_embed_fn, make_multi_decode_fn,
+    RAGGED_TILE, check_kernel_geometry, check_supported, f32_sinks,
+    init_params, make_draft_fn, make_embed_fn, make_multi_decode_fn,
     make_ragged_step_fn, make_ragged_verify_fn, torch_dtype,
 )
 from dynamo_tpu_torch.engine.scheduler import Scheduler, SeqState, StepPlan
@@ -206,7 +206,8 @@ class AsyncTorchEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(args.seed)
             params = init_params(cfg, gen, self.device)
-        self.params = params
+        # sink logits in the kernels' f32, once (no step converts them)
+        self.params = f32_sinks(params)
         # the pool takes its share of what is free once the weights are
         # resident
         kv_dtype = "int8" if args.kv_cache_dtype == "int8" else None

@@ -6,12 +6,14 @@ layers stacked on a leading L axis, projection matrices stored [in, out]
 so the forward is ``x @ W``; ``load_hf_params`` equals
 ``params_from_jax(dynamo_tpu.engine.loader.load_hf_params(...))``.
 
-Supported families: Llama-family GQA (Llama, Mistral, Phi-3's fused
-projections, Mixtral's ``block_sparse_moe`` experts) and DeepSeek V2/V3
-(MLA + MoE with shared experts and a dense prefix; rope-interleaved
-checkpoints are de-interleaved once here so the runtime rope is plain
-half-split). gpt-oss experts, MXFP4 blocks and quantized checkpoints are
-refused (ROADMAP A9, A5).
+Supported families: GQA decoders (Llama, Mistral, Phi-3's fused
+projections, Mixtral's ``block_sparse_moe`` experts, Qwen2's q/k/v biases,
+Qwen3 and Qwen3-MoE's q/k norms, Gemma-1 and Gemma-2 with their (1 + w)
+norms folded in f32 and Gemma-2's four norms a layer; gpt-oss's attention
+biases and sinks) and DeepSeek V2/V3 (MLA + MoE with shared experts and a
+dense prefix; rope-interleaved checkpoints are de-interleaved once here so
+the runtime rope is plain half-split). gpt-oss experts, MXFP4 blocks and
+quantized checkpoints are refused (ROADMAP A9, A5).
 
 The port reads safetensors itself (``read_safetensors``): the 8-byte
 little-endian header length, the JSON header, then each tensor as a view
@@ -127,9 +129,10 @@ def _refuse_unported(raw_cfg: dict, names) -> None:
 
 def load_hf_params(cfg: ModelConfig, path: str, device=None,
                    dtype: Optional[torch.dtype] = None) -> dict:
-    """Map HF llama/mistral/phi-3/mixtral/deepseek weight names onto the
-    port's params dict, on ``device`` (None = "cuda") in ``dtype`` (None =
-    the model's dtype; router biases stay f32)."""
+    """Map HF llama/mistral/phi-3/mixtral/qwen2/qwen3/gemma/gemma2/deepseek
+    weight names onto the port's params dict, on ``device`` (None =
+    "cuda") in ``dtype`` (None = the model's dtype; router biases and
+    Gemma's folded norms stay f32)."""
     check_supported(cfg)
     device = torch.device(device or "cuda")
     dtype = dtype or torch_dtype(cfg)
@@ -178,6 +181,17 @@ def _build_params(cfg: ModelConfig, t: dict, raw_cfg: dict, device,
                                   ("wv", "v_proj")):
                     put(key, dev(f"{pre}.{proj}.weight"), True)
             put("wo", dev(f"{pre}.o_proj.weight"), True)
+            if cfg.qkv_bias:
+                for key, proj in (("bq", "q_proj"), ("bk", "k_proj"),
+                                  ("bv", "v_proj")):
+                    put(key, dev(f"{pre}.{proj}.bias"), False)
+            if cfg.qk_norm:
+                put("q_norm", dev(f"{pre}.q_norm.weight"), False)
+                put("k_norm", dev(f"{pre}.k_norm.weight"), False)
+            if cfg.o_bias:
+                put("bo", dev(f"{pre}.o_proj.bias"), False)
+            if cfg.attention_sinks:
+                put("sink", dev(f"{pre}.sinks"), False)
             return
         # --- MLA (DeepSeek) ---
         r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
@@ -244,6 +258,29 @@ def _build_params(cfg: ModelConfig, t: dict, raw_cfg: dict, device,
                            ("ws_down", "down_proj")):
                 put(key, dev(f"{pre}.shared_experts.{n}.weight"), True)
 
+    def norm(name):
+        """A norm vector; Gemma's scale by (1 + w), the fold made and kept
+        in f32 as the JAX loader's ``norm_get`` does (``rms_norm`` applies
+        f32 weights before its final cast)."""
+        w = dev(name)
+        return w.float() + 1.0 if cfg.norm_plus_one else w
+
+    def norm_layer(i: int, put) -> None:
+        pre = f"model.layers.{i}"
+        put("attn_norm", norm(f"{pre}.input_layernorm.weight"), False)
+        if cfg.sandwich_norms:
+            # Gemma-2: post_attention_layernorm is the post-norm on the
+            # attention output; the pre-MLP norm is pre_feedforward's
+            put("post_attn_norm",
+                norm(f"{pre}.post_attention_layernorm.weight"), False)
+            put("mlp_norm", norm(f"{pre}.pre_feedforward_layernorm.weight"),
+                False)
+            put("post_mlp_norm",
+                norm(f"{pre}.post_feedforward_layernorm.weight"), False)
+        else:
+            put("mlp_norm", norm(f"{pre}.post_attention_layernorm.weight"),
+                False)
+
     def build_stack(idxs, moe: bool) -> dict:
         """One stacked layer group: each weight written into its [n, ...]
         (MoE experts: [n, E, ...]) slot as it comes off the file."""
@@ -261,11 +298,7 @@ def _build_params(cfg: ModelConfig, t: dict, raw_cfg: dict, device,
                 (stack[key][j] if expert is None
                  else stack[key][j, expert]).copy_(w)
 
-            put("attn_norm", dev(f"model.layers.{i}.input_layernorm.weight"),
-                False)
-            put("mlp_norm",
-                dev(f"model.layers.{i}.post_attention_layernorm.weight"),
-                False)
+            norm_layer(i, put)
             attn_layer(i, put)
             (moe_mlp_layer if moe else dense_mlp_layer)(i, put)
         return stack
@@ -273,7 +306,7 @@ def _build_params(cfg: ModelConfig, t: dict, raw_cfg: dict, device,
     params = {
         "embed": dev("model.embed_tokens.weight"),
         "layers": build_stack(range(k_dense, L), cfg.is_moe),
-        "final_norm": dev("model.norm.weight"),
+        "final_norm": norm("model.norm.weight"),
     }
     if k_dense:
         params["dense_layers"] = build_stack(range(k_dense), False)

@@ -1,5 +1,6 @@
-"""Decoder forward pass over a paged KV cache, in PyTorch: Llama-family GQA
-and DeepSeek MLA, each with a dense or a MoE MLP.
+"""Decoder forward pass over a paged KV cache, in PyTorch: GQA (Llama,
+Mistral, Qwen2/3, Gemma-1/2 and gpt-oss's attention switches) and DeepSeek
+MLA, each with a dense or a MoE MLP.
 
 The port of ``dynamo_tpu/engine/model.py``'s single-device paths:
 
@@ -55,7 +56,20 @@ Differences from the JAX package, each deliberate:
 - The MLA S > 1 forward reads the layer's pages through the block tables
   in the kernel; the JAX package gathers them first. Same numbers.
 - Every architecture switch the port lacks raises ``NotImplementedError``
-  when a step is built.
+  when a step is built: gpt-oss's expert activation, and sinks or sliding
+  windows on MLA (which the JAX MLA path ignores).
+- Gemma-2's attention logit softcap runs inside the attention kernels' online
+  softmax (the JAX package computes it in XLA, off its kernels). Sinks enter
+  the kernels in f32: an engine converts each layer's sink row once
+  (:func:`f32_sinks`), not per step.
+
+The architecture switches follow the JAX forward: q/k/v bias, Qwen3's
+per-head q/k RMSNorm before RoPE, Gemma-2's ``query_pre_attn_scalar`` (q
+pre-scaled by sqrt(hd / qpas) in q's dtype), per-layer or global sliding
+windows and sinks passed to every attention call, the o bias, Gemma-2's
+post-attention and post-MLP norms on the sublayer outputs, GeLU-tanh in the
+dense MLP, the sqrt(D) embedding scale (:func:`embed_tokens`; a tied head
+reads the unscaled table) and the final logit softcap (:func:`lm_logits`).
 
 Weights keep the JAX layout ``[in, out]``, so each projection is
 ``x @ W`` exactly as in the reference.
@@ -64,6 +78,7 @@ Weights keep the JAX layout ``[in, out]``, so each projection is
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -100,33 +115,33 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for every architecture switch the port's forward lacks."""
-    unsupported = {
-        "qkv_bias": cfg.qkv_bias,
-        "qk_norm": cfg.qk_norm,
-        "o_bias": cfg.o_bias,
-        "sliding_window": bool(cfg.sliding_window),
-        "layer_windows": cfg.layer_windows is not None,
-        "attention_sinks": cfg.attention_sinks,
-        "moe_activation": cfg.is_moe and cfg.moe_activation != "swiglu",
-        "embed_scale": cfg.embed_scale,
-        "hidden_activation": cfg.hidden_activation != "silu",
-        "attn_logit_softcap": bool(cfg.attn_logit_softcap),
-        "final_logit_softcap": bool(cfg.final_logit_softcap),
-        "sandwich_norms": cfg.sandwich_norms,
-        "query_pre_attn_scalar": cfg.query_pre_attn_scalar is not None,
-    }
-    bad = [name for name, on in unsupported.items() if on]
-    if bad:
+    """Raise for every architecture switch the port's forward lacks: the
+    gpt-oss expert activation (ROADMAP A9), and sinks or sliding windows
+    on MLA, which the JAX package's MLA attention ignores."""
+    if cfg.is_moe and cfg.moe_activation != "swiglu":
         raise NotImplementedError(
-            "the torch port serves Llama-family GQA and DeepSeek MLA with "
-            "dense or swiglu MoE MLPs; not yet ported: " + ", ".join(bad)
-            + " (ROADMAP A2, A9)")
+            f"moe_activation {cfg.moe_activation!r}: the torch port's MoE "
+            "runs swiglu experts; gpt-oss's clamped swiglu with expert "
+            "biases is not ported yet (ROADMAP A9)")
+    if cfg.hidden_activation not in ("silu", "gelu_tanh"):
+        raise NotImplementedError(
+            f"hidden_activation {cfg.hidden_activation!r}: the port's MLP "
+            "takes silu or gelu_tanh")
+    mla_bad = [name for name, on in (
+        ("attention_sinks", cfg.attention_sinks),
+        ("sliding_window", bool(cfg.sliding_window)),
+        ("layer_windows", cfg.layer_windows is not None)) if on]
+    if cfg.is_mla and mla_bad:
+        raise NotImplementedError(
+            "MLA with " + ", ".join(mla_bad) + ": the MLA attention has no "
+            "sinks or windows (nor has the JAX package's)")
 
 
 def check_kernel_geometry(cfg: ModelConfig) -> None:
     """Raise unless the port's CUDA attention kernels take this model's
-    heads. GQA: head_dim in HEAD_DIMS and a group of at most MAX_GROUP.
+    heads. GQA: head_dim in HEAD_DIMS (64, 128, 256), a group of at most
+    MAX_GROUP, any attention softcap >= 0 (the kernels' online softmax
+    caps in place).
     MLA: H a multiple of 16, latent rank and rope cache width multiples
     of 64, for the latent-decode and the flash-prefill kernel alike
     (ops/mla_decode.py), with bf16, f32 or int8 pages. An engine on the
@@ -139,11 +154,13 @@ def check_kernel_geometry(cfg: ModelConfig) -> None:
             raise ValueError(f"the CUDA MLA decode and prefill kernels "
                              f"cannot take this model: {why}")
         return
-    if hd not in HEAD_DIMS or H % KV or H // KV > MAX_GROUP:
+    if (hd not in HEAD_DIMS or H % KV or H // KV > MAX_GROUP
+            or cfg.attn_logit_softcap < 0):
         raise ValueError(
-            f"the CUDA attention kernels take head_dim in {HEAD_DIMS} and "
-            f"H / KV <= {MAX_GROUP}; this model has head_dim {hd}, H {H}, "
-            f"KV {KV}")
+            f"the CUDA attention kernels take head_dim in {HEAD_DIMS}, "
+            f"H / KV <= {MAX_GROUP} and a softcap >= 0; this model has "
+            f"head_dim {hd}, H {H}, KV {KV}, softcap "
+            f"{cfg.attn_logit_softcap}")
 
 
 # ---------------------------------------------------------------------------
@@ -155,7 +172,10 @@ def check_kernel_geometry(cfg: ModelConfig) -> None:
 #   "layers": {                       (stacked on a leading L axis)
 #     "attn_norm": [L, D], "mlp_norm": [L, D],
 #     GQA: "wq": [L, D, H*hd], "wk": [L, D, KV*hd], "wv": [L, D, KV*hd],
-#          "wo": [L, H*hd, D]
+#          "wo": [L, H*hd, D]; with the switches "bq": [L, H*hd],
+#          "bk"/"bv": [L, KV*hd] (qkv_bias), "q_norm"/"k_norm": [L, hd]
+#          (qk_norm), "bo": [L, D] (o_bias), "sink": [L, H] (sinks)
+#     sandwich_norms: "post_attn_norm": [L, D], "post_mlp_norm": [L, D]
 #     MLA: "wq": [L, D, H*(dn+dr)] or "q_a": [L, D, qr], "q_a_norm": [L, qr],
 #          "q_b": [L, qr, H*(dn+dr)]; "kv_a": [L, D, r+dr],
 #          "kv_a_norm": [L, r], "w_uk": [L, r, H*dn], "w_uv": [L, r, H*dv],
@@ -171,11 +191,11 @@ def check_kernel_geometry(cfg: ModelConfig) -> None:
 # }
 
 
-def _init_stack(cfg: ModelConfig, w, n: int, moe: bool, dtype,
-                device) -> dict:
+def _init_stack(cfg: ModelConfig, w, n: int, moe: bool, dtype, device,
+                generator: torch.Generator) -> dict:
     """One stacked layer group of ``n`` layers (dense or MoE MLP); ``w``
     draws one [in, out] matrix. Each layer, and each expert, is drawn on
-    its own."""
+    its own; the sinks from ``generator``."""
     D, H, KV, hd = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                     cfg.head_dim)
 
@@ -190,7 +210,13 @@ def _init_stack(cfg: ModelConfig, w, n: int, moe: bool, dtype,
     def ones(dim):
         return torch.ones((n, dim), dtype=dtype, device=device)
 
+    def zeros(dim):
+        return torch.zeros((n, dim), dtype=dtype, device=device)
+
     layers = {"attn_norm": ones(D), "mlp_norm": ones(D)}
+    if cfg.sandwich_norms:  # Gemma-2 post-norms on the sublayer outputs
+        layers["post_attn_norm"] = ones(D)
+        layers["post_mlp_norm"] = ones(D)
     if cfg.is_mla:
         r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
         dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
@@ -211,6 +237,19 @@ def _init_stack(cfg: ModelConfig, w, n: int, moe: bool, dtype,
         layers["wk"] = stacked((D, KV * hd), D)
         layers["wv"] = stacked((D, KV * hd), D)
         layers["wo"] = stacked((H * hd, D), H * hd)
+        if cfg.qkv_bias:
+            layers["bq"] = zeros(H * hd)
+            layers["bk"] = zeros(KV * hd)
+            layers["bv"] = zeros(KV * hd)
+        if cfg.qk_norm:
+            layers["q_norm"] = ones(hd)
+            layers["k_norm"] = ones(hd)
+        if cfg.o_bias:
+            layers["bo"] = zeros(D)
+        if cfg.attention_sinks:
+            layers["sink"] = (0.5 * torch.randn(
+                (n, H), generator=generator, device=device,
+                dtype=torch.float32)).to(dtype)
     if moe:
         Fm, E = cfg.moe_ffn_size, cfg.num_experts
         layers["router"] = stacked((D, E), D)
@@ -235,7 +274,8 @@ def _init_stack(cfg: ModelConfig, w, n: int, moe: bool, dtype,
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> dict:
     """Random weights with the JAX package's shapes and scales: normal /
-    sqrt(fan_in), norms one, router bias zero. Drawn from ``generator``
+    sqrt(fan_in), norms one, biases and the router bias zero, sinks normal
+    times 0.5. Drawn from ``generator``
     (which must live on ``device``) one matrix at a time — one layer, or
     one expert of a layer — so the f32 draw never adds more than one
     matrix to the footprint of a full-width model."""
@@ -251,11 +291,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     params = {"embed": w((V, D), D),
               "layers": _init_stack(cfg, w, L - k_dense, cfg.is_moe, dtype,
-                                    device),
+                                    device, generator),
               "final_norm": torch.ones((D,), dtype=dtype, device=device)}
     if k_dense:
         params["dense_layers"] = _init_stack(cfg, w, k_dense, False, dtype,
-                                             device)
+                                             device, generator)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((D, V), D)
     return params
@@ -393,8 +433,63 @@ def rope(x, positions, inv_freq, attn_scale: float):
     return apply_rope(x, *rope_tables(positions, inv_freq, attn_scale))
 
 
-def _mlp(h, w_gate, w_up, w_down):
-    return (F.silu(h @ w_gate) * (h @ w_up)) @ w_down
+def _mlp(h, w_gate, w_up, w_down, act: str = "silu"):
+    g = h @ w_gate
+    g = F.gelu(g, approximate="tanh") if act == "gelu_tanh" else F.silu(g)
+    return (g * (h @ w_up)) @ w_down
+
+
+@functools.lru_cache(maxsize=None)
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: multiplying a
+    tensor of that dtype by it is the JAX package's multiply by
+    ``jnp.asarray(value, dtype)`` (and needs no device tensor, so a captured
+    step can hold it)."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens):
+    """The embedding rows of ``tokens``, times sqrt(D) rounded to their
+    dtype when the model scales them (Gemma). Every embedding site goes
+    through here; a tied head reads the unscaled table."""
+    x = params["embed"][tokens]
+    if cfg.embed_scale:
+        x = x * _in_dtype(float(np.sqrt(cfg.hidden_size)), x.dtype)
+    return x
+
+
+def lm_logits(cfg: ModelConfig, params, x, out=None):
+    """f32 logits of hidden states ``x`` (into ``out``[:len(x)] when given),
+    with the final logit softcap c·tanh(logits/c) in f32 (Gemma-2) applied in
+    place. Every logits site goes through here."""
+    logits = x @ _lm_head(cfg, params)
+    logits = (logits.float() if out is None
+              else out[:logits.shape[0]].copy_(logits))
+    c = cfg.final_logit_softcap
+    if c:
+        logits.div_(c).tanh_().mul_(c)
+    return logits
+
+
+def layer_window(cfg: ModelConfig, li: int) -> int:
+    """The sliding window of cache layer ``li``: its ``layer_windows``
+    entry, else the model's ``sliding_window``; 0 = full attention."""
+    if cfg.layer_windows is not None:
+        return int(cfg.layer_windows[li])
+    return int(cfg.sliding_window or 0)
+
+
+def f32_sinks(params: dict) -> dict:
+    """``params`` with every layer stack's sink logits in f32, the kernels'
+    type (the values are the model dtype's, so nothing rounds): an engine
+    converts them once here, and no step converts them again. The caller's
+    dicts are left as they are; no other tensor is copied."""
+    out = dict(params)
+    for key in ("layers", "dense_layers"):
+        lw = params.get(key)
+        if lw is not None and "sink" in lw:
+            out[key] = dict(lw, sink=lw["sink"].float())
+    return out
 
 
 def router_weights(xf, router_w, router_bias, cfg: ModelConfig):
@@ -482,15 +577,34 @@ class _Rope:
 
 def _gqa_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
                    attend):
-    """GQA attention of layer ``i`` of stack ``lw`` (cache layer ``li``):
-    q/k/v, RoPE, the KV write, ``attend(li, q [N, H, hd])`` and wo."""
+    """GQA attention of layer ``i`` of stack ``lw`` (cache layer ``li``), in
+    the JAX forward's order: q/k/v (plus their biases), the per-head q/k
+    RMSNorm, RoPE, q times sqrt(hd / query_pre_attn_scalar), the KV write,
+    ``attend(li, q [N, H, hd], sinks [H] or None)``, wo (plus its bias) and
+    the post-attention norm."""
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
     N = h.shape[0]
-    q = apply_rope((h @ lw["wq"][i]).view(N, H, hd), cos, sin)
-    k = apply_rope((h @ lw["wk"][i]).view(N, KV, hd), cos, sin)
-    v = (h @ lw["wv"][i]).view(N, KV, hd)
+    q, k, v = h @ lw["wq"][i], h @ lw["wk"][i], h @ lw["wv"][i]
+    if "bq" in lw:
+        q, k, v = q + lw["bq"][i], k + lw["bk"][i], v + lw["bv"][i]
+    q, k, v = q.view(N, H, hd), k.view(N, KV, hd), v.view(N, KV, hd)
+    if cfg.qk_norm:  # Qwen3: per-head RMSNorm before RoPE
+        q = rms_norm(q, lw["q_norm"][i], eps)
+        k = rms_norm(k, lw["k_norm"][i], eps)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if cfg.query_pre_attn_scalar is not None:
+        # Gemma-2 scores scale by qpas^-0.5, the kernels by hd^-0.5
+        q = q * _in_dtype(float(np.sqrt(hd / cfg.query_pre_attn_scalar)),
+                          q.dtype)
     write_kv(k_cache, v_cache, li, slots, k, v)
-    return attend(li, q).reshape(N, H * hd) @ lw["wo"][i]
+    out = attend(li, q, lw["sink"][i] if "sink" in lw else None).reshape(
+        N, H * hd) @ lw["wo"][i]
+    if "bo" in lw:
+        out = out + lw["bo"][i]
+    if cfg.sandwich_norms:  # Gemma-2: post-norm on the sublayer output
+        out = rms_norm(out, lw["post_attn_norm"][i], eps)
+    return out
 
 
 def _mla_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
@@ -533,8 +647,10 @@ def _layers(cfg: ModelConfig, params, x, cos, sin, slot_map, k_cache,
     their RoPE tables, K/V (or MLA's latent and rope part) written at
     ``slot_map`` [N] (int64) of the cache in place; ``attend`` is the
     layer's attention call (see ``_gqa_attention`` / ``_mla_attention``).
-    A MoE model's dense prefix (``dense_layers``) comes first. Returns the
-    final-normed hidden states [N, D]."""
+    A MoE model's dense prefix (``dense_layers``) comes first. The dense
+    MLP takes the model's activation and, with sandwich norms, its post-MLP
+    norm (as the JAX forward's, not the MoE's). Returns the final-normed
+    hidden states [N, D]."""
     eps = cfg.rms_norm_eps
     attention = _mla_attention if cfg.is_mla else _gqa_attention
     k_dense = cfg.num_dense_prefix_layers
@@ -556,8 +672,11 @@ def _layers(cfg: ModelConfig, params, x, cos, sin, slot_map, k_cache,
                     x = x + _mlp(h, lw["ws_gate"][i], lw["ws_up"][i],
                                  lw["ws_down"][i])
             else:
-                x = x + _mlp(h, lw["w_gate"][i], lw["w_up"][i],
-                             lw["w_down"][i])
+                out = _mlp(h, lw["w_gate"][i], lw["w_up"][i],
+                           lw["w_down"][i], cfg.hidden_activation)
+                if cfg.sandwich_norms:  # Gemma-2 post-norm on the MLP output
+                    out = rms_norm(out, lw["post_mlp_norm"][i], eps)
+                x = x + out
     return rms_norm(x, params["final_norm"], eps)
 
 
@@ -748,15 +867,17 @@ def _make_ragged_forward(cfg: ModelConfig, block_size: int,
                     decode=attention,
                     chunk=chunk_attention, c_scales=cs, r_scales=rs)
         else:
-            def attend(li, q):
+            def attend(li, q, sinks):
                 kc, ks = layer_pages(k_cache, li)
                 vc, vs = layer_pages(v_cache, li)
                 return attention(q, kc, vc, block_tables, rows3,
-                                 block_size=block_size, k_scales=ks,
-                                 v_scales=vs)
+                                 block_size=block_size,
+                                 window=layer_window(cfg, li), sinks=sinks,
+                                 k_scales=ks, v_scales=vs,
+                                 softcap=cfg.attn_logit_softcap)
 
-        return _layers(cfg, params, params["embed"][ints5[0]], cos, sin,
-                       ints5[2].long(), k_cache, v_cache, attend)
+        return _layers(cfg, params, embed_tokens(cfg, params, ints5[0]), cos,
+                       sin, ints5[2].long(), k_cache, v_cache, attend)
 
     return forward
 
@@ -797,10 +918,7 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
         x = forward(params, ints5, rows3, grid_rows, block_tables, k_cache,
                     v_cache)
         last = (rows3[:, 0] + rows3[:, 1] - 1).clamp(0, T - 1).long()
-        logits = x[last] @ _lm_head(cfg, params)
-        if logits_out is None:
-            return logits.float(), k_cache, v_cache
-        return logits_out.copy_(logits), k_cache, v_cache
+        return lm_logits(cfg, params, x[last], logits_out), k_cache, v_cache
 
     return fn
 
@@ -834,14 +952,9 @@ def make_ragged_verify_fn(cfg: ModelConfig, block_size: int,
 
     def f(params, ints5, rows3, grid_rows, block_tables, k_cache, v_cache,
           mask_words=None, logits_out=None):
-        T = ints5.shape[1]
         x = forward(params, ints5, rows3, grid_rows, block_tables, k_cache,
                     v_cache)
-        logits = x @ _lm_head(cfg, params)
-        if logits_out is None:
-            logits = logits.float()
-        else:
-            logits = logits_out[:T].copy_(logits)
+        logits = lm_logits(cfg, params, x, logits_out)
         if mask_words is not None:
             logits = sampling.apply_mask_words(logits, mask_words)
         lp = torch.log_softmax(logits, dim=-1)
@@ -1034,25 +1147,32 @@ def make_forward_fn(cfg: ModelConfig, block_size: int,
             # the kernel's rows, made once for every layer
             rows3 = decode_rows(lens)
 
-            def attend(li, q):
+            def attend(li, q, sinks):
                 kc, ks = layer_pages(k_cache, li)
                 vc, vs = layer_pages(v_cache, li)
                 return decode_attention(q, kc, vc, block_tables, lens,
-                                        block_size=block_size, k_scales=ks,
-                                        v_scales=vs, rows3=rows3)
+                                        block_size=block_size,
+                                        window=layer_window(cfg, li),
+                                        sinks=sinks, k_scales=ks,
+                                        v_scales=vs, rows3=rows3,
+                                        softcap=cfg.attn_logit_softcap)
         else:
-            def attend(li, q):
+            def attend(li, q, sinks):
                 return attention(q.view(B, S, H, hd), k_cache, v_cache, li,
                                  block_tables, positions, kv_lens,
-                                 block_size=block_size)
+                                 block_size=block_size,
+                                 sliding_window=layer_window(cfg, li),
+                                 sinks=sinks,
+                                 softcap=cfg.attn_logit_softcap)
 
-        x = _layers(cfg, params, params["embed"][tokens.reshape(B * S)], cos,
+        x = _layers(cfg, params, embed_tokens(cfg, params,
+                                              tokens.reshape(B * S)), cos,
                     sin, slot_map.reshape(B * S).long(), k_cache, v_cache,
                     attend).view(B, S, -1)
         if return_hidden:  # embeddings: pooled downstream, no lm head
             return x.float(), k_cache, v_cache
         x_last = x[torch.arange(B, device=x.device), last_idx.long()]
-        return (x_last @ _lm_head(cfg, params)).float(), k_cache, v_cache
+        return lm_logits(cfg, params, x_last), k_cache, v_cache
 
     return fn
 

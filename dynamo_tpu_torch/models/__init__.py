@@ -1,9 +1,60 @@
-"""Model presets the torch port serves: Llama-family GQA shapes and the
-DeepSeek MLA + MoE shapes, copied from ``dynamo_tpu/models``."""
+"""Model presets the torch port serves, copied from ``dynamo_tpu/models``:
+Llama-family GQA shapes (Llama, Mistral's sliding window, Qwen2's q/k/v
+biases, Qwen3's q/k norms, Mixtral and Qwen3-MoE experts) and the DeepSeek
+MLA + MoE shapes. The JAX package has no Gemma preset; Gemma checkpoints
+come through ``ModelConfig.from_hf_config``."""
 
 from __future__ import annotations
 
 from dynamo_tpu_torch.engine.config import ModelConfig
+
+
+def mistral_7b() -> ModelConfig:
+    return ModelConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=10000.0,
+        max_position_embeddings=32768, sliding_window=4096)
+
+
+def qwen2_7b() -> ModelConfig:
+    return ModelConfig(
+        vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+        num_layers=28, num_heads=28, num_kv_heads=4, rope_theta=1000000.0,
+        max_position_embeddings=32768, qkv_bias=True)
+
+
+def qwen3_8b() -> ModelConfig:
+    return ModelConfig(
+        vocab_size=151936, hidden_size=4096, intermediate_size=12288,
+        num_layers=36, num_heads=32, num_kv_heads=8, head_dim=128,
+        rope_theta=1000000.0, max_position_embeddings=40960, qk_norm=True)
+
+
+def qwen3_moe_30b_a3b() -> ModelConfig:
+    """Qwen3-30B-A3B: 128 experts, 8 active."""
+    return ModelConfig(
+        vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+        num_layers=48, num_heads=32, num_kv_heads=4, head_dim=128,
+        rope_theta=1000000.0, max_position_embeddings=40960, qk_norm=True,
+        num_experts=128, num_experts_per_tok=8, moe_intermediate_size=768,
+        norm_topk_prob=True)
+
+
+def mixtral_8x7b() -> ModelConfig:
+    return ModelConfig(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=1000000.0,
+        max_position_embeddings=32768, num_experts=8, num_experts_per_tok=2,
+        norm_topk_prob=True)  # Mixtral renormalizes the top-k gate probs
+
+
+def moe_tiny() -> ModelConfig:
+    """Small MoE for tests."""
+    return ModelConfig(
+        vocab_size=256, hidden_size=64, intermediate_size=128, num_layers=2,
+        num_heads=4, num_kv_heads=2, dtype="float32",
+        num_experts=4, num_experts_per_tok=2, max_position_embeddings=512,
+        norm_topk_prob=True)
 
 
 def mla_tiny() -> ModelConfig:
@@ -39,6 +90,12 @@ PRESETS = {
     "tiny": ModelConfig.tiny,
     "llama3_1b": ModelConfig.llama3_1b,
     "llama3_8b": ModelConfig.llama3_8b,
+    "mistral_7b": mistral_7b,
+    "qwen2_7b": qwen2_7b,
+    "qwen3_8b": qwen3_8b,
+    "qwen3_moe_30b_a3b": qwen3_moe_30b_a3b,
+    "mixtral_8x7b": mixtral_8x7b,
+    "moe_tiny": moe_tiny,
     "mla_tiny": mla_tiny,
     "deepseek_v2_lite": deepseek_v2_lite,
 }

@@ -54,8 +54,23 @@
 //   the f32 score before masking, the v-scale folds into p before P·V (p
 //   itself enters the softmax sum unscaled), as the TPU kernel's quant
 //   branch does.
+// - Head dims 64, 128 and 256 (Gemma-2): Q and K tiles are hd/64 column
+//   blocks of the swizzle, so S takes hd/16 chained k-steps whatever hd is;
+//   O += P·V is one m64n{hd}k16 wgmma a k-step up to hd 128, and two
+//   m64n128k16 on V's two column halves at hd 256 (O is then 128 f32
+//   registers a thread). At hd 256 a CTA's shared memory (Q 32 KB, two
+//   64 KB stages) admits one CTA an SM.
+// - The attention logit softcap (Gemma-2): with cap > 0 a score is
+//   cap·tanh(x·scale/cap), taken after the int8 k-scale and before the mask,
+//   so masked keys stay at NEG; a sink enters uncapped. The softmax tile is
+//   instantiated with and without it, and a launch picks one (one
+//   instantiation with a launch-uniform branch on the cap measured 10 %
+//   slower on uncapped int8 pages, PERF.md §6). tanh is
+//   1 - 2/(2^(2y·log2 e) + 1) on the special-function unit's exp2, accurate
+//   to a few ulps of the capped score (tanh.approx's 2^-11 is not).
 // f32 queries (f32 or int8 pages): attend_f32, all math on CUDA cores, one
-// warp per query row (the f32 checks; not on a serving path).
+// warp per query row (the f32 checks; not on a serving path); the cap is
+// tanhf there.
 // Split-K: each chunk of a split tile writes its unnormalised output and
 // per-row (max, sum) to scratch, merged by merge_body; a tile of one chunk
 // writes its normalised rows directly. Every store is masked to the tile's
@@ -164,25 +179,40 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// The f32 body's P·V layout: thread t owns columns t % CWID + CWID·c (c <
+// CW) of rows t / CWID + RSTEP·i (i < RPT); at hd 256 a thread takes two
+// columns of every row.
+template <int HD>
+struct F32Cols {
+  static constexpr int CWID = HD < NT ? HD : NT;
+  static constexpr int CW = HD / CWID;
+  static constexpr int RSTEP = NT / CWID;
+  static constexpr int RPT = M_MAX / RSTEP;
+};
+
 // The end of a CTA's work: its rows' final output when the tile is one
 // chunk, else the chunk's unnormalised output and per-row (max, sum) into
 // the split-K scratch for merge_body. Ms/Ls: rows' running max and sum in
-// shared memory.
-template <typename T, int HD, int RPT>
+// shared memory; acc[i * CW + c] is the thread's column c of its row i.
+template <typename T, int HD, int N>
 __device__ __forceinline__ void finish_rows(
-    const float (&acc)[RPT], const float* Ms, const float* Ls, const Tile& tl,
+    const float (&acc)[N], const float* Ms, const float* Ls, const Tile& tl,
     T* __restrict__ out, float* __restrict__ part, int H, int KV, int G,
     int g, int n_split_max) {
-  constexpr int RSTEP = NT / HD;
-  const int col = threadIdx.x % HD, rsub = threadIdx.x / HD;
+  using C = F32Cols<HD>;
+  static_assert(N == C::RPT * C::CW, "one accumulator a row and column");
+  const int col = threadIdx.x % C::CWID, rsub = threadIdx.x / C::CWID;
   if (tl.n_split == 1) {
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int row = rsub + RSTEP * i;
+    for (int i = 0; i < C::RPT; ++i) {
+      const int row = rsub + C::RSTEP * i;
       if (row >= tl.m_act) break;
       const int head = g * G + row % G;
-      out[((size_t)(tl.tok0 + row / G) * H + head) * HD + col] =
-          from_f<T>(acc[i] / fmaxf(Ls[row], 1e-30f));
+#pragma unroll
+      for (int c = 0; c < C::CW; ++c)
+        out[((size_t)(tl.tok0 + row / G) * H + head) * HD + col +
+            C::CWID * c] =
+            from_f<T>(acc[i * C::CW + c] / fmaxf(Ls[row], 1e-30f));
     }
     return;
   }
@@ -192,10 +222,12 @@ __device__ __forceinline__ void finish_rows(
   float* pml = part + (size_t)gridDim.x * KV * n_split_max * M_MAX * HD +
                slot * M_MAX * 2;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = rsub + RSTEP * i;
+  for (int i = 0; i < C::RPT; ++i) {
+    const int row = rsub + C::RSTEP * i;
     if (row >= tl.m_act) break;
-    po[row * HD + col] = acc[i];
+#pragma unroll
+    for (int c = 0; c < C::CW; ++c)
+      po[row * HD + col + C::CWID * c] = acc[i * C::CW + c];
   }
   for (int row = threadIdx.x; row < tl.m_act; row += NT) {
     pml[2 * row] = Ms[row];
@@ -203,41 +235,40 @@ __device__ __forceinline__ void finish_rows(
   }
 }
 
-// Issue the 16-byte loads of one key tile [k0, k0+BK) of K and V for KV head
-// g into registers; keys at or past k_end load as zeros. With QUANT, thread
-// t < BK also loads key k0+t's k- and v-scale.
-template <typename P, int HD, int NCH, bool QUANT, typename Src>
-__device__ __forceinline__ void fetch_tile(
-    uint4 (&kreg)[NCH], uint4 (&vreg)[NCH], float& ksr, float& vsr,
-    const Src& src, const Tile& tl, const P* __restrict__ kc,
-    const P* __restrict__ vc, const float* __restrict__ ksc,
-    const float* __restrict__ vsc, int sbase, int k0, int k_end, int KV,
-    int g) {
+// Load 16-byte chunk c (of BK·HD/EPC) of key tile [k0, k0+BK) of K and V
+// for KV head g into registers; keys at or past k_end load as zeros.
+template <typename P, int HD, typename Src>
+__device__ __forceinline__ void fetch_chunk(
+    uint4& kr, uint4& vr, int c, const Src& src, const Tile& tl,
+    const P* __restrict__ kc, const P* __restrict__ vc, int k0, int k_end,
+    int KV, int g) {
   constexpr int EPC = 16 / sizeof(P);
   constexpr int CPK = HD / EPC;
-#pragma unroll
-  for (int u = 0; u < NCH; ++u) {
-    const int c = threadIdx.x + u * NT;
-    const int p = k0 + c / CPK;
-    if (p < k_end) {
-      const size_t off =
-          ((size_t)src.slot(tl, p) * KV + g) * HD + (c % CPK) * EPC;
-      kreg[u] = *reinterpret_cast<const uint4*>(kc + off);
-      vreg[u] = *reinterpret_cast<const uint4*>(vc + off);
-    } else {
-      kreg[u] = make_uint4(0u, 0u, 0u, 0u);
-      vreg[u] = make_uint4(0u, 0u, 0u, 0u);
-    }
+  const int p = k0 + c / CPK;
+  if (p < k_end) {
+    const size_t off =
+        ((size_t)src.slot(tl, p) * KV + g) * HD + (c % CPK) * EPC;
+    kr = *reinterpret_cast<const uint4*>(kc + off);
+    vr = *reinterpret_cast<const uint4*>(vc + off);
+  } else {
+    kr = make_uint4(0u, 0u, 0u, 0u);
+    vr = make_uint4(0u, 0u, 0u, 0u);
   }
-  if constexpr (QUANT) {
-    if (threadIdx.x < BK) {
-      const int p = k0 + threadIdx.x;
-      ksr = vsr = 0.f;
-      if (p < k_end) {
-        const size_t si = (size_t)(src.slot(tl, p) - sbase) * KV + g;
-        ksr = ksc[si];
-        vsr = vsc[si];
-      }
+}
+
+// Thread t < BK loads key k0+t's k- and v-scale (zeros at or past k_end).
+template <typename Src>
+__device__ __forceinline__ void fetch_scales(
+    float& ksr, float& vsr, const Src& src, const Tile& tl,
+    const float* __restrict__ ksc, const float* __restrict__ vsc, int sbase,
+    int k0, int k_end, int KV, int g) {
+  if (threadIdx.x < BK) {
+    const int p = k0 + threadIdx.x;
+    ksr = vsr = 0.f;
+    if (p < k_end) {
+      const size_t si = (size_t)(src.slot(tl, p) - sbase) * KV + g;
+      ksr = ksc[si];
+      vsr = vsc[si];
     }
   }
 }
@@ -258,16 +289,17 @@ __device__ __forceinline__ void attend_f32(
     const P* __restrict__ vc, const float* __restrict__ ksc,
     const float* __restrict__ vsc, int sbase,
     const float* __restrict__ sinks, float* __restrict__ out,
-    float* __restrict__ part, int H, int KV, int n_split_max, float scale) {
+    float* __restrict__ part, int H, int KV, int n_split_max, float scale,
+    float softcap) {
   constexpr bool QUANT = sizeof(P) == 1;
   constexpr int EPC = 16 / sizeof(P);
   constexpr int CPK = HD / EPC;        // 16-byte chunks per key vector
   constexpr int NCH = BK * CPK / NT;   // chunks per thread per tile
   static_assert((BK * CPK) % NT == 0, "tile must split evenly over threads");
-  static_assert(NT % HD == 0, "head_dim must divide the thread count");
+  using C = F32Cols<HD>;
+  static_assert(HD % C::CWID == 0 && NT % C::CWID == 0,
+                "head_dim must tile the thread count");
   constexpr int KSTR = HD + 1;  // padded: lane-per-key column reads
-  constexpr int RSTEP = NT / HD;
-  constexpr int RPT = M_MAX / RSTEP;  // P.V: output rows per thread
   constexpr int SPW = M_MAX / NWARP;  // scores: query rows per warp
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -304,53 +336,53 @@ __device__ __forceinline__ void attend_f32(
     m_run[i] = sink ? sinks[g * G + row % G] : NEG;
     l_run[i] = sink ? 1.f : 0.f;
   }
-  const int col = tid % HD, rsub = tid / HD;
-  float acc[RPT];
+  const int col = tid % C::CWID, rsub = tid / C::CWID;
+  float acc[C::RPT * C::CW];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+  for (int i = 0; i < C::RPT * C::CW; ++i) acc[i] = 0.f;
 
-  uint4 kreg[NCH], vreg[NCH];
-  float ksr = 0.f, vsr = 0.f;
-  fetch_tile<P, HD, NCH, QUANT>(kreg, vreg, ksr, vsr, src, tl, kc, vc, ksc,
-                                vsc, sbase, tl.k_lo, tl.k_hi, KV, g);
+  // chunk c of a tile (16 bytes of K and of V) into Ks/Vs
+  auto stash = [&](int c, const uint4& kr, const uint4& vr) {
+    const int key = c / CPK, d0 = (c % CPK) * EPC;
+    if constexpr (QUANT) {
+      float kf[16], vf[16];
+      i8x16_to_f32(kr, kf);
+      i8x16_to_f32(vr, vf);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) Ks[key * KSTR + d0 + i] = kf[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(&Vs[key * HD + d0 + 4 * j]) =
+            make_float4(vf[4 * j], vf[4 * j + 1], vf[4 * j + 2],
+                        vf[4 * j + 3]);
+    } else {
+      Ks[key * KSTR + d0] = __uint_as_float(kr.x);
+      Ks[key * KSTR + d0 + 1] = __uint_as_float(kr.y);
+      Ks[key * KSTR + d0 + 2] = __uint_as_float(kr.z);
+      Ks[key * KSTR + d0 + 3] = __uint_as_float(kr.w);
+      *reinterpret_cast<uint4*>(&Vs[key * HD + d0]) = vr;
+    }
+  };
 
   for (int k0 = tl.k_lo; k0 < tl.k_hi; k0 += BK) {
     __syncthreads();  // last tile's readers are done with Ks/Vs/Ps/scales
-#pragma unroll
+    // each 16-byte chunk of K and V goes to shared memory as it arrives
+#pragma unroll 4
     for (int u = 0; u < NCH; ++u) {
-      const int c = tid + u * NT;
-      const int key = c / CPK, d0 = (c % CPK) * EPC;
-      if constexpr (QUANT) {
-        float kf[16], vf[16];
-        i8x16_to_f32(kreg[u], kf);
-        i8x16_to_f32(vreg[u], vf);
-#pragma unroll
-        for (int i = 0; i < 16; ++i) Ks[key * KSTR + d0 + i] = kf[i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<float4*>(&Vs[key * HD + d0 + 4 * j]) =
-              make_float4(vf[4 * j], vf[4 * j + 1], vf[4 * j + 2],
-                          vf[4 * j + 3]);
-      } else {
-        const uint4 kv4 = kreg[u];
-        Ks[key * KSTR + d0] = __uint_as_float(kv4.x);
-        Ks[key * KSTR + d0 + 1] = __uint_as_float(kv4.y);
-        Ks[key * KSTR + d0 + 2] = __uint_as_float(kv4.z);
-        Ks[key * KSTR + d0 + 3] = __uint_as_float(kv4.w);
-        *reinterpret_cast<uint4*>(&Vs[key * HD + d0]) = vreg[u];
-      }
+      uint4 kr, vr;
+      fetch_chunk<P, HD>(kr, vr, tid + u * NT, src, tl, kc, vc, k0, tl.k_hi,
+                         KV, g);
+      stash(tid + u * NT, kr, vr);
     }
     if constexpr (QUANT) {
+      float ksr = 0.f, vsr = 0.f;
+      fetch_scales(ksr, vsr, src, tl, ksc, vsc, sbase, k0, tl.k_hi, KV, g);
       if (tid < BK) {
         KSs[tid] = ksr;
         VSs[tid] = vsr;
       }
     }
     __syncthreads();
-    if (k0 + BK < tl.k_hi)
-      fetch_tile<P, HD, NCH, QUANT>(kreg, vreg, ksr, vsr, src, tl, kc, vc,
-                                    ksc, vsc, sbase, k0 + BK, tl.k_hi, KV,
-                                    g);
 
     // scores: warp w owns query rows w, w+4, ...; lane = key of the tile
     float s[SPW];
@@ -378,36 +410,45 @@ __device__ __forceinline__ void attend_f32(
     for (int i = 0; i < SPW; ++i) {
       const int row = warp + NWARP * i;
       if (row >= m_act) break;
+      float x = QUANT ? s[i] * ks : s[i];
+      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
       float corr;
       const float p = softmax_step(
-          QUANT ? s[i] * ks : s[i],
-          visible(kp, tl.pos0 + row / G, tl.k_hi, src.window), m_run[i],
+          x, visible(kp, tl.pos0 + row / G, tl.k_hi, src.window), m_run[i],
           l_run[i], corr);
       Ps[row * BK + lane] = QUANT ? p * vs : p;
       if (lane == 0) Cs[row] = corr;
     }
     __syncthreads();
 
-    // O = O * corr + P V: thread owns column `col` of rows rsub + RSTEP*i
+    // O = O * corr + P V: thread owns columns col + CWID·c of rows
+    // rsub + RSTEP·i
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int row = rsub + RSTEP * i;
+    for (int i = 0; i < C::RPT; ++i) {
+      const int row = rsub + C::RSTEP * i;
       if (row >= m_act) break;
-      acc[i] *= Cs[row];
-    }
-#pragma unroll 2
-    for (int k = 0; k < BK; k += 4) {
-      const float v0 = Vs[k * HD + col], v1 = Vs[(k + 1) * HD + col];
-      const float v2 = Vs[(k + 2) * HD + col], v3 = Vs[(k + 3) * HD + col];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int row = rsub + RSTEP * i;
-        if (row >= m_act) break;
-        const float4 p = *reinterpret_cast<const float4*>(&Ps[row * BK + k]);
-        acc[i] = fmaf(p.x, v0, acc[i]);
-        acc[i] = fmaf(p.y, v1, acc[i]);
-        acc[i] = fmaf(p.z, v2, acc[i]);
-        acc[i] = fmaf(p.w, v3, acc[i]);
+      for (int c = 0; c < C::CW; ++c) acc[i * C::CW + c] *= Cs[row];
+    }
+#pragma unroll
+    for (int c = 0; c < C::CW; ++c) {
+      const int cc = col + C::CWID * c;
+#pragma unroll 2
+      for (int k = 0; k < BK; k += 4) {
+        const float v0 = Vs[k * HD + cc], v1 = Vs[(k + 1) * HD + cc];
+        const float v2 = Vs[(k + 2) * HD + cc], v3 = Vs[(k + 3) * HD + cc];
+#pragma unroll
+        for (int i = 0; i < C::RPT; ++i) {
+          const int row = rsub + C::RSTEP * i;
+          if (row >= m_act) break;
+          const float4 p =
+              *reinterpret_cast<const float4*>(&Ps[row * BK + k]);
+          float& a = acc[i * C::CW + c];
+          a = fmaf(p.x, v0, a);
+          a = fmaf(p.y, v1, a);
+          a = fmaf(p.z, v2, a);
+          a = fmaf(p.w, v3, a);
+        }
       }
     }
   }
@@ -422,8 +463,8 @@ __device__ __forceinline__ void attend_f32(
     }
   }
   __syncthreads();
-  finish_rows<float, HD, RPT>(acc, Ms, Ls, tl, out, part, H, KV, G, g,
-                              n_split_max);
+  finish_rows<float, HD>(acc, Ms, Ls, tl, out, part, H, KV, G, g,
+                         n_split_max);
 }
 
 // ------------------------------------------------------ bf16 path (wgmma)
@@ -483,17 +524,33 @@ __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
 
 #undef DTT_F8
 
+// How a raw score x (after the int8 k-scale) becomes a score in log2 units:
+// x·c2 uncapped (c2 = scale·log2 e); capped, cap·tanh(x·scale/cap)·log2 e =
+// cl2 - 2·cl2 / (2^(x·k2) + 1) with cl2 = cap·log2 e, k2 = 2·scale·log2 e /
+// cap, and then c2 = 1. The exponent is clamped so that 2^(x·k2) stays
+// finite (the quotient is then below an ulp of cl2).
+struct ScoreScale {
+  float c2, k2, cl2;
+};
+
+__device__ __forceinline__ ScoreScale score_scale(float scale, float cap) {
+  if (cap > 0.f) return {1.f, 2.f * scale * LOG2E / cap, cap * LOG2E};
+  return {scale * LOG2E, 0.f, 0.f};
+}
+
 // One online-softmax step on a key tile's score fragment: s[4j + e] is the
 // thread's row e >> 1, key k0 + 8j + t2 + (e & 1); qp: the two rows' query
 // positions. On return s holds p (with int8 pages times the key's v-scale;
 // p itself enters l unscaled), the rows' (m, l) are updated in log2 units
-// (c2 = scale * log2(e)) and corr holds each row's rescale of its earlier
-// output. MASK: check every key's visibility (edge tiles only).
-template <bool MASK, bool I8>
+// (ScoreScale) and corr holds each row's rescale of its earlier output.
+// MASK: check every key's visibility (edge tiles only); CAP: the logit
+// softcap, before the mask.
+template <bool MASK, bool I8, bool CAP>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[32], const float* kscl, const float* vscl, int k0,
-    const int (&qp)[2], int k_hi, int window, float c2, int t2,
+    const int (&qp)[2], int k_hi, int window, const ScoreScale& sc, int t2,
     float (&m_run)[2], float (&l_run)[2], float (&corr)[2]) {
+  const float c2 = sc.c2;
   float mx[2] = {NEG, NEG};
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -502,6 +559,9 @@ __device__ __forceinline__ void softmax_tile(
       const int col = 8 * j + t2 + (e & 1);
       float x = s[4 * j + e];
       if constexpr (I8) x *= kscl[col];
+      if constexpr (CAP)
+        x = sc.cl2 - __fdividef(2.f * sc.cl2,
+                                ex2(fminf(x * sc.k2, 64.f)) + 1.f);
       if constexpr (MASK)
         if (!visible(k0 + col, qp[e >> 1], k_hi, window)) x = NEG;
       s[4 * j + e] = x;
@@ -554,7 +614,8 @@ __device__ __forceinline__ void attend_wgmma(
     const P* __restrict__ vc, const float* __restrict__ ksc,
     const float* __restrict__ vsc, int sbase,
     const float* __restrict__ sinks, bf16* __restrict__ out,
-    float* __restrict__ part, int H, int KV, int n_split_max, float scale) {
+    float* __restrict__ part, int H, int KV, int n_split_max, float scale,
+    float softcap) {
   constexpr bool I8 = sizeof(P) == 1;
   using L = Smem<HD, I8>;
   constexpr int NO = HD / 2;               // output accumulators a thread
@@ -563,7 +624,8 @@ __device__ __forceinline__ void attend_wgmma(
   constexpr int CPT = BK * CPK / NT;       // copies per thread per tile
   static_assert(M_MAX == 64 && NT == 128, "one warpgroup of 64 rows");
   static_assert((BK * CPK) % NT == 0, "tile must split over the threads");
-  static_assert(HD == 64 || HD == 128, "head_dim 64 or 128");
+  static_assert(HD == 64 || HD == 128 || HD == 256,
+                "head_dim 64, 128 or 256");
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -645,7 +707,8 @@ __device__ __forceinline__ void attend_wgmma(
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
 
-  const float c2 = scale * LOG2E;
+  const ScoreScale sc = score_scale(scale, softcap);
+  const bool cap = softcap > 0.f;
   const int pos_last = tl.pos0 + tl.m_act / G - 1;
   const int n_tiles = max(0, (tl.k_hi - tl.k_lo + BK - 1) / BK);
 
@@ -722,13 +785,22 @@ __device__ __forceinline__ void attend_wgmma(
     // diagonal, k_hi or the window edge checks each key
     const int k0 = tl.k_lo + it * BK;
     float corr[2];
-    if (k0 + BK > tl.k_hi || k0 + BK - 1 > tl.pos0 ||
-        (window > 0 && k0 <= pos_last - window))
-      softmax_tile<true, I8>(s, kscl, vscl, k0, qp, tl.k_hi, window, c2, t2,
-                             m_run, l_run, corr);
-    else
-      softmax_tile<false, I8>(s, kscl, vscl, k0, qp, tl.k_hi, window, c2,
-                              t2, m_run, l_run, corr);
+    const bool edge = k0 + BK > tl.k_hi || k0 + BK - 1 > tl.pos0 ||
+                      (window > 0 && k0 <= pos_last - window);
+    if (cap) {
+      if (edge)
+        softmax_tile<true, I8, true>(s, kscl, vscl, k0, qp, tl.k_hi, window,
+                                     sc, t2, m_run, l_run, corr);
+      else
+        softmax_tile<false, I8, true>(s, kscl, vscl, k0, qp, tl.k_hi,
+                                      window, sc, t2, m_run, l_run, corr);
+    } else if (edge) {
+      softmax_tile<true, I8, false>(s, kscl, vscl, k0, qp, tl.k_hi, window,
+                                    sc, t2, m_run, l_run, corr);
+    } else {
+      softmax_tile<false, I8, false>(s, kscl, vscl, k0, qp, tl.k_hi, window,
+                                     sc, t2, m_run, l_run, corr);
+    }
 #pragma unroll
     for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
 
@@ -745,8 +817,17 @@ __device__ __forceinline__ void attend_wgmma(
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_rs(o, pa[kk], desc(vt + kk * 16 * 128, BK * 128, 1024));
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (HD == 256) {
+        // two m64n128 products on V's column halves (blocks 0-1, 2-3)
+        mma_rs(*reinterpret_cast<float(*)[64]>(&o[0]), pa[kk],
+               desc(vt + kk * 16 * 128, BK * 128, 1024));
+        mma_rs(*reinterpret_cast<float(*)[64]>(&o[64]), pa[kk],
+               desc(vt + 2 * BK * 128 + kk * 16 * 128, BK * 128, 1024));
+      } else {
+        mma_rs(o, pa[kk], desc(vt + kk * 16 * 128, BK * 128, 1024));
+      }
+    }
     wgmma_commit();
     wgmma_wait();
     fence_regs(o);
@@ -796,15 +877,15 @@ template <typename T, int HD, typename P, typename Src>
 __device__ __forceinline__ void attend(
     const Src& src, const T* q, const P* kc, const P* vc, const float* ksc,
     const float* vsc, int sbase, const float* sinks, T* out, float* part,
-    int H, int KV, int n_split_max, float scale) {
+    int H, int KV, int n_split_max, float scale, float softcap) {
   static_assert(std::is_same<P, T>::value || std::is_same<P, int8_t>::value,
                 "pages are the query type or int8");
   if constexpr (std::is_same<T, float>::value)
     attend_f32<HD, P>(src, q, kc, vc, ksc, vsc, sbase, sinks, out, part, H,
-                      KV, n_split_max, scale);
+                      KV, n_split_max, scale, softcap);
   else
     wg::attend_wgmma<HD, P>(src, q, kc, vc, ksc, vsc, sbase, sinks, out,
-                            part, H, KV, n_split_max, scale);
+                            part, H, KV, n_split_max, scale, softcap);
 }
 
 template <typename T, int HD, typename P>

@@ -12,12 +12,14 @@
 //   window    int             0 = full; else keys > pos - window
 //   sinks     [H] f32 or null per-head sink logit (m = sink, l = 1)
 //   scale     float           score scale
+//   softcap   float           0 = off; else s·scale -> cap·tanh(s·scale/cap)
+//                             before the mask (Gemma-2)
 //   out       [B, S, H, hd]
 // Keys at or before the query's position and below kv_len[b]; f32 softmax.
 // A query that sees no key gets zeros (l is floored at 1e-30), so the
 // padding rows of the embeddings batch (kv_len 0) never produce NaN.
-// hd == hdv in {64, 128}; the TPU kernel's wider value (MLA, hd 576 / hdv
-// 512) waits for the MLA port.
+// hd == hdv in {64, 128, 256}; the MLA geometry (hd 576 / hdv 512) is
+// mla_prefill.cu.
 //
 // What bounds it on this card: a long prefill (S = T = 2048) does ~4·S·T·hd
 // causal-half FLOPs per head against 2·T·KV·hd·2 bytes of K/V per row, far
@@ -30,11 +32,10 @@
 // innermost, sequential key-tile axis in VMEM scratch; here one CTA owns a
 // query tile of one KV group — its G heads x 64/G tokens on the 64 rows of
 // one wgmma warpgroup — and loops over the key tiles itself, S and P·V on
-// the tensor cores with the softmax in registers. Two CTAs fit an SM, so
-// one CTA's softmax, copies and barriers overlap the other's MMAs. f32
-// runs on CUDA cores. Key tiles wholly in
-// the future, wholly past kv_len or wholly before the window are never
-// fetched. When the query tiles alone cannot fill the card (fewer than
+// the tensor cores with the softmax in registers. Two CTAs fit an SM (one
+// at hd 256), so one CTA's softmax, copies and barriers overlap the other's
+// MMAs. f32 runs on CUDA cores. Key tiles wholly in the future, wholly past
+// kv_len or wholly before the window are never fetched. When the query tiles alone cannot fill the card (fewer than
 // two CTAs per SM), long key ranges are split over blockIdx.z and merged
 // by a second kernel. Every store is masked to S. The dense keys could
 // arrive by TMA (one box [64, hd] per tile); they take the paged kernel's
@@ -80,11 +81,11 @@ flash_prefill(const T* __restrict__ q, const T* __restrict__ k,
               const float* __restrict__ sinks, T* __restrict__ out,
               float* __restrict__ part, int B, int S, int T_, int H, int KV,
               int window, int tq, int tiles_per_b, int kch, int n_split_max,
-              float scale) {
+              float scale, float softcap) {
   const DenseSrc src{pos_base, kv_lens, B, S, T_, tq, tiles_per_b, H / KV,
                      window, kch};
-  attend<T, HD>(src, q, k, v, nullptr, nullptr, 0, sinks, out,
-                             part, H, KV, n_split_max, scale);
+  attend<T, HD>(src, q, k, v, nullptr, nullptr, 0, sinks, out, part, H, KV,
+                n_split_max, scale, softcap);
 }
 
 template <typename T, int HD>
@@ -130,13 +131,14 @@ template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* pos_base,
            const void* kv_lens, const void* sinks, void* out, void* scratch,
            int B, int S, int T_, int H, int KV, int window, float scale,
-           cudaStream_t stream) {
+           float softcap, cudaStream_t stream) {
   const auto kernel = flash_prefill<T, HD>;
   constexpr size_t smem = smem_bytes<T, HD, T>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // all of L1 as shared memory, so two CTAs of the bf16 body fit an SM
+  // (one at hd 256)
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
@@ -148,7 +150,7 @@ int launch(const void* q, const void* k, const void* v, const void* pos_base,
       static_cast<const T*>(v), static_cast<const int*>(pos_base),
       static_cast<const int*>(kv_lens), static_cast<const float*>(sinks),
       static_cast<T*>(out), part, B, S, T_, H, KV, window, ge.tq,
-      ge.tiles_per_b, ge.kch, ge.n_split, scale);
+      ge.tiles_per_b, ge.kch, ge.n_split, scale, softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess || ge.n_split == 1) return (int)err;
   flash_prefill_merge<T, HD><<<dim3(ge.tiles, KV), NT, 0, stream>>>(
@@ -177,15 +179,17 @@ extern "C" int dtt_flash_prefill(const void* q, const void* k, const void* v,
                                  const void* sinks, void* out, void* scratch,
                                  int B, int S, int T, int H, int KV,
                                  int head_dim, int window, float scale,
-                                 int is_bf16, void* stream) {
+                                 float softcap, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DTT_LAUNCH(TYPE, HD)                                                  \
   return launch<TYPE, HD>(q, k, v, pos_base, kv_lens, sinks, out, scratch, B, \
-                          S, T, H, KV, window, scale, st)
+                          S, T, H, KV, window, scale, softcap, st)
   if (is_bf16) {
+    if (head_dim == 256) DTT_LAUNCH(bf16, 256);
     if (head_dim == 128) DTT_LAUNCH(bf16, 128);
     if (head_dim == 64) DTT_LAUNCH(bf16, 64);
   } else {
+    if (head_dim == 256) DTT_LAUNCH(float, 256);
     if (head_dim == 128) DTT_LAUNCH(float, 128);
     if (head_dim == 64) DTT_LAUNCH(float, 64);
   }

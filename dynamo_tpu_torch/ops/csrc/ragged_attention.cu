@@ -19,8 +19,12 @@
 //   window       int              0 = full; else keys > pos - window
 //   sinks        [H] f32 or null  per-head sink logit: seeds the online
 //                                 softmax with m = sink, l = 1
+//   softcap      float            0 = off; else a score s·scale becomes
+//                                 cap·tanh(s·scale/cap) before the mask
+//                                 (Gemma-2's attention logit softcap)
 //   out          [T, H, hd]       written for the rows' tokens only
-// Causal, keys below kv_len, scale 1/sqrt(hd), f32 accumulation.
+// Causal, keys below kv_len, scale 1/sqrt(hd), f32 accumulation; hd 64,
+// 128 or 256.
 //
 // What bounds it on this card: decode rows (q_len 1) read every visible K/V
 // page once for G = H/KV heads, about 2 FLOPs per byte (4 with int8 pages),
@@ -136,11 +140,11 @@ ragged_attention(const T* __restrict__ q, const P* __restrict__ kc,
                  const float* __restrict__ sinks, T* __restrict__ out,
                  float* __restrict__ part, int H, int KV, int R, int W, int bs,
                  int window, int tq, int kch, int split_multi,
-                 int n_split_max, float scale) {
+                 int n_split_max, float scale, float softcap) {
   const RaggedSrc src{rows3, bt, R, W, bs, tq, H / KV, window, kch,
                       split_multi, log2_if_pow2(bs)};
-  attend<T, HD>(src, q, kc, vc, ksc, vsc, sbase, sinks, out,
-                             part, H, KV, n_split_max, scale);
+  attend<T, HD>(src, q, kc, vc, ksc, vsc, sbase, sinks, out, part, H, KV,
+                n_split_max, scale, softcap);
 }
 
 template <typename T, int HD>
@@ -179,13 +183,15 @@ template <typename T, typename P, int HD>
 int launch(const void* q, const void* kc, const void* vc, const void* ksc,
            const void* vsc, int sbase, const void* bt, const void* rows3,
            const void* sinks, void* out, void* scratch, int T_, int H, int KV,
-           int R, int W, int bs, int window, cudaStream_t stream) {
+           int R, int W, int bs, int window, float softcap,
+           cudaStream_t stream) {
   const auto kernel = ragged_attention<T, P, HD>;
   constexpr size_t smem = smem_bytes<T, HD, P>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // all of L1 as shared memory, so two CTAs of the bf16 body fit an SM
+  // (one at hd 256)
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
@@ -198,7 +204,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* ksc,
       static_cast<const float*>(vsc), sbase, static_cast<const int*>(bt),
       static_cast<const int*>(rows3), static_cast<const float*>(sinks),
       static_cast<T*>(out), part, H, KV, R, W, bs, window, ge.tq, ge.kch,
-      ge.split_multi, ge.n_split, 1.0f / sqrtf((float)HD));
+      ge.split_multi, ge.n_split, 1.0f / sqrtf((float)HD), softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess || ge.n_split == 1) return (int)err;
   ragged_attention_merge<T, HD><<<dim3(ge.tiles, KV), NT, 0, stream>>>(
@@ -223,21 +229,22 @@ extern "C" long long dtt_ragged_scratch_floats(int T, int H, int KV,
 // for a head_dim this file has no instantiation for. The caller checks
 // shapes, dtypes and contiguity, and allocates the scratch, before calling.
 // is_bf16: q and out are bf16 (else f32); is_int8: the pages are int8 with
-// k_scales / v_scales (else the q dtype, scales null).
+// k_scales / v_scales (else the q dtype, scales null); softcap 0 = off.
 extern "C" int dtt_ragged_paged_attention(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scales, const void* v_scales, int scale_slot_base,
     const void* block_tables, const void* rows3, const void* sinks,
     void* out, void* scratch, int T, int H, int KV, int head_dim, int R,
-    int W, int block_size, int window, int is_bf16, int is_int8,
-    void* stream) {
+    int W, int block_size, int window, float softcap, int is_bf16,
+    int is_int8, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DTT_LAUNCH(TYPE, PAGE, HD)                                           \
   return launch<TYPE, PAGE, HD>(q, k_cache, v_cache, k_scales, v_scales,    \
                                 scale_slot_base, block_tables, rows3, sinks, \
                                 out, scratch, T, H, KV, R, W, block_size,   \
-                                window, st)
-#define DTT_HEAD_DIMS(TYPE, PAGE)                \
+                                window, softcap, st)
+#define DTT_HEAD_DIMS(TYPE, PAGE)                   \
+  if (head_dim == 256) DTT_LAUNCH(TYPE, PAGE, 256); \
   if (head_dim == 128) DTT_LAUNCH(TYPE, PAGE, 128); \
   if (head_dim == 64) DTT_LAUNCH(TYPE, PAGE, 64)
   if (is_bf16 && is_int8) {

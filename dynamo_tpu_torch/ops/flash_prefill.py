@@ -12,12 +12,14 @@ Port of ``dynamo_tpu/ops/flash_prefill.py`` (the Pallas kernel
 
 A query sees the keys at or before its position and below kv_len; an
 optional window keeps keys > pos - window, optional per-head sink logits
-enter the softmax denominator with no value, and ``scale`` defaults to
-1/sqrt(hd). A query that sees no key gets zeros.
+enter the softmax denominator with no value, ``scale`` defaults to
+1/sqrt(hd), and ``softcap`` > 0 turns each scaled score s into
+softcap·tanh(s/softcap) before the mask (Gemma-2). A query that sees no
+key gets zeros.
 
 :func:`flash_prefill` launches the hand-written Hopper kernel
 (``csrc/flash_prefill.cu``) for CUDA tensors (bf16 or f32, hd == hdv in
-{64, 128}, H / KV <= 64) and uses the plain version
+{64, 128, 256}, H / KV <= 64) and uses the plain version
 :func:`flash_prefill_ref` only for tensors that lie on the CPU.
 :func:`flash_prefill_paged` gathers a layer's pages (dequantizing an int8
 cache) and calls it. The MLA geometry has its own kernel
@@ -45,7 +47,7 @@ _NEG = -1e30
 
 
 def flash_prefill_ref(q, k, v, pos_base, kv_lens, *, sliding_window=None,
-                      sinks=None, scale=None):
+                      sinks=None, scale=None, softcap: float = 0.0):
     """Plain PyTorch version: dense masked softmax in f32, one batch row at
     a time (so its score tensor stays [KV, G, S, T])."""
     B, S, H, hd = q.shape
@@ -64,6 +66,8 @@ def flash_prefill_ref(q, k, v, pos_base, kv_lens, *, sliding_window=None,
             mask &= keys[None, :] > qpos[:, None] - sliding_window
         qg = q[b].float().reshape(S, KV, G, hd)
         s = torch.einsum("skgd,tkd->kgst", qg, k[b].float()) * scale
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
         s = s.masked_fill(~mask, _NEG)
         m = s.amax(-1, keepdim=True)
         if sinks is not None:
@@ -85,7 +89,7 @@ def _kernel():
     lib = _build.load("flash_prefill")
     fn = lib.dtt_flash_prefill
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     size = lib.dtt_flash_prefill_scratch_floats
     size.argtypes = [ctypes.c_int] * 6
@@ -93,7 +97,8 @@ def _kernel():
     return fn, size
 
 
-def _check(q, k, v, pos_base, kv_lens, sinks, window) -> None:
+def _check(q, k, v, pos_base, kv_lens, sinks, window,
+           softcap: float = 0.0) -> None:
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v), ("pos_base", pos_base),
                     ("kv_lens", kv_lens), ("sinks", sinks)):
@@ -127,21 +132,23 @@ def _check(q, k, v, pos_base, kv_lens, sinks, window) -> None:
         raise ValueError(f"sinks must be [H={H}]")
     if not isinstance(window, int) or window < 0:
         raise ValueError("sliding_window must be an int >= 0 or None")
+    if not softcap >= 0.0:
+        raise ValueError("softcap must be >= 0 (0 = off)")
 
 
 def flash_prefill(q, k, v, pos_base, kv_lens, *, sliding_window=None,
-                  sinks=None, scale=None):
+                  sinks=None, scale=None, softcap: float = 0.0):
     """Flash prefill attention (see the module docstring for the contract).
     CUDA tensors launch the Hopper kernel on the current stream; CPU
     tensors take :func:`flash_prefill_ref`."""
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v, pos_base, kv_lens,
                                  sliding_window=sliding_window, sinks=sinks,
-                                 scale=scale)
+                                 scale=scale, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"no flash prefill kernel for {q.device}")
     window = 0 if sliding_window is None else sliding_window
-    _check(q, k, v, pos_base, kv_lens, sinks, window)
+    _check(q, k, v, pos_base, kv_lens, sinks, window, softcap)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -160,7 +167,7 @@ def flash_prefill(q, k, v, pos_base, kv_lens, *, sliding_window=None,
         out.data_ptr(), scratch.data_ptr() if scratch is not None else None,
         B, S, T, H, KV, hd, window,
         1.0 / math.sqrt(hd) if scale is None else float(scale),
-        int(q.dtype == torch.bfloat16),
+        float(softcap), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash prefill kernel launch failed (code {err})")
@@ -174,7 +181,7 @@ flash_prefill.launches = 0
 
 def flash_prefill_paged(q, k_cache, v_cache, lidx: int, block_tables,
                         positions, kv_lens, *, block_size: int,
-                        sliding_window=None, sinks=None,
+                        sliding_window=None, sinks=None, softcap: float = 0.0,
                         attention=flash_prefill):
     """Gather layer ``lidx``'s pages of each row — [B, W·bs, KV, hd], an
     int8 cache dequantized there — and flash-attend. q [B, S, H, hd];
@@ -190,7 +197,8 @@ def flash_prefill_paged(q, k_cache, v_cache, lidx: int, block_tables,
     v = gather_pages(v_cache, lidx, slot_idx).to(q.dtype)
     return attention(q, k, v, positions[:, 0].to(torch.int32).contiguous(),
                      kv_lens.to(torch.int32).contiguous(),
-                     sliding_window=sliding_window, sinks=sinks)
+                     sliding_window=sliding_window, sinks=sinks,
+                     softcap=softcap)
 
 
 # ------------------------------------------------------------ MLA geometry

@@ -11,6 +11,8 @@ layer:
   window       int or None      0/None = full, else keys >= kv_len - window
   sinks        [H] or None      per-head sink logits, cast to q's dtype
                                 (as the JAX wrapper does before its kernel)
+  softcap      float            0 = off; else scaled scores s become
+                                softcap·tanh(s/softcap) before the mask
   k/v scales   [sc_slots, KV]   f32, int8 pages only: slot s dequantizes
                                 with scales[s - scale_slot_base]
   → out        [B, H, hd]
@@ -54,7 +56,8 @@ def decode_rows(kv_lens):
 def paged_attention_decode_ref(q, k_cache, v_cache, block_tables, kv_lens, *,
                                block_size: int, window=None, sinks=None,
                                k_scales=None, v_scales=None,
-                               scale_slot_base=None, rows3=None):
+                               scale_slot_base=None, rows3=None,
+                               softcap: float = 0.0):
     """Plain PyTorch version: the JAX package's ``paged_attention_decode_xla``
     (a dense gather of every row's table width, int8 pages dequantized in
     the gather), except that a row with no visible key gets zeros, as the
@@ -74,6 +77,8 @@ def paged_attention_decode_ref(q, k_cache, v_cache, block_tables, kv_lens, *,
         v = v * v_scales[sidx].float()[..., None]
     qg = q.reshape(B, KV, G, hd).float()
     s = torch.einsum("bkgd,btkd->bkgt", qg, k) / math.sqrt(hd)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     key_pos = torch.arange(T, device=dev)[None]
     lens = kv_lens.long()[:, None]
     mask = key_pos < lens  # [B, T]
@@ -101,13 +106,14 @@ def paged_attention_decode_ref(q, k_cache, v_cache, block_tables, kv_lens, *,
 def paged_attention_decode(q, k_cache, v_cache, block_tables, kv_lens, *,
                            block_size: int, window=None, sinks=None,
                            k_scales=None, v_scales=None,
-                           scale_slot_base=None, rows3=None):
+                           scale_slot_base=None, rows3=None,
+                           softcap: float = 0.0):
     """Paged decode attention (see the module docstring for the contract).
     CUDA tensors launch the ragged Hopper kernel on the current stream;
     CPU tensors take :func:`paged_attention_decode_ref`."""
     kw = dict(block_size=block_size, window=window, sinks=sinks,
               k_scales=k_scales, v_scales=v_scales,
-              scale_slot_base=scale_slot_base)
+              scale_slot_base=scale_slot_base, softcap=softcap)
     if q.device.type == "cpu":
         return paged_attention_decode_ref(q, k_cache, v_cache, block_tables,
                                           kv_lens, **kw)
@@ -119,7 +125,8 @@ def paged_attention_decode(q, k_cache, v_cache, block_tables, kv_lens, *,
     if rows3 is None:
         rows3 = decode_rows(kv_lens)
     if sinks is not None:
-        sinks = sinks.to(q.dtype)
+        # the JAX wrapper's rounding to q's dtype, then the kernel's f32
+        sinks = sinks.to(q.dtype).float()
     kw.update(window=int(window or 0), sinks=sinks,
               scale_slot_base=int(scale_slot_base or 0))
     return launch_ragged(q, k_cache, v_cache, block_tables, rows3, **kw,

@@ -15,11 +15,16 @@ layer:
   block_tables [R, W] int32     per row (block 0 = the null block)
   rows3        [R, 3] int32     (q_start, q_len, kv_len); q_len 0 = padding
   window       int              0 = full attention, else keys > pos - window
-  sinks        [H] or None      per-head sink logits
+  sinks        [H] or None      per-head sink logits (f32 on the card; a
+                                caller converts them once, not per launch)
+  softcap      float            0 = off; else each scaled score s becomes
+                                softcap·tanh(s/softcap) before the mask
+                                (Gemma-2's attention logit softcap)
   → out        [T, H, hd]
 
-Causal and below kv_len, scale 1/sqrt(hd), f32 accumulation. The output of
-tokens outside every row (the packed batch's padding) is unspecified.
+Causal and below kv_len, scale 1/sqrt(hd), f32 accumulation, hd in
+``HEAD_DIMS``. The output of tokens outside every row (the packed batch's
+padding) is unspecified.
 
 :func:`ragged_paged_attention` launches the hand-written Hopper kernel
 (``csrc/ragged_attention.cu``) for CUDA tensors and uses the plain version
@@ -38,13 +43,13 @@ from dynamo_tpu_torch.ops import _build
 _NEG = -1e30
 #: largest GQA group (H / KV) one CTA holds; see the kernel source
 MAX_GROUP = 64
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 
 
 def ragged_attention_ref(q, k_cache, v_cache, block_tables, rows3, *,
                          block_size: int, window: int = 0, sinks=None,
                          k_scales=None, v_scales=None,
-                         scale_slot_base: int = 0):
+                         scale_slot_base: int = 0, softcap: float = 0.0):
     """Plain PyTorch version: a dense gather of each row's keys with the
     masking of the JAX package's ``ragged_attention_xla``; int8 pages
     dequantize in the gather. Tokens outside every row come back as zeros.
@@ -69,6 +74,8 @@ def ragged_attention_ref(q, k_cache, v_cache, block_tables, rows3, *,
             v = v * v_scales[sidx].float()[..., None]
         qg = q[q_start:q_start + q_len].float().reshape(q_len, KV, G, hd)
         s = torch.einsum("tkgd,skd->tkgs", qg, k) / math.sqrt(hd)
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
         mask = keys[None, :] <= pos[:, None]
         if window and window > 0:
             mask &= keys[None, :] > pos[:, None] - window
@@ -91,7 +98,8 @@ def _kernel():
     lib = _build.load("ragged_attention")
     fn = lib.dtt_ragged_paged_attention
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     size = lib.dtt_ragged_scratch_floats
@@ -101,7 +109,7 @@ def _kernel():
 
 
 def _check(q, k_cache, v_cache, block_tables, rows3, sinks, window,
-           k_scales, v_scales) -> None:
+           k_scales, v_scales, softcap: float = 0.0) -> None:
     dev = q.device
     named = [("k_cache", k_cache), ("v_cache", v_cache),
              ("block_tables", block_tables), ("rows3", rows3),
@@ -151,12 +159,14 @@ def _check(q, k_cache, v_cache, block_tables, rows3, sinks, window,
         raise ValueError(f"sinks must be [H={H}]")
     if not isinstance(window, int) or window < 0:
         raise ValueError("window must be an int >= 0")
+    if not softcap >= 0.0:
+        raise ValueError("softcap must be >= 0 (0 = off)")
 
 
 def ragged_paged_attention(q, k_cache, v_cache, block_tables, rows3, *,
                            block_size: int, window: int = 0, sinks=None,
                            k_scales=None, v_scales=None,
-                           scale_slot_base: int = 0):
+                           scale_slot_base: int = 0, softcap: float = 0.0):
     """Ragged paged attention (see the module docstring for the contract).
     CUDA tensors launch the Hopper kernel on the current stream; CPU
     tensors take :func:`ragged_attention_ref`."""
@@ -164,24 +174,24 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, rows3, *,
         return ragged_attention_ref(
             q, k_cache, v_cache, block_tables, rows3, block_size=block_size,
             window=window, sinks=sinks, k_scales=k_scales, v_scales=v_scales,
-            scale_slot_base=scale_slot_base)
+            scale_slot_base=scale_slot_base, softcap=softcap)
     return launch_ragged(q, k_cache, v_cache, block_tables, rows3,
                          block_size=block_size, window=window, sinks=sinks,
                          k_scales=k_scales, v_scales=v_scales,
-                         scale_slot_base=scale_slot_base,
+                         scale_slot_base=scale_slot_base, softcap=softcap,
                          counter=ragged_paged_attention)
 
 
 def launch_ragged(q, k_cache, v_cache, block_tables, rows3, *,
                   block_size: int, window: int, sinks, k_scales, v_scales,
-                  scale_slot_base: int, counter):
+                  scale_slot_base: int, softcap: float, counter):
     """Check the CUDA operands and launch the ragged kernel, adding one to
     ``counter.launches`` (the calling wrapper's count: this module's, or
     ``paged_attention_decode``'s) when it launches."""
     if q.device.type != "cuda":
         raise ValueError(f"no ragged attention kernel for {q.device}")
     _check(q, k_cache, v_cache, block_tables, rows3, sinks, window,
-           k_scales, v_scales)
+           k_scales, v_scales, softcap)
     T, H, hd = q.shape
     R, W = block_tables.shape
     out = torch.empty_like(q)
@@ -203,7 +213,7 @@ def launch_ragged(q, k_cache, v_cache, block_tables, rows3, *,
         block_tables.data_ptr(), rows3.data_ptr(),
         sinks.data_ptr() if sinks is not None else None, out.data_ptr(),
         scratch.data_ptr() if scratch is not None else None,
-        T, H, KV, hd, R, W, block_size, window,
+        T, H, KV, hd, R, W, block_size, window, float(softcap),
         int(q.dtype == torch.bfloat16), int(quant),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

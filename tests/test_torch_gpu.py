@@ -1,6 +1,7 @@
 """The torch port's CUDA kernels against their plain versions, on the card.
 
-Marked ``gpu``: each test skips without a CUDA device. The module imports
+Marked ``gpu``: each test skips without a CUDA device. Capped cases run on
+queries scaled by ``Q_GAIN`` and must fail with the cap off or doubled. The module imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -56,43 +57,73 @@ CASES = {
 }
 
 
+#: Gemma-2's attention logit softcap
+SOFTCAP = 50.0
+#: capped variants scale q by this: unit q and k give scores of about
+#: N(0, 1) after the 1/sqrt(hd) scale, where a cap of 50 moves a score by
+#: under 0.01 and no tolerance could tell a kernel with the cap from one
+#: without it; at N(0, 144) the top scores reach 30-50, where the cap bends
+#: them by units
+Q_GAIN = 12.0
+
+
+def check_capped(kernel, want, tol, cap):
+    """``kernel(c)``: the kernel's output at softcap c, cut to its defined
+    part. At ``cap`` it must match ``want`` (the plain version's, f32)
+    within ``tol``; with a cap, the runs with the cap off and doubled must
+    not, so that the case sees the cap."""
+    torch.testing.assert_close(kernel(cap).float(), want, atol=tol,
+                               rtol=tol)
+    for c in ((0.0, 2 * cap) if cap else ()):
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(kernel(c).float(), want, atol=tol,
+                                       rtol=tol)
+#: (window, sinks?, softcap) of each ragged case
+RAGGED_VARIANTS = ((0, False, 0.0), (7, True, 0.0), (300, True, 0.0),
+                   (0, False, SOFTCAP), (7, True, SOFTCAP))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case_name", sorted(CASES))
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-def test_kernel_matches_plain_on_card(dtype, tol, case_name):
+@pytest.mark.parametrize("hd", [64, 256])
+def test_kernel_matches_plain_on_card(dtype, tol, case_name, hd):
     """The CUDA kernel against the plain version: f32 differs by summation
     order; in bf16 both round the output to 8 mantissa bits and the kernel
-    rounds P to bf16 before P.V, a step or two apart."""
+    rounds P to bf16 before P.V, a step or two apart. Windows, sinks and
+    the logit softcap (on queries scaled by Q_GAIN); head dims 64 and 256
+    (Gemma)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rows, W = CASES[case_name]
-    case, t = make_case(3, rows, H=8, KV=2, hd=64, bs=16, W=W)
+    case, t = make_case(3, rows, H=8, KV=2, hd=hd, bs=16, W=W)
     args = [torch.from_numpy(case[k]).cuda()
             for k in ("q", "kc", "vc", "bt", "rows3")]
     args[:3] = [a.to(dtype) for a in args[:3]]
     sinks = torch.from_numpy(case["sinks"]).cuda()
-    for window, sk in ((0, None), (7, sinks), (300, sinks)):
-        got = ragged_paged_attention(*args, block_size=16, window=window,
-                                     sinks=sk)
-        want = ragged_attention_ref(*args, block_size=16, window=window,
-                                    sinks=sk)
-        torch.testing.assert_close(got[:t].float(), want[:t].float(),
-                                   atol=tol, rtol=tol)
+    for window, with_sinks, cap in RAGGED_VARIANTS:
+        kw = dict(block_size=16, window=window,
+                  sinks=sinks if with_sinks else None)
+        q = args[0] * Q_GAIN if cap else args[0]
+        want = ragged_attention_ref(q, *args[1:], softcap=cap, **kw)
+        check_capped(lambda c: ragged_paged_attention(
+            q, *args[1:], softcap=c, **kw)[:t], want[:t].float(), tol, cap)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case_name", sorted(CASES))
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-def test_int8_pages_match_plain_on_card(dtype, tol, case_name):
+@pytest.mark.parametrize("hd", [128, 256])
+def test_int8_pages_match_plain_on_card(dtype, tol, case_name, hd):
     """int8 pages with per-(slot, head) scales, behind a junk layer that the
     block tables and ``scale_slot_base`` step over. bf16 adds the rounding
     of p * v_scale to bf16 before P.V to the tolerance's two steps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rows, W = CASES[case_name]
-    case, t = make_case(4, rows, H=8, KV=2, hd=128, bs=16, W=W)
+    case, t = make_case(4, rows, H=8, KV=2, hd=hd, bs=16, W=W)
     kq, ks = quantize_kv(torch.from_numpy(case["kc"]).cuda())
     vq, vs = quantize_kv(torch.from_numpy(case["vc"]).cuda())
     slots = kq.shape[0]
@@ -102,23 +133,26 @@ def test_int8_pages_match_plain_on_card(dtype, tol, case_name):
     bt = torch.from_numpy(case["bt"] + slots // 16).cuda()
     rows3 = torch.from_numpy(case["rows3"]).cuda()
     sinks = torch.from_numpy(case["sinks"]).cuda()
-    for window, sk in ((0, None), (7, sinks), (300, sinks)):
-        kw = dict(block_size=16, window=window, sinks=sk, k_scales=ks,
+    for window, with_sinks, cap in RAGGED_VARIANTS:
+        kw = dict(block_size=16, window=window,
+                  sinks=sinks if with_sinks else None, k_scales=ks,
                   v_scales=vs, scale_slot_base=slots)
-        got = ragged_paged_attention(q, kq2, vq2, bt, rows3, **kw)
-        want = ragged_attention_ref(q, kq2, vq2, bt, rows3, **kw)
-        torch.testing.assert_close(got[:t].float(), want[:t].float(),
-                                   atol=tol, rtol=tol)
+        qc = q * Q_GAIN if cap else q
+        want = ragged_attention_ref(qc, kq2, vq2, bt, rows3, softcap=cap,
+                                    **kw)
+        check_capped(lambda c: ragged_paged_attention(
+            qc, kq2, vq2, bt, rows3, softcap=c, **kw)[:t],
+            want[:t].float(), tol, cap)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_prefill_matches_plain_on_card(dtype, tol, hd):
     """Causal rows from pos_base > 0 with S < T, a kv_len 0 row, a window
-    with sinks; one geometry splits its keys (few query tiles), one does
-    not."""
+    with sinks, the logit softcap; one geometry splits its keys (few query
+    tiles), one does not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(5)
@@ -134,27 +168,33 @@ def test_flash_prefill_matches_plain_on_card(dtype, tol, hd):
         kl = torch.tensor(kv_lens, dtype=torch.int32).cuda()
         sinks = torch.from_numpy(rng.standard_normal(H).astype(
             np.float32)).cuda()
-        for kw in ({}, {"sliding_window": 33, "sinks": sinks}):
-            got = flash_prefill(q, k, v, pb, kl, **kw)
-            want = flash_prefill_ref(q, k, v, pb, kl, **kw)
-            torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                       rtol=tol)
+        for kw, cap in (({}, 0.0), ({"sliding_window": 33, "sinks": sinks},
+                                    0.0),
+                        ({}, SOFTCAP),
+                        ({"sliding_window": 33, "sinks": sinks}, SOFTCAP)):
+            qc = q * Q_GAIN if cap else q
+            want = flash_prefill_ref(qc, k, v, pb, kl, softcap=cap, **kw)
+            check_capped(lambda c: flash_prefill(qc, k, v, pb, kl,
+                                                 softcap=c, **kw),
+                         want.float(), tol, cap)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-def test_paged_decode_matches_plain_on_card(dtype, tol, quant):
+@pytest.mark.parametrize("H,KV,hd", [(32, 8, 128), (16, 8, 256)])
+def test_paged_decode_matches_plain_on_card(dtype, tol, quant, H, KV, hd):
     """The paged decode contract on the ragged kernel: one query per row at
-    the Llama-3-8B head geometry, a kv_len 0 row, a one-page row and a row
-    long enough to split its keys; window and sinks; int8 pages behind a
-    junk layer that the tables and ``scale_slot_base`` step over."""
+    the Llama-3-8B and the Gemma-2-9B head geometries, a kv_len 0 row, a
+    one-page row and a row long enough to split its keys; window and sinks,
+    and the logit softcap; int8 pages behind a junk layer that the tables
+    and ``scale_slot_base`` step over."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     kv_lens = [0, 16, 1057, 2900, 333]
     rows = [(1, max(k, 1)) for k in kv_lens]
-    case, _ = make_case(7, rows, H=32, KV=8, hd=128, bs=16, W=192,
+    case, _ = make_case(7, rows, H=H, KV=KV, hd=hd, bs=16, W=192,
                         num_blocks=600, pad_rows=0, pad_tokens=0)
     q = torch.from_numpy(case["q"]).cuda().to(dtype)
     kc = torch.from_numpy(case["kc"]).cuda()
@@ -173,13 +213,15 @@ def test_paged_decode_matches_plain_on_card(dtype, tol, quant):
         kw = dict(k_scales=ks, v_scales=vs, scale_slot_base=slots)
     else:
         kc, vc = kc.to(dtype), vc.to(dtype)
-    for window, sk in ((None, None), (100, sinks)):
-        got = paged_attention_decode(q, kc, vc, bt, kl, block_size=16,
-                                     window=window, sinks=sk, **kw)
-        want = paged_attention_decode_ref(q, kc, vc, bt, kl, block_size=16,
-                                          window=window, sinks=sk, **kw)
-        torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=tol)
+    for window, sk, cap in ((None, None, 0.0), (100, sinks, 0.0),
+                            (100, sinks, SOFTCAP)):
+        qc = q * Q_GAIN if cap else q
+        run = dict(block_size=16, window=window, sinks=sk, **kw)
+        want = paged_attention_decode_ref(qc, kc, vc, bt, kl, softcap=cap,
+                                          **run)
+        check_capped(lambda c: paged_attention_decode(
+            qc, kc, vc, bt, kl, softcap=c, **run), want.float(), tol, cap)
+        got = paged_attention_decode(qc, kc, vc, bt, kl, softcap=cap, **run)
         assert not got[0].float().any()  # kv_len 0: zeros
 
 
@@ -315,13 +357,14 @@ EDGE_ROWS = [(1, 0), (1, 1), (1, 16), (1, 17), (1, 2000), (45, 45),
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pages", ["bf16", "int8"])
-@pytest.mark.parametrize("hd", [64, 128])
-@pytest.mark.parametrize("G", [1, 4, 8, 16])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 4, 7, 8, 16])
 def test_ragged_tile_edges_on_card(G, hd, pages):
     """The ragged kernel on bf16 queries at every tile edge (EDGE_ROWS),
-    without and with a window of 100 (an edge inside a key tile) and sinks;
-    int8 pages behind a junk layer that the tables and ``scale_slot_base``
-    step over."""
+    without and with a window of 100 (an edge inside a key tile) and sinks,
+    and with the logit softcap; int8 pages behind a junk layer that the
+    tables and ``scale_slot_base`` step over. G 7 (Qwen2-7B) fills 63 of
+    the 64 query rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     KV = 2
@@ -345,18 +388,22 @@ def test_ragged_tile_edges_on_card(G, hd, pages):
         kw = dict(k_scales=ks, v_scales=vs, scale_slot_base=slots)
     else:
         kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
-    for window, sk in ((0, None), (100, sinks)):
-        got = ragged_paged_attention(q, kc, vc, bt, rows3, block_size=16,
-                                     window=window, sinks=sk, **kw)
-        want = ragged_attention_ref(q, kc, vc, bt, rows3, block_size=16,
-                                    window=window, sinks=sk, **kw)
-        torch.testing.assert_close(got[:t].float(), want[:t].float(),
-                                   atol=2e-2, rtol=2e-2)
+    for window, sk, cap in ((0, None, 0.0), (100, sinks, 0.0),
+                            (100, sinks, SOFTCAP)):
+        qc = q * Q_GAIN if cap else q
+        run = dict(block_size=16, window=window, sinks=sk, **kw)
+        want = ragged_attention_ref(qc, kc, vc, bt, rows3, softcap=cap,
+                                    **run)
+        check_capped(lambda c: ragged_paged_attention(
+            qc, kc, vc, bt, rows3, softcap=c, **run)[:t],
+            want[:t].float(), 2e-2, cap)
+        got = ragged_paged_attention(qc, kc, vc, bt, rows3, softcap=cap,
+                                     **run)
         assert not got[0].float().any()  # the row that sees no key: zeros
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("G", [1, 4, 8, 16])
 def test_flash_prefill_tile_edges_on_card(G, hd):
     """Flash prefill in bf16 with S = 45 tokens (not a multiple of any query
@@ -381,11 +428,15 @@ def test_flash_prefill_tile_edges_on_card(G, hd):
         kl = torch.tensor(kv_lens, dtype=torch.int32).cuda()
         sinks = torch.from_numpy(rng.standard_normal(H).astype(
             np.float32)).cuda()
-        for kw in ({}, {"sliding_window": 100, "sinks": sinks}):
-            got = flash_prefill(q, k, v, pb, kl, **kw)
-            want = flash_prefill_ref(q, k, v, pb, kl, **kw)
-            torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
-                                       rtol=2e-2)
+        for kw, cap in (({}, 0.0),
+                        ({"sliding_window": 100, "sinks": sinks}, 0.0),
+                        ({"sliding_window": 100, "sinks": sinks}, SOFTCAP)):
+            qc = q * Q_GAIN if cap else q
+            want = flash_prefill_ref(qc, k, v, pb, kl, softcap=cap, **kw)
+            check_capped(lambda c: flash_prefill(qc, k, v, pb, kl,
+                                                 softcap=c, **kw),
+                         want.float(), 2e-2, cap)
+            got = flash_prefill(qc, k, v, pb, kl, softcap=cap, **kw)
         if B == 4:
             assert not got[2].float().any()  # kv_len 0: zeros
 

@@ -12,7 +12,10 @@ transformers.
   both checkpoints;
 - the port engine's greedy tokens on the Llama fixture equal to
   transformers' greedy ``generate`` (the twin of
-  ``tests/test_real_checkpoint.py:49``).
+  ``tests/test_real_checkpoint.py:49``), and on the DeepSeek-V2 YaRN
+  checkpoint (MLA, MoE, mscale, the de-interleaved rope).
+
+The dense families' checkpoints are ``tests/test_torch_hf_families.py``'s.
 """
 
 import dataclasses
@@ -258,4 +261,33 @@ async def test_engine_greedy_matches_hf(llama_ckpt):
         got.extend(o.token_ids)
     await eng.close()
     assert eng.pipelined_steps > 0
+    assert got == expected
+
+
+async def test_engine_greedy_matches_hf_deepseek_yarn(deepseek_ckpt):
+    """A10's check: the MLA + MoE checkpoint with YaRN rope scaling (mscale
+    into the softmax scale, the rope de-interleaved at load) through the
+    port's loader and engine, greedy tokens equal to transformers'."""
+    prompt = [int(t) for t in np.random.default_rng(3).integers(1, 128, 12)]
+    n_new = 8
+    hf = transformers.AutoModelForCausalLM.from_pretrained(
+        deepseek_ckpt, attn_implementation="eager").eval()
+    with torch.no_grad():
+        out = hf.generate(torch.tensor([prompt]), max_new_tokens=n_new,
+                          do_sample=False, eos_token_id=None, pad_token_id=0)
+    expected = out[0, len(prompt):].tolist()
+
+    cfg, params = loader.load_model(deepseek_ckpt, "cpu", torch.float32)
+    cfg.dtype = "float32"
+    eng = AsyncTorchEngine(
+        cfg, EngineArgs(block_size=4, num_blocks=64, max_num_seqs=2,
+                        max_num_batched_tokens=32, max_model_len=64),
+        params=params, device="cpu")
+    got = []
+    async for o in eng.generate(PreprocessedRequest(
+            model="tiny", token_ids=prompt,
+            stop_conditions=StopConditions(max_tokens=n_new,
+                                           ignore_eos=True))):
+        got.extend(o.token_ids)
+    await eng.close()
     assert got == expected

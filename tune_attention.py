@@ -3,7 +3,8 @@
 
     python3 tune_attention.py [--family gqa|mla|all] [--variant NAME]...
                               [--seed N]
-    python3 tune_attention.py --compare DIR [DIR ...] [--seed N]
+    python3 tune_attention.py --compare DIR [DIR ...] [--family gqa|mla]
+                              [--seed N]
 
 The first form builds the kernels of a family once for each variant below,
 from copies of ``dynamo_tpu_torch/ops/csrc`` in the ignored
@@ -44,11 +45,15 @@ The default build is held against the plain versions with
 beside it); the ablated ones are only timed. The card's name and power
 limit come first.
 
-``--compare`` times the main MLA cases (B3m grid and dense, B5, B5b) in
-each checkout DIR in turn, each in its own process with that checkout's
-``chip_smoke.py`` and kernels, and prints one line per run and a table:
-give a parent and a change as ``parent change change parent`` to compare
-them on one card.
+``--compare`` times the main cases of a family in each checkout DIR in
+turn, each in its own process with that checkout's ``chip_smoke.py`` and
+kernels, and prints one line per run and a table: give a parent and a
+change as ``parent change change parent`` to compare them on one card.
+The MLA cases (the default, or ``--family mla``): B3m grid and dense, B5,
+B5b; the GQA cases (``--family gqa``): the Llama-3-8B embeddings (B3), the
+mixed case on bf16 and int8 pages (B1, B2) and eight decode rows, all
+uncapped at hd 128, each kernel timed alone (no check, no yardstick: an
+older checkout's yardstick builds a cuDNN plan a shape).
 """
 
 from __future__ import annotations
@@ -210,7 +215,8 @@ def run_case(kind: str, label: str, case, checked: bool, iters: int) -> str:
         check = {"flash": cs.check_flash, "ragged": cs.check_ragged,
                  "mla_prefill": cs.check_mla_prefill,
                  "mla": cs.check_mla}[kind]
-        r = check(label, case, iters=iters)
+        kw = {"yardstick": True} if kind in ("flash", "ragged") else {}
+        r = check(label, case, iters=iters, **kw)
         lib = r["library_ms"]
         return (f"{label} {r['ms']:.4f}"
                 + (f" (SDPA {lib:.4f})" if lib is not None else ""))
@@ -234,7 +240,7 @@ def run_case(kind: str, label: str, case, checked: bool, iters: int) -> str:
 #: run in each checkout of ``--compare`` (its own chip_smoke and kernels):
 #: the main MLA cases through that checkout's check functions, one JSON
 #: line of kernel times
-COMPARE = r"""
+COMPARE_MLA = r"""
 import json, sys
 import torch
 import chip_smoke as cs
@@ -257,15 +263,56 @@ res = {
 print("COMPARE " + json.dumps({k: [v["ms"], v["library_ms"]]
                                for k, v in res.items()}), flush=True)
 """
+#: the GQA family's main cases (the Llama-3-8B geometry, no softcap), each
+#: kernel timed alone through that checkout's wrappers (the checks and the
+#: yardstick stay with chip_smoke's kernel phase); the same JSON line
+COMPARE_GQA = r"""
+import json, sys
+import numpy as np
+import torch
+import chip_smoke as cs
+from dynamo_tpu_torch.ops.flash_prefill import flash_prefill
+from dynamo_tpu_torch.ops.ragged_attention import ragged_paged_attention
+seed = json.loads(sys.argv[1])[0]
+cs.device_phase()
+rng = np.random.default_rng(seed)
+lens = [2048] + [int(x) for x in rng.integers(100, 2049, 7)]
+emb = cs.make_dense(8, 2048, 2048, 32, 8, 128, torch.bfloat16, [0] * 8,
+                    lens, seed + 5)
+geo = dict(H=32, KV=8, hd=128, bs=16, dtype=torch.bfloat16)
+llama = cs.make_case([(1, 1000), (1, 3000), (512, 512), (128, 2048)],
+                     pad_rows=4, pad_tokens=6, seed=seed + 2, **geo)
+dec = cs.make_case([(1, int(k)) for k in rng.integers(65, 1057, 8)],
+                   pad_rows=0, pad_tokens=0, seed=seed + 3, **geo)
 
 
-def compare(dirs, seed: int) -> int:
+def ragged(case):
+    kw = (dict(k_scales=case["ks"], v_scales=case["vs"],
+               scale_slot_base=case["base"]) if "ks" in case else {})
+    args = (case["q"], case["kc"], case["vc"], case["bt"], case["rows3"])
+    return lambda: ragged_paged_attention(*args, block_size=16, **kw)
+
+
+res = {
+    "B3 embed 8 x 2048": cs.time_ms(lambda: flash_prefill(
+        emb["q"], emb["k"], emb["v"], emb["pos_base"], emb["kv_lens"]), 20),
+    "B1 mixed bf16": cs.time_ms(ragged(llama), 50),
+    "B2 mixed int8": cs.time_ms(ragged(cs.int8_case(llama)), 50),
+    "B1 8 decode rows": cs.time_ms(ragged(dec), 50),
+}
+print("COMPARE " + json.dumps({k: [v, float("nan")] for k, v in res.items()}),
+      flush=True)
+"""
+
+
+def compare(dirs, seed: int, family: str = "mla") -> int:
     smi, _ = cs.device_phase()
     arg = json.dumps([seed, cs.mla_decode_kvs(seed), MLA_CHUNKS])
+    script = COMPARE_GQA if family == "gqa" else COMPARE_MLA
     runs = []
     for d in dirs:
         d = os.path.abspath(d)
-        p = subprocess.run([sys.executable, "-c", COMPARE, arg], cwd=d,
+        p = subprocess.run([sys.executable, "-c", script, arg], cwd=d,
                            env=dict(os.environ, PYTHONPATH=d),
                            capture_output=True, text=True)
         sys.stdout.write(p.stdout)
@@ -276,10 +323,12 @@ def compare(dirs, seed: int) -> int:
                 if x.startswith("COMPARE ")][-1]
         runs.append((d, json.loads(line[len("COMPARE "):])))
     print(f"[{smi}] kernel ms by checkout, in run order "
-          f"(SDPA of the last run in parentheses):")
+          f"(SDPA of the last run in parentheses, where timed):")
     for case in runs[0][1]:
         times = " / ".join(f"{r[case][0]:.4f}" for _, r in runs)
-        print(f"  {case}: {times} ({runs[-1][1][case][1]:.4f})")
+        sdpa = runs[-1][1][case][1]
+        print(f"  {case}: {times}"
+              + ("" if sdpa != sdpa else f" ({sdpa:.4f})"))
     print("  checkouts: " + ", ".join(os.path.basename(d) for d, _ in runs))
     return 0
 
@@ -295,7 +344,8 @@ def main() -> int:
                          "(repeatable)")
     a = ap.parse_args()
     if a.compare:
-        return compare(a.compare, a.seed)
+        return compare(a.compare, a.seed,
+                       "gqa" if a.family == "gqa" else "mla")
     families = ("gqa", "mla") if a.family == "all" else (a.family,)
     smi, _ = cs.device_phase()
     libs = build_all([n for f in families for n in NAMES[f]], families,
