@@ -59,7 +59,19 @@ prints any result:
      answers (``SAMPLE_KNOWN``: the plain version's threefry words and
      uniforms, the kernel's tokens of an [8, 128256] draw), then the
      kernel against its plain version on [8, 128256] logits with the
-     top-k/top-p cuts of a mixed batch: the tokens must be equal.
+     top-k/top-p cuts of a mixed batch: the tokens must be equal;
+   - the dequant-GEMM (no TPU kernel behind it: XLA fuses the JAX
+     package's dequant chain into the dot), ``qmm_kernel_phase``:
+     ``quantize`` on the card bit-equal to the CPU's; every format
+     (int8, int8-g128, int4-g32, int4-g128, int8-g128 with a zero point)
+     at M 8 and 2048 on the Llama-3-8B (4096->4096, 4096->1024,
+     4096->14336, 14336->4096, the 4096->128256 head) and Llama-3-70B
+     (8192->8192, 8192->28672, 28672->8192) shapes, each row within
+     ``ROW_RTOL`` of its largest |value|; int8 and int4-g32 timed beside
+     the plain version, their bound and the yardstick (``torch.matmul`` of
+     x with the weight already in bf16, 2-4x the bytes); DeepSeek-V2-Lite's
+     expert stack (64 x 2048->1408, x shared and per expert); the edges
+     (M 1, 13, 37, 100; O 1000; g16).
 3. Serving: ``AsyncTorchEngine`` with the llama3_8b preset at full width
    and depth on random weights from a seeded generator, ``warmup()``
    first (every token bucket's steps and the greedy sampler captured, so
@@ -241,8 +253,26 @@ prints any result:
    seeded noise) at full width and 2 layers: the captured step bit-equal
    to the eager one, and a full-width step through the kernel against the
    plain attention.
-The full-width steps of phases 11 and 12 hold the argmax up to the bf16
-tie rule of the S == 1 step (``check_logits``); the earlier ones strictly.
+13. Quantized weights (ROADMAP A5), the earlier engines released:
+   a. Llama-3-8B at full width in int8, int8-g128 and int4-g32, drawn and
+      quantized on the card from the serving seed: the dequant-GEMM 225
+      times a step (7 a layer and the head) in an eager 2048-token
+      prefill and an 8-row decode step, whose transient bytes must stay
+      within 1.05x the bf16 step's plus the kernel's workspace while the
+      same steps through ``quant_matmul_ref`` break that bound by more
+      than w_gate's bf16 size; a full-width step through the kernel
+      against the same step through ``quant_matmul_ref``; the captured
+      step bit-equal to the eager one; the int4-g32 step profile.
+   b. Llama-3-70B at full width and depth (80 layers, 69.50 B quantized
+      parameters) in int4-g32 with int8 KV on one card, drawn and
+      quantized matrix by matrix on the card (about 45.5 GB resident):
+      ``warmup()``, the eight requests of phase 3 on both loops (equal
+      streams; the dequant-GEMM 561 launches a step, the ragged kernel
+      80), the decode step wall beside its weight-read bound, a
+      full-width step through the kernel against the plain version, the
+      step profile.
+The full-width steps of phases 11-13 hold the argmax up to the bf16 tie
+rule of the S == 1 step (``check_logits``); the earlier ones strictly.
 No earlier path was cut for time: the GQA kernels' secondary cases no
 longer time the SDPA yardstick, whose cuDNN kernel builds (one a shape)
 had taken most of the kernel phase's wall.
@@ -288,6 +318,9 @@ from dynamo_tpu_torch.engine.model import (
     lm_logits, make_embed_fn, make_forward_fn, make_ragged_step_fn,
     mla_attention_seg,
 )
+from dynamo_tpu_torch.engine.quant import (
+    is_qtensor, materialize, parse_spec, quantize,
+)
 from dynamo_tpu_torch.engine.scheduler import PrefillWork, SeqState, StepPlan
 from dynamo_tpu_torch.models import get_model_config
 from dynamo_tpu_torch.ops import _build
@@ -301,6 +334,10 @@ from dynamo_tpu_torch.ops.mla_decode import (
 )
 from dynamo_tpu_torch.ops.paged_attention import (
     paged_attention_decode, paged_attention_decode_ref,
+)
+from dynamo_tpu_torch.ops.qmm import (
+    ROW_RTOL, quant_matmul, quant_matmul_ref, resident_slots,
+    workspace_bytes,
 )
 from dynamo_tpu_torch.ops.ragged_attention import (
     ragged_attention_ref, ragged_paged_attention,
@@ -443,6 +480,17 @@ KERNELS = [{
     "replaces": "dynamo_tpu/ops/paged_attention.py:48",
     "build": "ragged_attention",
     "wrapper": paged_attention_decode,
+}, {
+    # no TPU kernel stands behind the dequant-GEMM: XLA fuses the JAX
+    # package's dequant chain (materialize) into the dot's operand read.
+    # Its main case: Llama-3-70B's w_gate at decode M in int4-g32; its
+    # launches: phase 13b's serving run
+    "name": "quant_matmul",
+    "route": "cuda",
+    "source": "dynamo_tpu_torch/ops/csrc/qmm.cu",
+    "replaces": "dynamo_tpu/engine/quant.py:107",
+    "build": "qmm",
+    "wrapper": quant_matmul,
 }]
 
 #: jax.random's answers (jax 0.9.0, threefry2x32, jax_threefry_partitionable)
@@ -1851,7 +1899,7 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
                   solo: bool = False, extra=None,
                   compare_eager: bool = False, warmup: bool = False,
                   spec_k: int = 0, cfg=None, max_model_len: int = 4096,
-                  prompts=None):
+                  prompts=None, quantization=None, kv_fraction: float = 0.6):
     """Eight concurrent greedy requests at full width (on ``params``, or
     weights drawn from ``seed``); returns the engine, its attention
     kernels' launches in the run by wrapper name, the streams, and what
@@ -1869,21 +1917,29 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     staging buffer and verify scratch sized for it) and sets it to 0 at
     once: :func:`spec_serving` switches it on. ``cfg`` (default: the
     preset ``model``), ``max_model_len`` and ``prompts`` (default:
-    :func:`serving_prompts`) serve another model or other requests."""
+    :func:`serving_prompts`) serve another model or other requests.
+    ``quantization`` draws the weights quantized on the card: the
+    dequant-GEMM must then launch once for each quantized weight of each
+    layer and for a quantized head every step. ``kv_fraction`` is the
+    pool's share of the memory left free after the weights."""
     cfg = cfg or get_model_config(model)
     args = EngineArgs(block_size=16, max_num_seqs=8,
                       max_num_batched_tokens=2048,
                       max_model_len=max_model_len,
                       seed=seed, kv_cache_dtype=kv_cache_dtype,
-                      speculative_tokens=spec_k)
-    label = f"{model}, {kv_cache_dtype or cfg.dtype} KV"
+                      speculative_tokens=spec_k, quantization=quantization,
+                      kv_cache_memory_fraction=kv_fraction)
+    label = (f"{model}, {quantization + ' weights, ' if quantization else ''}"
+             f"{kv_cache_dtype or cfg.dtype} KV")
     t0 = time.perf_counter()
     events = []
     engine = AsyncTorchEngine(cfg, args, params=params,
                               event_cb=events.append)
     args.speculative_tokens = 0
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(engine.params))
+    n_params, qbytes, _ = weight_stats(engine.params)
+    resident = sum(t.numel() * t.element_size()
+                   for t in _leaves(engine.params))
     block_bytes = kv_block_bytes(cfg, args.block_size, engine.dtype,
                                  kv_cache_dtype)
     (kh, kd), (vh, vd) = cfg.kv_cache_spec
@@ -1894,8 +1950,11 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
              if cfg.is_mla else f"KV{cfg.num_kv_heads} hd{cfg.head_dim}")
     log(f"serving phase ({label}): V{cfg.vocab_size} D{cfg.hidden_size} "
         f"F{cfg.intermediate_size} L{cfg.num_layers} H{cfg.num_heads} "
-        f"{shape} {cfg.dtype}: {n_params * 2 / 1e9:.2f} GB of random "
-        f"weights ({n_params / 1e9:.2f} B parameters), "
+        f"{shape} {cfg.dtype}: {resident / 1e9:.2f} GB of random "
+        f"weights ({n_params / 1e9:.2f} B parameters"
+        + (f"; {qbytes / 1e9:.2f} GB of them quantized q and s"
+           if quantization else "")
+        + f"; {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), "
         f"{engine.num_blocks} KV blocks of {block_bytes} bytes "
         f"([{kh}, {kd}] + [{vh}, {vd}] a slot a layer; "
         f"{engine.num_blocks * block_bytes / 1e9:.2f} GB, "
@@ -1928,6 +1987,8 @@ def serving_phase(seed: int, smi: str, kv_cache_dtype=None,
     want = ({mla_paged_decode: L * steps,
              flash_mla_prefill_paged: L * chunk_steps} if cfg.is_mla
             else {ragged_paged_attention: L * steps})
+    if quantization:
+        want[quant_matmul] = quant_calls(engine.params) * steps
     launches = {w.__name__: out["launches"][w] for w in want}
     other = {k["name"]: out["launches"][k["wrapper"]] for k in KERNELS
              if k["wrapper"] not in want}
@@ -2765,7 +2826,7 @@ def _leaves(tree):
 
 
 def full_width_step(engine, model: str, seed: int, decode_kv: int = 701,
-                    ties: bool = False) -> float:
+                    ties: bool = False, plain_fn=None) -> float:
     """One mixed ragged step at full width, kernel vs plain attention, on
     the serving engine's weights and cache (fresh blocks): a decode row at
     kv ``decode_kv`` (its context written by earlier steps of at most 2048
@@ -2773,7 +2834,9 @@ def full_width_step(engine, model: str, seed: int, decode_kv: int = 701,
     final logit softcap every logit must lie within it (random weights
     keep the logits far inside a cap of 30, so the log says how far;
     :func:`final_cap_check` holds the cap where it bends). ``ties``: the
-    argmax is held up to :func:`check_logits`' bf16 tie rule."""
+    argmax is held up to :func:`check_logits`' bf16 tie rule. ``plain_fn``
+    replaces the plain step (the default: the same step through the plain
+    attention)."""
     cfg, bs = engine.cfg, engine.args.block_size
     rng = np.random.default_rng(seed + 7)
 
@@ -2793,10 +2856,11 @@ def full_width_step(engine, model: str, seed: int, decode_kv: int = 701,
         return logits
 
     kernel_fn = engine.step_fn
-    plain_fn = (make_ragged_step_fn(cfg, bs, attention=mla_paged_decode_ref,
-                                    chunk_attention=mla_attention_seg)
-                if cfg.is_mla else
-                make_ragged_step_fn(cfg, bs, attention=ragged_attention_ref))
+    plain_fn = plain_fn or (
+        make_ragged_step_fn(cfg, bs, attention=mla_paged_decode_ref,
+                            chunk_attention=mla_attention_seg)
+        if cfg.is_mla else
+        make_ragged_step_fn(cfg, bs, attention=ragged_attention_ref))
     # context for the step under test
     if decode_kv <= 2048:
         run(StepPlan(prefill=[PrefillWork(a, 0, decode_kv - 1, False),
@@ -4357,6 +4421,374 @@ def block_copy_check(engine, label: str, smi: str, n: int = 56) -> dict:
     return res
 
 
+# ------------------------------------------------------------ dequant-GEMM
+
+#: the matmul weights of a Llama-3-8B and a Llama-3-70B layer and head,
+#: (label, I, O)
+QMM_SHAPES = [("llama3_8b wq/wo", 4096, 4096),
+              ("llama3_8b wk/wv", 4096, 1024),
+              ("llama3_8b w_gate/w_up", 4096, 14336),
+              ("llama3_8b w_down", 14336, 4096),
+              ("llama3_8b lm_head", 4096, 128256),
+              ("llama3_70b wq/wo", 8192, 8192),
+              ("llama3_70b w_gate/w_up", 8192, 28672),
+              ("llama3_70b w_down", 28672, 8192)]
+#: (spec, zero point): every format of the kernel's main path, and one
+#: affine (zero-point) case
+QMM_FORMATS = [("int8", False), ("int8-g128", False), ("int4-g32", False),
+               ("int4-g128", False), ("int8-g128", True)]
+#: the formats whose cases are timed (the rest are checked)
+QMM_TIMED = ("int8", "int4-g32")
+
+
+def qmm_weight(spec: str, lead, I: int, O: int, z: bool, seed: int):
+    """(the quantized weight, its bf16 materialization) of a seeded random
+    [lead..., I, O] weight, drawn and quantized on the card."""
+    bits, group = parse_spec(spec)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = (torch.randn((*lead, I, O), generator=g, device="cuda")
+         / math.sqrt(I)).to(torch.bfloat16)
+    qt = quantize(w, bits, group)
+    del w
+    if z:
+        qt["z"] = 0.01 * torch.rand(qt["s"].shape, generator=g,
+                                    device="cuda")
+    return qt
+
+
+def qmm_bound(qt, M: int, I: int, O: int, batch: int = 1,
+              x_batched: bool = False) -> tuple[float, str]:
+    """The least time: every byte of the weight (q, s, z), x and the bf16
+    output moved once, or 2·M·I·O bf16 operations a batch entry."""
+    wbytes = sum(t.numel() * t.element_size() for t in qt.values())
+    nbytes = (wbytes + 2 * M * I * (batch if x_batched else 1)
+              + 2 * batch * M * O)
+    return bound_of(nbytes, 2.0 * batch * M * I * O, torch.bfloat16)
+
+
+def qmm_case(label, qt, x, timed: bool, iters: int = 20):
+    """The kernel against its plain version (each row within ROW_RTOL of
+    its largest |value|: per-channel where the kernel scales the output),
+    timed beside its bound, the plain version and the yardstick
+    (``torch.matmul`` of x with the weight already in bf16: 2-4x the
+    bytes, a call the port never makes) when ``timed``."""
+    I, O, M = x.shape[-1], qt["q"].shape[-1], x.shape[-2]
+    batch = qt["q"].shape[0] if qt["q"].dim() == 3 else 1
+    per_channel = (batch == 1 and qt["s"].shape[-2] == 1 and "z" not in qt)
+    tol = ROW_RTOL["per_channel" if per_channel else "grouped"]
+    if not timed:
+        got = quant_matmul(x, qt)
+        want = quant_matmul_ref(x, qt)
+        worst = row_close(got.float().flatten(0, -2),
+                          want.float().flatten(0, -2), tol, label)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        log(f"  {label}: worst row {worst:.3e} (row rtol {tol})")
+        return None
+    wb = materialize(qt, torch.bfloat16)
+    res = measure(label, lambda: quant_matmul(x, qt),
+                  lambda: quant_matmul_ref(x, qt),
+                  lambda: torch.matmul(x, wb),
+                  qmm_bound(qt, M, I, O, batch, x.dim() == 3), None,
+                  pick=lambda o: o.flatten(0, -2), iters=iters,
+                  row_rtol=tol)
+    del wb
+    return res
+
+
+def qmm_kernel_phase(seed: int) -> dict:
+    """The dequant-GEMM against its plain version on the card: every format
+    at M 8 and 2048 on the Llama-3-8B and Llama-3-70B shapes (int8 and
+    int4-g32 timed), DeepSeek-V2-Lite's expert stack (64 x 2048 -> 1408,
+    x shared and per expert), and the edges (M not a multiple of the tile,
+    O not a multiple of 128 or 16, g16); ``quantize`` on the card bit-equal
+    to the CPU's."""
+    log("kernel phase: quant_matmul vs quant_matmul_ref")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    main = {}
+    g = torch.Generator(device="cuda").manual_seed(seed + 97)
+    w = (torch.randn((4096, 1024), generator=g, device="cuda")
+         * torch.rand((1024,), generator=g, device="cuda")).to(torch.bfloat16)
+    for spec in ("int8", "int8-g128", "int4-g32"):
+        got, want = quantize(w, *parse_spec(spec)), quantize(
+            w.cpu(), *parse_spec(spec))
+        if not all(torch.equal(got[k].cpu(), want[k]) for k in ("q", "s")):
+            raise AssertionError(f"quantize {spec}: the card's q or s "
+                                 f"differ from the CPU's")
+    log("  quantize on the card: q and s bit-equal to the CPU's for int8, "
+        "int8-g128 and int4-g32 ([4096, 1024] bf16)")
+    xs = {M: torch.randn((M, 28672), generator=g, device="cuda").to(
+        torch.bfloat16) for M in (8, 2048)}
+    for label, I, O in QMM_SHAPES:
+        for spec, z in QMM_FORMATS:
+            qt = qmm_weight(spec, (), I, O, z, seed + I + O)
+            for M in (8, 2048):
+                x = xs[M][:, :I].contiguous()
+                timed = spec in QMM_TIMED and not z
+                name = f"{label} {I}->{O} M={M} {spec}{'+z' if z else ''}"
+                res = qmm_case(name, qt, x, timed)
+                if (label, M, spec) == ("llama3_70b w_gate/w_up", 8,
+                                        "int4-g32"):
+                    main["quant_matmul"] = res
+            del qt
+    # DeepSeek-V2-Lite's routed experts: x shared (the gate and up stacks)
+    # and one x an expert (the down stack's input shape)
+    for spec in ("int8", "int4-g32"):
+        qt = qmm_weight(spec, (64,), 2048, 1408, False, seed + 5)
+        x = xs[8][:, :2048].contiguous()
+        qmm_case(f"deepseek_v2_lite experts 64 x 2048->1408 shared x M=8 "
+                 f"{spec}", qt, x, True)
+        xe = torch.randn((64, 8, 2048), generator=g, device="cuda").to(
+            torch.bfloat16)
+        qmm_case(f"deepseek_v2_lite experts 64 x 2048->1408 per-expert x "
+                 f"M=8 {spec}", qt, xe, False)
+        del qt
+    # edges: M not a multiple of 16 or 64, O not a multiple of 128 (1000:
+    # nor of 16, the 8-byte loads), g16 (five scale rows a 64-row step)
+    for spec, z in (("int8", False), ("int8-g16", False), ("int4-g16", True),
+                    ("int4-g32", False)):
+        qt = qmm_weight(spec, (), 4096, 1000, z, seed + 11)
+        for M in (1, 13, 37, 100):
+            qmm_case(f"edges 4096->1000 M={M} {spec}{'+z' if z else ''}",
+                     qt, xs[2048][:M, :4096].contiguous(), False)
+    return main
+
+
+def _qtensors(tree):
+    for v in tree.values():
+        if is_qtensor(v):
+            yield v
+        elif isinstance(v, dict):
+            yield from _qtensors(v)
+
+
+def weight_stats(params) -> tuple[int, int, int]:
+    """(the model's parameters, the bytes of its quantized weights' q, s
+    and z, the same weights' bytes in bf16); a packed int4 byte holds two
+    parameters."""
+    n = sum(t.numel() for t in _leaves(params))
+    qbytes = wide = 0
+    for v in _qtensors(params):
+        k = v["q"].numel() * (2 if v["q"].dtype == torch.uint8 else 1)
+        n += k - v["q"].numel() - sum(v[f].numel() for f in ("s", "z")
+                                       if f in v)
+        qbytes += sum(t.numel() * t.element_size() for t in v.values())
+        wide += 2 * k
+    return n, qbytes, wide
+
+
+def quant_calls(params) -> int:
+    """The dequant-GEMM calls of one forward step: one for each quantized
+    weight of each layer, and the head's."""
+    n = 0
+    for key in ("layers", "dense_layers"):
+        for v in params.get(key, {}).values():
+            if is_qtensor(v):
+                n += v["q"].shape[0]
+    return n + int(is_qtensor(params.get("lm_head")))
+
+
+# ------------------------------------------------------------ phase 13a
+
+#: the Llama-3-8B formats of phase 13a
+QUANT_8B_SPECS = ("int8", "int8-g128", "int4-g32")
+#: the quantized step's transient bytes may exceed the bf16 step's by this
+#: share (plus the dequant-GEMM's workspace)
+TRANSIENT_SLACK = 1.05
+
+
+def step_plan(engine, kind: str, seed: int):
+    """(tensors, seqs) of an eager step on fresh blocks: "prefill", one
+    2048-token prefill; "decode", 8 decode rows at kv 900-1100."""
+    cfg, bs = engine.cfg, engine.args.block_size
+    rng = np.random.default_rng(seed + 53)
+    seqs = []
+
+    def seq(n, computed):
+        s = SeqState(request_id="mem", req=None, ctx=None, sink=None)
+        s.tokens = list(map(int, rng.integers(0, cfg.vocab_size, n)))
+        s.block_table = engine.pool.allocate(-(-n // bs))
+        s.num_computed = computed
+        seqs.append(s)
+        return s
+
+    plan = (StepPlan(prefill=[PrefillWork(seq(2048, 0), 0, 2048, True)])
+            if kind == "prefill" else
+            StepPlan(decode=[seq(int(n), int(n) - 1)
+                             for n in rng.integers(900, 1100, 8)]))
+    ops, _ = engine.pack(plan)
+    tensors = [torch.from_numpy(x).to(engine.device) for x in ops]
+    if kind == "decode":
+        tensors[2] = None
+    return tensors, seqs
+
+
+def step_transient(engine, fn, tensors) -> int:
+    """Peak bytes a step allocates beyond what was allocated before it
+    (``max_memory_allocated`` after a peak reset), after a run that warms
+    the allocator and the libraries' workspaces."""
+    def run():
+        return fn(engine.params, *tensors, engine.k_cache, engine.v_cache)[0]
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def step_workspace(cfg, M: int, R: int) -> int:
+    """The largest workspace one dequant-GEMM call of a step allocates: the
+    layers' projections at M tokens, the head at R rows."""
+    D, F, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    shapes = [(M, D, cfg.num_heads * hd), (M, D, cfg.num_kv_heads * hd),
+              (M, cfg.num_heads * hd, D), (M, D, F), (M, F, D),
+              (R, D, cfg.vocab_size)]
+    return max(workspace_bytes(m, i, o, 1, resident_slots(m))
+               for m, i, o in shapes)
+
+
+def quant_llama_phase(seed: int, smi: str) -> dict:
+    """Phase 13a: Llama-3-8B at full width with quantized weights (int8,
+    int8-g128, int4-g32, drawn and quantized on the card from the serving
+    seed): the dequant-GEMM launched 7 times a layer plus the head (225) in
+    each step, a full-width step through the kernel against the same step
+    through ``quant_matmul_ref``, the captured step bit-equal to the eager
+    one, and the transient bytes of an eager 2048-token prefill and an
+    8-row decode step within 1.05x the bf16 step's plus the workspace,
+    which the same steps through the plain version must break by at least
+    the bf16 size of w_gate. Returns the kernel's launches in the checked
+    steps."""
+    cfg = get_model_config("llama3_8b")
+
+    def args(q):
+        return EngineArgs(block_size=16, num_blocks=2048, max_num_seqs=8,
+                          max_num_batched_tokens=2048, max_model_len=4096,
+                          seed=seed, quantization=q)
+
+    engine = AsyncTorchEngine(cfg, args(None))
+    bf16 = {}
+    for kind in ("prefill", "decode"):
+        tensors, seqs = step_plan(engine, kind, seed)
+        bf16[kind] = step_transient(engine, engine.step_fn, tensors)
+        for s in seqs:
+            engine.pool.release(s.block_table)
+    _release(engine)
+    del engine
+    log(f"phase 13a, llama3_8b: bf16 step transient bytes: prefill 2048 "
+        f"{bf16['prefill'] / 1e6:.1f} MB, decode 8 rows "
+        f"{bf16['decode'] / 1e6:.1f} MB")
+    w_gate = cfg.hidden_size * cfg.intermediate_size * 2
+    launches = 0
+    for spec in QUANT_8B_SPECS:
+        t0 = time.perf_counter()
+        engine = AsyncTorchEngine(cfg, args(spec))
+        torch.cuda.synchronize()
+        n, qbytes, wide = weight_stats(engine.params)
+        log(f"  [{smi}] llama3_8b {spec}: {n / 1e9:.2f} B parameters, "
+            f"{qbytes / 1e9:.3f} GB of quantized matmul weights (q and s; "
+            f"{wide / 1e9:.3f} GB in bf16), drawn and quantized on the card "
+            f"in {time.perf_counter() - t0:.1f} s")
+        label = f"llama3_8b {spec}"
+        per_step = quant_calls(engine.params)
+        if per_step != 7 * cfg.num_layers + 1:
+            raise AssertionError(f"{label}: {per_step} quantized matmuls a "
+                                 f"step, want 7 a layer and the head")
+        plain = make_ragged_step_fn(cfg, engine.args.block_size,
+                                    matmul=quant_matmul_ref)
+        for kind in ("prefill", "decode"):
+            tensors, seqs = step_plan(engine, kind, seed)
+            quant_matmul.launches = 0
+            got = step_transient(engine, engine.step_fn, tensors)
+            n = quant_matmul.launches
+            if n != 2 * per_step:
+                raise AssertionError(f"{label} {kind}: the dequant-GEMM "
+                                     f"launched {n} times in 2 steps, want "
+                                     f"{2 * per_step}")
+            launches += n
+            T = tensors[0].shape[1]
+            R = tensors[1].shape[0]
+            ws = step_workspace(cfg, T, R)
+            bound = TRANSIENT_SLACK * bf16[kind] + ws
+            ref = step_transient(engine, plain, tensors)
+            for s in seqs:
+                engine.pool.release(s.block_table)
+            log(f"  [{smi}] {label} eager {kind} step (T {T}, {R} rows): "
+                f"transient {got / 1e6:.1f} MB <= bound {bound / 1e6:.1f} MB "
+                f"(1.05 x bf16 {bf16[kind] / 1e6:.1f} MB + workspace "
+                f"{ws / 1e6:.2f} MB); the plain version {ref / 1e6:.1f} MB, "
+                f"{(ref - bound) / 1e6:.1f} MB past it (w_gate in bf16: "
+                f"{w_gate / 1e6:.1f} MB); {n // 2} launches a step")
+            if got > bound:
+                raise AssertionError(f"{label} {kind}: transient {got} "
+                                     f"bytes past {bound}: a full-width "
+                                     f"copy?")
+            if ref - bound < w_gate:
+                raise AssertionError(f"{label} {kind}: the plain version's "
+                                     f"{ref} bytes do not break {bound} by "
+                                     f"{w_gate}: the check cannot fail")
+        quant_matmul.launches = 0
+        full_width_step(engine, label, seed, ties=True, plain_fn=plain)
+        # the context step and the step under test (the plain run counts
+        # none)
+        if quant_matmul.launches != 2 * per_step:
+            raise AssertionError(f"{label}: full-width step launches "
+                                 f"{quant_matmul.launches}, want "
+                                 f"{2 * per_step}")
+        launches += quant_matmul.launches
+        graph_step_check(engine, label, seed)
+        if spec == "int4-g32":
+            step_profile(engine, label, seed)
+        _release(engine)
+        del engine
+    return {"quant_matmul_8b": launches}
+
+
+# ------------------------------------------------------------ phase 13b
+
+#: the Llama-3-70B deployment of the JAX package's plan
+#: (benchmarks/plan_70b.py): int4-g32 weights, int8 KV
+LLAMA70B_QUANT = "int4-g32"
+#: the 70B pool's share of what is free after the weights: the rest holds
+#: the captured graphs' pool and the plain version's one dequantized
+#: weight at a time (the head: 2.1 GB in bf16, 4.2 GB in f32 on the way)
+LLAMA70B_KV_FRACTION = 0.5
+
+
+def llama70b_phase(seed: int, smi: str) -> dict:
+    """Phase 13b: Llama-3-70B at full width and depth (80 layers) on one
+    card, int4-g32 weights drawn and quantized matrix by matrix on the card,
+    int8 KV: ``warmup()``, the eight requests of phase 3 on both loops
+    (equal streams; the dequant-GEMM 561 launches a step, the ragged kernel
+    80), the decode step wall beside its weight-read bound, a full-width
+    step through the kernel against the plain version, the step profile.
+    Returns the kernel's launches in the serving run."""
+    cfg = get_model_config("llama3_70b")
+    engine, launches, streams, out = serving_phase(
+        seed, smi, kv_cache_dtype="int8", model="llama3_70b", cfg=cfg,
+        warmup=True, quantization=LLAMA70B_QUANT,
+        kv_fraction=LLAMA70B_KV_FRACTION)
+    _, qb, _ = weight_stats(engine.params)
+    bound_ms = qb / HBM_BYTES_PER_S * 1e3
+    st = out["stats"]
+    log(f"  [{smi}] llama3_70b {LLAMA70B_QUANT} + int8 KV: decode step wall "
+        f"{st['step_ms']:.3f} ms (pipelined) / "
+        f"{out['stats_serial']['step_ms']:.3f} ms (serial) beside its "
+        f"weight-read bound {bound_ms:.3f} ms ({qb / 1e9:.3f} GB of q and s "
+        f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); TTFT mean "
+        f"{st['ttft_mean']:.2f} ms, ITL mean {st['itl_mean']:.2f} ms, "
+        f"{st['tok_s']:.2f} tok/s")
+    plain = make_ragged_step_fn(cfg, engine.args.block_size,
+                                matmul=quant_matmul_ref)
+    full_width_step(engine, "llama3_70b", seed, ties=True, plain_fn=plain)
+    step_profile(engine, "llama3_70b", seed)
+    _release(engine)
+    return {"quant_matmul": launches["quant_matmul"]}
+
+
 def _release(engine) -> None:
     engine.drop_graphs()  # they hold the weights and caches
     engine.params = engine.k_cache = engine.v_cache = None
@@ -4379,6 +4811,8 @@ def main() -> int:
     mark("phases 1 (device, kernel build) and 2 (attention kernels)")
     main_case.update(sample_kernel_phase(a.seed))
     mark("phase 2 (the draw kernel)")
+    main_case.update(qmm_kernel_phase(a.seed))
+    mark("phase 2 (the dequant-GEMM)")
     gc.collect()
     torch.cuda.empty_cache()
     engine, served, streams, phase3 = serving_phase(
@@ -4431,6 +4865,10 @@ def main() -> int:
     mark("phase 11")
     family_checks(a.seed, smi)
     mark("phase 12")
+    quant_llama_phase(a.seed, smi)
+    mark("phase 13a")
+    launches.update(llama70b_phase(a.seed, smi))
+    mark("phase 13b")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for k in KERNELS:

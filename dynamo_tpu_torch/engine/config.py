@@ -268,6 +268,14 @@ class ModelConfig:
         )
 
     @staticmethod
+    def llama3_70b() -> "ModelConfig":
+        return ModelConfig(
+            vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+            num_layers=80, num_heads=64, num_kv_heads=8, rope_theta=500000.0,
+            max_position_embeddings=8192,
+        )
+
+    @staticmethod
     def llama3_1b() -> "ModelConfig":
         """Llama-3.2-1B shape."""
         return ModelConfig(
@@ -291,7 +299,6 @@ UNPORTED_KNOBS = {
     "kvbm_disk_bytes": (0, "A8e"),
     "preempt_swap": (False, "A8e"),
     "swap_host_bytes": (None, "A8e"),
-    "quantization": (None, "A5"),
 }
 
 
@@ -374,6 +381,10 @@ class EngineArgs:
     #: disables the governor
     spec_gain_window: int = 64
     spec_reprobe_steps: int = 4096
+    #: on-device weight quantization: "int8", "int8-gN" or "int4-gN"
+    #: (engine/quant.py); the matmul weights stay quantized on the card and
+    #: every product through them runs the dequant-GEMM (ops/qmm.py)
+    quantization: Optional[str] = None
     # knobs of the JAX package not ported yet (UNPORTED_KNOBS)
     tp_size: int = 1
     dp_size: int = 1
@@ -384,7 +395,6 @@ class EngineArgs:
     kvbm_disk_bytes: int = 0
     preempt_swap: bool = False
     swap_host_bytes: Optional[int] = None
-    quantization: Optional[str] = None
 
     def __post_init__(self):
         if self.speculative_method not in ("prompt_lookup", "draft_layers"):
@@ -406,6 +416,15 @@ class EngineArgs:
             raise ValueError(
                 f"kv_cache_dtype={self.kv_cache_dtype!r} not supported "
                 "(None/'auto' = model dtype, or 'int8')")
+        if self.quantization is not None:
+            # a field-named config error, not a traceback at weight load
+            from dynamo_tpu_torch.engine.quant import parse_spec
+            try:
+                parse_spec(self.quantization)
+            except ValueError as e:
+                raise ValueError(
+                    f"quantization={self.quantization!r} invalid: {e}"
+                ) from None
         if self.kv_event_per_chunk is None:
             self.kv_event_per_chunk = os.environ.get(
                 "DYN_KV_EVENT_PER_CHUNK", "").lower() not in ("", "0", "false")

@@ -107,10 +107,12 @@ from dynamo_tpu_torch.engine.config import (
 )
 from dynamo_tpu_torch.engine.graphs import GraphCache
 from dynamo_tpu_torch.engine.model import (
-    RAGGED_TILE, check_kernel_geometry, check_supported, f32_sinks,
-    init_params, make_draft_fn, make_embed_fn, make_multi_decode_fn,
-    make_ragged_step_fn, make_ragged_verify_fn, torch_dtype,
+    RAGGED_TILE, check_kernel_geometry, check_quant_geometry,
+    check_supported, f32_sinks, init_params, make_draft_fn, make_embed_fn,
+    make_multi_decode_fn, make_ragged_step_fn, make_ragged_verify_fn,
+    torch_dtype,
 )
+from dynamo_tpu_torch.engine.quant import quantize_params
 from dynamo_tpu_torch.engine.scheduler import Scheduler, SeqState, StepPlan
 from dynamo_tpu_torch.ops.block_copy import (
     blocks_digest, gather_blocks, scatter_blocks,
@@ -205,9 +207,21 @@ class AsyncTorchEngine:
         self._event_id = itertools.count()
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(args.seed)
-            params = init_params(cfg, gen, self.device)
+            params = init_params(cfg, gen, self.device, args.quantization)
+        elif args.quantization is not None:
+            # the JAX engine quantizes params handed in unquantized; here
+            # leaf by leaf and layer by layer on the device (quantized
+            # leaves pass through), and the engine keeps no original
+            params = quantize_params(params, args.quantization)
+        if self.device.type == "cuda":
+            check_quant_geometry(params, self.dtype)
         # sink logits in the kernels' f32, once (no step converts them)
         self.params = f32_sinks(params)
+        del params
+        if self.device.type == "cuda":
+            # the draw's and the quantizer's scratch, cached by the
+            # allocator, would otherwise count as used below
+            torch.cuda.empty_cache()
         # the pool takes its share of what is free once the weights are
         # resident
         kv_dtype = "int8" if args.kv_cache_dtype == "int8" else None

@@ -51,12 +51,14 @@ from dynamo_tpu_torch.ops.flash_prefill import (
 )
 from dynamo_tpu_torch.ops.mla_decode import mla_paged_decode
 from dynamo_tpu_torch.ops.paged_attention import paged_attention_decode
+from dynamo_tpu_torch.ops.qmm import quant_matmul
 from dynamo_tpu_torch.ops.ragged_attention import ragged_paged_attention
 from dynamo_tpu_torch.ops.sample import gumbel_argmax
 
 #: every kernel wrapper that counts its launches
 COUNTED = (ragged_paged_attention, flash_prefill, paged_attention_decode,
-           mla_paged_decode, flash_mla_prefill_paged, gumbel_argmax)
+           mla_paged_decode, flash_mla_prefill_paged, gumbel_argmax,
+           quant_matmul)
 
 
 class _Graph:

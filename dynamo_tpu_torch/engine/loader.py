@@ -12,8 +12,15 @@ Qwen3 and Qwen3-MoE's q/k norms, Gemma-1 and Gemma-2 with their (1 + w)
 norms folded in f32 and Gemma-2's four norms a layer; gpt-oss's attention
 biases and sinks) and DeepSeek V2/V3 (MLA + MoE with shared experts and a
 dense prefix; rope-interleaved checkpoints are de-interleaved once here so
-the runtime rope is plain half-split). gpt-oss experts, MXFP4 blocks and
-quantized checkpoints are refused (ROADMAP A9, A5).
+the runtime rope is plain half-split). gpt-oss experts and MXFP4 blocks are
+refused (ROADMAP A9), as is every other pre-quantized checkpoint, which the
+JAX loader reads none of either.
+
+``quantization`` ("int8", "int8-gN", "int4-gN": ``engine/quant.py``)
+quantizes each matmul weight as it comes off the file, one layer (and one
+expert) at a time, into stacked ``{"q", "s"}`` tensors: a bf16 checkpoint
+never sits whole on the card, and the result equals ``quantize_params`` of
+the unquantized load.
 
 The port reads safetensors itself (``read_safetensors``): the 8-byte
 little-endian header length, the JSON header, then each tensor as a view
@@ -36,6 +43,10 @@ import torch
 
 from dynamo_tpu_torch.engine.config import ModelConfig
 from dynamo_tpu_torch.engine.model import check_supported, torch_dtype
+from dynamo_tpu_torch.engine.quant import (
+    empty_qtensor, is_qtensor, leaf_group, parse_spec, quantize,
+    quantize_into,
+)
 
 logger = logging.getLogger("dynamo_torch.engine.loader")
 
@@ -116,24 +127,34 @@ def _deinterleave_rope_rows(w: torch.Tensor, starts, dr: int) -> torch.Tensor:
 def _refuse_unported(raw_cfg: dict, names) -> None:
     if raw_cfg.get("quantization_config"):
         method = raw_cfg["quantization_config"].get("quant_method", "?")
+        if str(method).lower() == "mxfp4":
+            raise NotImplementedError(
+                "quantized checkpoint (mxfp4): gpt-oss's MXFP4 experts are "
+                "not ported to the torch loader yet (ROADMAP A9)")
         raise NotImplementedError(
-            f"quantized checkpoint ({method}): the torch port loads "
-            "unquantized weights only (ROADMAP A5)")
+            f"quantized checkpoint ({method}): the torch port reads "
+            "unquantized checkpoints, as the JAX loader does (which reads "
+            "no pre-quantized format but gpt-oss's MXFP4); load the "
+            "unquantized weights with quantization='int8' / 'int8-gN' / "
+            "'int4-gN' to quantize them on the card")
     for n in names:
         if n.endswith("experts.gate_up_proj_blocks") or n.endswith(
                 "experts.gate_up_proj"):
             raise NotImplementedError(
                 f"gpt-oss experts ({n}, MXFP4 or fused gate_up): not ported "
-                "to the torch loader yet (ROADMAP A9, A5)")
+                "to the torch loader yet (ROADMAP A9)")
 
 
 def load_hf_params(cfg: ModelConfig, path: str, device=None,
-                   dtype: Optional[torch.dtype] = None) -> dict:
+                   dtype: Optional[torch.dtype] = None,
+                   quantization: Optional[str] = None) -> dict:
     """Map HF llama/mistral/phi-3/mixtral/qwen2/qwen3/gemma/gemma2/deepseek
     weight names onto the port's params dict, on ``device`` (None =
     "cuda") in ``dtype`` (None = the model's dtype; router biases and
-    Gemma's folded norms stay f32)."""
+    Gemma's folded norms stay f32), each matmul weight quantized as it is
+    stacked when ``quantization`` is given."""
     check_supported(cfg)
+    spec = parse_spec(quantization) if quantization else None
     device = torch.device(device or "cuda")
     dtype = dtype or torch_dtype(cfg)
     raw_cfg = {}
@@ -145,12 +166,12 @@ def load_hf_params(cfg: ModelConfig, path: str, device=None,
     with ExitStack() as files:
         t = _load_tensors(path, files)
         _refuse_unported(raw_cfg, t)
-        params = _build_params(cfg, t, raw_cfg, device, dtype)
+        params = _build_params(cfg, t, raw_cfg, device, dtype, spec)
     return params
 
 
 def _build_params(cfg: ModelConfig, t: dict, raw_cfg: dict, device,
-                  dtype) -> dict:
+                  dtype, spec=None) -> dict:
     def dev(name, as_dtype=dtype):
         """The checkpoint tensor on the device, as stored: a fresh copy
         (never a view of the file map)."""
@@ -290,13 +311,20 @@ def _build_params(cfg: ModelConfig, t: dict, raw_cfg: dict, device,
         for j, i in enumerate(idxs):
             def put(key, w, transpose, expert=None, j=j):
                 w = w.T if transpose else w
+                ok, g = (leaf_group(key, w.shape[0], *spec)
+                         if spec and key not in stack else (False, None))
                 if key not in stack:
                     lead = (n, cfg.num_experts) if expert is not None \
                         else (n,)
-                    stack[key] = torch.empty((*lead, *w.shape),
-                                             dtype=w.dtype, device=device)
-                (stack[key][j] if expert is None
-                 else stack[key][j, expert]).copy_(w)
+                    stack[key] = (empty_qtensor(lead, w.shape, spec[0], g,
+                                                device) if ok else
+                                  torch.empty((*lead, *w.shape),
+                                              dtype=w.dtype, device=device))
+                at = j if expert is None else (j, expert)
+                if is_qtensor(stack[key]):
+                    quantize_into(stack[key], at, w)
+                else:
+                    stack[key][at].copy_(w)
 
             norm_layer(i, put)
             attn_layer(i, put)
@@ -312,7 +340,11 @@ def _build_params(cfg: ModelConfig, t: dict, raw_cfg: dict, device,
         params["dense_layers"] = build_stack(range(k_dense), False)
     if not cfg.tie_word_embeddings:
         if "lm_head.weight" in t:
-            params["lm_head"] = dev("lm_head.weight").T.contiguous()
+            head = dev("lm_head.weight").T
+            ok, g = (leaf_group("lm_head", head.shape[0], *spec) if spec
+                     else (False, None))
+            params["lm_head"] = (quantize(head, spec[0], g) if ok
+                                 else head.contiguous())
         else:
             logger.warning("lm_head.weight missing; tying to embeddings")
             cfg.tie_word_embeddings = True

@@ -40,6 +40,10 @@ kv_transfer_direct`` off) keeps every transfer host-staged.
 or the layer-skip draft); the ``spec_disabled_total`` counter counts the
 times its governor suspended it.
 
+``--quantization int8 | int8-gN | int4-gN`` loads the checkpoint's matmul
+weights quantized on the card, each as it is stacked, and every product
+through them runs the dequant-GEMM kernel (``ops/qmm.py``).
+
 The worker prints ``WORKER_READY`` once registered, and at exit a line
 ``WORKER_EXIT {json}`` with its engine steps (verify forwards and draft
 bursts among them) and speculative decoding's counts, the launches of each kernel
@@ -137,7 +141,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp-rank", type=int, default=None)
     ap.add_argument("--num-ranks", type=int, default=1)
     ap.add_argument("--use-pallas-attention", action="store_true")
-    ap.add_argument("--quantization", default=None)
+    ap.add_argument("--quantization", default=None,
+                    help="on-device weight quantization: int8 | int8-gN | "
+                         "int4-gN; weights stay quantized in HBM with "
+                         "dequant fused into the matmuls")
     ap.add_argument("--speculative-method", default="prompt_lookup",
                     choices=["prompt_lookup", "draft_layers"])
     ap.add_argument("--speculative-draft-layers", type=int, default=0)
@@ -331,7 +338,8 @@ def build_engine(cli, cfg: ModelConfig, args: EngineArgs,
     params = None
     if cli.model_path:
         from dynamo_tpu_torch.engine.loader import load_hf_params
-        params = load_hf_params(cfg, cli.model_path, device)
+        params = load_hf_params(cfg, cli.model_path, device,
+                                quantization=args.quantization)
     return AsyncTorchEngine(cfg, args, params=params, device=device,
                             guided_vocab=guided_vocab_for(cli, tokenizer_ref))
 

@@ -72,7 +72,16 @@ dense MLP, the sqrt(D) embedding scale (:func:`embed_tokens`; a tied head
 reads the unscaled table) and the final logit softcap (:func:`lm_logits`).
 
 Weights keep the JAX layout ``[in, out]``, so each projection is
-``x @ W`` exactly as in the reference.
+``x @ W`` exactly as in the reference. A quantized weight
+(``engine/quant.py``: ``{"q", "s"[, "z"]}``, stacked like the weight it
+replaces, from ``init_params(quantization=...)``, the loader or the engine)
+goes through ``matmul``: the dequant-GEMM's wrapper (``ops/qmm.py``) by
+default, or its plain version. Every site the JAX package quantizes does
+so: the q/k/v/o projections, MLA's q_a, q_b, wq, kv_a and wo (w_uk and
+w_uv stay at model dtype), the dense and shared-expert MLPs, the MoE expert
+stacks (the kernel's batched form) and an untied LM head; a tied head and
+the embedding gather stay at model dtype. Each layer's weight is read
+through :func:`layer_weight`.
 """
 
 from __future__ import annotations
@@ -88,6 +97,10 @@ import torch.nn.functional as F
 from dynamo_tpu_torch.engine import sampling
 from dynamo_tpu_torch.engine.cache import NULL_BLOCK, layer_pages, write_kv
 from dynamo_tpu_torch.engine.config import ModelConfig
+from dynamo_tpu_torch.engine.quant import (
+    empty_qtensor, is_qtensor, leaf_group, parse_spec, quantize,
+    quantize_into, slice_layers,
+)
 from dynamo_tpu_torch.ops.flash_prefill import (
     flash_mla_prefill_paged, flash_prefill_paged,
 )
@@ -97,6 +110,8 @@ from dynamo_tpu_torch.ops.mla_decode import (
 from dynamo_tpu_torch.ops.paged_attention import (
     decode_rows, paged_attention_decode,
 )
+from dynamo_tpu_torch.ops.qmm import geometry_error as qmm_geometry_error
+from dynamo_tpu_torch.ops.qmm import quant_matmul
 from dynamo_tpu_torch.ops.ragged_attention import (
     HEAD_DIMS, MAX_GROUP, ragged_paged_attention,
 )
@@ -163,6 +178,27 @@ def check_kernel_geometry(cfg: ModelConfig) -> None:
             f"{cfg.attn_logit_softcap}")
 
 
+def check_quant_geometry(params: dict, dtype: torch.dtype) -> None:
+    """Raise unless the dequant-GEMM takes every quantized weight of
+    ``params`` in a ``dtype`` model: bf16 activations, I % 16, O % 8 and
+    groups dividing I (``ops/qmm.py``). An engine on the card checks this
+    when it is built."""
+    def walk(tree, path):
+        for k, v in tree.items():
+            if is_qtensor(v):
+                q, G = v["q"], v["s"].shape[-2]
+                I = q.shape[-2] * (2 if q.dtype == torch.uint8 else 1)
+                why = (f"bf16 activations (the model is {dtype})"
+                       if dtype != torch.bfloat16 else
+                       qmm_geometry_error(I, q.shape[-1], G))
+                if why:
+                    raise ValueError(f"the dequant-GEMM cannot take "
+                                     f"{path}{k}: it needs {why}")
+            elif isinstance(v, dict):
+                walk(v, f"{path}{k}.")
+    walk(params, "")
+
+
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -192,19 +228,26 @@ def check_kernel_geometry(cfg: ModelConfig) -> None:
 
 
 def _init_stack(cfg: ModelConfig, w, n: int, moe: bool, dtype, device,
-                generator: torch.Generator) -> dict:
+                generator: torch.Generator, quant=None) -> dict:
     """One stacked layer group of ``n`` layers (dense or MoE MLP); ``w``
     draws one [in, out] matrix. Each layer, and each expert, is drawn on
-    its own; the sinks from ``generator``."""
+    its own; the sinks from ``generator``. ``quant`` (bits, group)
+    quantizes each matrix the JAX walk would as it is drawn."""
     D, H, KV, hd = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                     cfg.head_dim)
 
-    def stacked(shape, fan_in, experts: int = 0):
+    def stacked(key, shape, fan_in, experts: int = 0):
         lead = (n, experts) if experts else (n,)
-        out = torch.empty((*lead, *shape), dtype=dtype, device=device)
+        ok, g = leaf_group(key, shape[0], *quant) if quant else (False, None)
+        out = (empty_qtensor(lead, shape, quant[0], g, device) if ok else
+               torch.empty((*lead, *shape), dtype=dtype, device=device))
         for i in range(n):
             for e in range(max(1, experts)):
-                (out[i, e] if experts else out[i]).copy_(w(shape, fan_in))
+                at = (i, e) if experts else i
+                if ok:
+                    quantize_into(out, at, w(shape, fan_in))
+                else:
+                    out[at].copy_(w(shape, fan_in))
         return out
 
     def ones(dim):
@@ -222,21 +265,21 @@ def _init_stack(cfg: ModelConfig, w, n: int, moe: bool, dtype, device,
         dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
         if cfg.q_lora_rank:
             qr = cfg.q_lora_rank
-            layers["q_a"] = stacked((D, qr), D)
+            layers["q_a"] = stacked("q_a", (D, qr), D)
             layers["q_a_norm"] = ones(qr)
-            layers["q_b"] = stacked((qr, H * (dn + dr)), qr)
+            layers["q_b"] = stacked("q_b", (qr, H * (dn + dr)), qr)
         else:
-            layers["wq"] = stacked((D, H * (dn + dr)), D)
-        layers["kv_a"] = stacked((D, r + dr), D)
+            layers["wq"] = stacked("wq", (D, H * (dn + dr)), D)
+        layers["kv_a"] = stacked("kv_a", (D, r + dr), D)
         layers["kv_a_norm"] = ones(r)
-        layers["w_uk"] = stacked((r, H * dn), r)
-        layers["w_uv"] = stacked((r, H * dv), r)
-        layers["wo"] = stacked((H * dv, D), H * dv)
+        layers["w_uk"] = stacked("w_uk", (r, H * dn), r)
+        layers["w_uv"] = stacked("w_uv", (r, H * dv), r)
+        layers["wo"] = stacked("wo", (H * dv, D), H * dv)
     else:
-        layers["wq"] = stacked((D, H * hd), D)
-        layers["wk"] = stacked((D, KV * hd), D)
-        layers["wv"] = stacked((D, KV * hd), D)
-        layers["wo"] = stacked((H * hd, D), H * hd)
+        layers["wq"] = stacked("wq", (D, H * hd), D)
+        layers["wk"] = stacked("wk", (D, KV * hd), D)
+        layers["wv"] = stacked("wv", (D, KV * hd), D)
+        layers["wo"] = stacked("wo", (H * hd, D), H * hd)
         if cfg.qkv_bias:
             layers["bq"] = zeros(H * hd)
             layers["bk"] = zeros(KV * hd)
@@ -252,37 +295,42 @@ def _init_stack(cfg: ModelConfig, w, n: int, moe: bool, dtype, device,
                 dtype=torch.float32)).to(dtype)
     if moe:
         Fm, E = cfg.moe_ffn_size, cfg.num_experts
-        layers["router"] = stacked((D, E), D)
+        layers["router"] = stacked("router", (D, E), D)
         layers["router_bias"] = torch.zeros((n, E), dtype=torch.float32,
                                             device=device)
-        layers["w_gate"] = stacked((D, Fm), D, E)
-        layers["w_up"] = stacked((D, Fm), D, E)
-        layers["w_down"] = stacked((Fm, D), Fm, E)
+        layers["w_gate"] = stacked("w_gate", (D, Fm), D, E)
+        layers["w_up"] = stacked("w_up", (D, Fm), D, E)
+        layers["w_down"] = stacked("w_down", (Fm, D), Fm, E)
         if cfg.n_shared_experts:
             Fs = cfg.n_shared_experts * Fm
-            layers["ws_gate"] = stacked((D, Fs), D)
-            layers["ws_up"] = stacked((D, Fs), D)
-            layers["ws_down"] = stacked((Fs, D), Fs)
+            layers["ws_gate"] = stacked("ws_gate", (D, Fs), D)
+            layers["ws_up"] = stacked("ws_up", (D, Fs), D)
+            layers["ws_down"] = stacked("ws_down", (Fs, D), Fs)
     else:
         Fi = cfg.intermediate_size
-        layers["w_gate"] = stacked((D, Fi), D)
-        layers["w_up"] = stacked((D, Fi), D)
-        layers["w_down"] = stacked((Fi, D), Fi)
+        layers["w_gate"] = stacked("w_gate", (D, Fi), D)
+        layers["w_up"] = stacked("w_up", (D, Fi), D)
+        layers["w_down"] = stacked("w_down", (Fi, D), Fi)
     return layers
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> dict:
+                device, quantization: Optional[str] = None) -> dict:
     """Random weights with the JAX package's shapes and scales: normal /
     sqrt(fan_in), norms one, biases and the router bias zero, sinks normal
     times 0.5. Drawn from ``generator``
     (which must live on ``device``) one matrix at a time — one layer, or
     one expert of a layer — so the f32 draw never adds more than one
-    matrix to the footprint of a full-width model."""
+    matrix to the footprint of a full-width model. ``quantization``
+    (``engine/quant.py``'s specs) quantizes each matrix of a quantized
+    leaf as it is drawn, into stacked ``{"q", "s"}``: no full-width stack
+    of it ever exists, and the result equals ``quantize_params`` of the
+    unquantized draw from the same generator."""
     check_supported(cfg)
     dtype = torch_dtype(cfg)
     D, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
     k_dense = cfg.num_dense_prefix_layers
+    quant = parse_spec(quantization) if quantization else None
 
     def w(shape, fan_in):
         return (torch.randn(shape, generator=generator, device=device,
@@ -291,13 +339,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
     params = {"embed": w((V, D), D),
               "layers": _init_stack(cfg, w, L - k_dense, cfg.is_moe, dtype,
-                                    device, generator),
+                                    device, generator, quant),
               "final_norm": torch.ones((D,), dtype=dtype, device=device)}
     if k_dense:
         params["dense_layers"] = _init_stack(cfg, w, k_dense, False, dtype,
-                                             device, generator)
+                                             device, generator, quant)
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = w((D, V), D)
+        ok, g = (leaf_group("lm_head", D, *quant) if quant
+                 else (False, None))
+        head = w((D, V), D)
+        params["lm_head"] = quantize(head, quant[0], g) if ok else head
     return params
 
 
@@ -433,10 +484,26 @@ def rope(x, positions, inv_freq, attn_scale: float):
     return apply_rope(x, *rope_tables(positions, inv_freq, attn_scale))
 
 
-def _mlp(h, w_gate, w_up, w_down, act: str = "silu"):
-    g = h @ w_gate
+def layer_weight(lw: dict, name: str, i: int):
+    """Layer ``i``'s ``name`` weight of the stack ``lw``: a tensor, or the
+    layer's view ``{"q", "s"[, "z"]}`` of a quantized stack."""
+    w = lw[name]
+    if isinstance(w, dict):
+        return {k: v[i] for k, v in w.items()}
+    return w[i]
+
+
+def _mm(x, w, matmul):
+    """``x @ w``; a quantized ``w`` through ``matmul`` (the dequant-GEMM's
+    wrapper, or its plain version)."""
+    return matmul(x, w) if is_qtensor(w) else x @ w
+
+
+def _mlp(h, w_gate, w_up, w_down, act: str = "silu",
+         matmul: Callable = quant_matmul):
+    g = _mm(h, w_gate, matmul)
     g = F.gelu(g, approximate="tanh") if act == "gelu_tanh" else F.silu(g)
-    return (g * (h @ w_up)) @ w_down
+    return _mm(g * _mm(h, w_up, matmul), w_down, matmul)
 
 
 @functools.lru_cache(maxsize=None)
@@ -458,11 +525,13 @@ def embed_tokens(cfg: ModelConfig, params, tokens):
     return x
 
 
-def lm_logits(cfg: ModelConfig, params, x, out=None):
+def lm_logits(cfg: ModelConfig, params, x, out=None,
+              matmul: Callable = quant_matmul):
     """f32 logits of hidden states ``x`` (into ``out``[:len(x)] when given),
     with the final logit softcap c·tanh(logits/c) in f32 (Gemma-2) applied in
-    place. Every logits site goes through here."""
-    logits = x @ _lm_head(cfg, params)
+    place. Every logits site goes through here; a quantized head through
+    ``matmul``."""
+    logits = _mm(x, _lm_head(cfg, params), matmul)
     logits = (logits.float() if out is None
               else out[:logits.shape[0]].copy_(logits))
     c = cfg.final_logit_softcap
@@ -540,15 +609,16 @@ def router_weights(xf, router_w, router_bias, cfg: ModelConfig):
 
 
 def mlp_moe(x, router_w, router_bias, w_gate, w_up, w_down,
-            cfg: ModelConfig):
+            cfg: ModelConfig, matmul: Callable = quant_matmul):
     """Token-choice MoE over x [N, D], all experts computed for every token
     and combined with the router's weights (the JAX package's single-device
-    ``_mlp_moe``): expert weights [E, D, Fm] / [E, Fm, D]. The combine
-    weights are cast to the expert output's dtype first, as there."""
+    ``_mlp_moe``): expert weights [E, D, Fm] / [E, Fm, D] (quantized
+    stacks through ``matmul``'s batched form). The combine weights are cast
+    to the expert output's dtype first, as there."""
     cw = router_weights(x, router_w, router_bias, cfg)
-    h = torch.matmul(x, w_gate)  # [E, N, Fm]
-    u = torch.matmul(x, w_up)
-    y = torch.matmul(F.silu(h) * u, w_down)  # [E, N, D]
+    h = _mm(x, w_gate, matmul)  # [E, N, Fm]
+    u = _mm(x, w_up, matmul)
+    y = _mm(F.silu(h) * u, w_down, matmul)  # [E, N, D]
     return torch.einsum("end,ne->nd", y, cw.to(y.dtype))
 
 
@@ -576,7 +646,7 @@ class _Rope:
 
 
 def _gqa_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
-                   attend):
+                   attend, matmul):
     """GQA attention of layer ``i`` of stack ``lw`` (cache layer ``li``), in
     the JAX forward's order: q/k/v (plus their biases), the per-head q/k
     RMSNorm, RoPE, q times sqrt(hd / query_pre_attn_scalar), the KV write,
@@ -585,7 +655,8 @@ def _gqa_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     eps = cfg.rms_norm_eps
     N = h.shape[0]
-    q, k, v = h @ lw["wq"][i], h @ lw["wk"][i], h @ lw["wv"][i]
+    q, k, v = (_mm(h, layer_weight(lw, name, i), matmul)
+               for name in ("wq", "wk", "wv"))
     if "bq" in lw:
         q, k, v = q + lw["bq"][i], k + lw["bk"][i], v + lw["bv"][i]
     q, k, v = q.view(N, H, hd), k.view(N, KV, hd), v.view(N, KV, hd)
@@ -598,8 +669,8 @@ def _gqa_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
         q = q * _in_dtype(float(np.sqrt(hd / cfg.query_pre_attn_scalar)),
                           q.dtype)
     write_kv(k_cache, v_cache, li, slots, k, v)
-    out = attend(li, q, lw["sink"][i] if "sink" in lw else None).reshape(
-        N, H * hd) @ lw["wo"][i]
+    out = _mm(attend(li, q, lw["sink"][i] if "sink" in lw else None)
+              .reshape(N, H * hd), layer_weight(lw, "wo", i), matmul)
     if "bo" in lw:
         out = out + lw["bo"][i]
     if cfg.sandwich_norms:  # Gemma-2: post-norm on the sublayer output
@@ -608,7 +679,7 @@ def _gqa_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
 
 
 def _mla_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
-                   attend):
+                   attend, matmul):
     """Multi-head latent attention (the JAX package's ``_mla_attention``,
     weight-absorbed): q through wq (or q_a → RMSNorm → q_b); kv_a gives the
     RMSNorm'd latent c and the rotated k_rot, written at ``slots`` (k_rot
@@ -621,13 +692,16 @@ def _mla_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
     dn, dv, pr = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.rope_cache_dim
     eps = cfg.rms_norm_eps
     N = h.shape[0]
+    def mm(x, name):
+        return _mm(x, layer_weight(lw, name, i), matmul)
+
     if "q_b" in lw:
-        q = rms_norm(h @ lw["q_a"][i], lw["q_a_norm"][i], eps) @ lw["q_b"][i]
+        q = mm(rms_norm(mm(h, "q_a"), lw["q_a_norm"][i], eps), "q_b")
     else:
-        q = h @ lw["wq"][i]
+        q = mm(h, "wq")
     q = q.view(N, H, dn + dr)
     q_rot = apply_rope(q[..., dn:], cos, sin)
-    ckv = h @ lw["kv_a"][i]  # [N, r + dr]
+    ckv = mm(h, "kv_a")  # [N, r + dr]
     c = rms_norm(ckv[:, :r], lw["kv_a_norm"][i], eps)
     k_rot = apply_rope(ckv[:, None, r:], cos, sin)  # [N, 1, dr]
     write_kv(k_cache, v_cache, li, slots, c.view(N, 1, r),
@@ -638,19 +712,19 @@ def _mla_attention(cfg, lw, i, li, h, cos, sin, slots, k_cache, v_cache,
                    F.pad(q_rot.float(), (0, mla_rope_live(cfg) - dr)))
     w_uv = lw["w_uv"][i].view(r, H, dv).float()
     out = torch.einsum("nhr,rhd->nhd", o_lat.float(), w_uv)
-    return out.reshape(N, H * dv).to(h.dtype) @ lw["wo"][i]
+    return mm(out.reshape(N, H * dv).to(h.dtype), "wo")
 
 
 def _layers(cfg: ModelConfig, params, x, cos, sin, slot_map, k_cache,
-            v_cache, attend):
+            v_cache, attend, matmul: Callable = quant_matmul):
     """The decoder stack over N flat tokens: x [N, D] embeddings, cos/sin
     their RoPE tables, K/V (or MLA's latent and rope part) written at
     ``slot_map`` [N] (int64) of the cache in place; ``attend`` is the
     layer's attention call (see ``_gqa_attention`` / ``_mla_attention``).
     A MoE model's dense prefix (``dense_layers``) comes first. The dense
     MLP takes the model's activation and, with sandwich norms, its post-MLP
-    norm (as the JAX forward's, not the MoE's). Returns the final-normed
-    hidden states [N, D]."""
+    norm (as the JAX forward's, not the MoE's). Quantized weights go
+    through ``matmul``. Returns the final-normed hidden states [N, D]."""
     eps = cfg.rms_norm_eps
     attention = _mla_attention if cfg.is_mla else _gqa_attention
     k_dense = cfg.num_dense_prefix_layers
@@ -662,18 +736,18 @@ def _layers(cfg: ModelConfig, params, x, cos, sin, slot_map, k_cache,
         for i in range(n):
             h = rms_norm(x, lw["attn_norm"][i], eps)
             x = x + attention(cfg, lw, i, base + i, h, cos, sin, slot_map,
-                              k_cache, v_cache, attend)
+                              k_cache, v_cache, attend, matmul)
             h = rms_norm(x, lw["mlp_norm"][i], eps)
+            mlp_w = [layer_weight(lw, n, i)
+                     for n in ("w_gate", "w_up", "w_down")]
             if moe:
                 x = x + mlp_moe(h, lw["router"][i], lw["router_bias"][i],
-                                lw["w_gate"][i], lw["w_up"][i],
-                                lw["w_down"][i], cfg)
+                                *mlp_w, cfg, matmul)
                 if cfg.n_shared_experts:  # dense shared experts on top
-                    x = x + _mlp(h, lw["ws_gate"][i], lw["ws_up"][i],
-                                 lw["ws_down"][i])
+                    x = x + _mlp(h, *(layer_weight(lw, n, i) for n in (
+                        "ws_gate", "ws_up", "ws_down")), matmul=matmul)
             else:
-                out = _mlp(h, lw["w_gate"][i], lw["w_up"][i],
-                           lw["w_down"][i], cfg.hidden_activation)
+                out = _mlp(h, *mlp_w, cfg.hidden_activation, matmul)
                 if cfg.sandwich_norms:  # Gemma-2 post-norm on the MLP output
                     out = rms_norm(out, lw["post_mlp_norm"][i], eps)
                 x = x + out
@@ -841,7 +915,8 @@ def mla_ragged_olat(q_eff, q_rot, latent, rope_pages, block_tables,
 
 def _make_ragged_forward(cfg: ModelConfig, block_size: int,
                          attention: Optional[Callable],
-                         chunk_attention: Callable):
+                         chunk_attention: Callable,
+                         matmul: Callable = quant_matmul):
     """The packed ragged forward that the step and the verify share:
     ``forward(params, ints5, rows3, grid_rows, block_tables, k_cache,
     v_cache) -> x [T, D]``, the final-normed hidden state of every packed
@@ -877,14 +952,15 @@ def _make_ragged_forward(cfg: ModelConfig, block_size: int,
                                  softcap=cfg.attn_logit_softcap)
 
         return _layers(cfg, params, embed_tokens(cfg, params, ints5[0]), cos,
-                       sin, ints5[2].long(), k_cache, v_cache, attend)
+                       sin, ints5[2].long(), k_cache, v_cache, attend, matmul)
 
     return forward
 
 
 def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
                         attention: Optional[Callable] = None,
-                        chunk_attention: Callable = mla_chunk_attention):
+                        chunk_attention: Callable = mla_chunk_attention,
+                        matmul: Callable = quant_matmul):
     """The packed ragged engine step.
 
     ``fn(params, ints5 [5, T], rows3 [R, 3], grid_rows [C],
@@ -907,10 +983,12 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
     ``chunk_attention``: :func:`mla_chunk_attention` (the MLA flash-prefill
     kernel on the card), or :func:`mla_attention_seg` to run them without
     it. An int8 cache passes each layer's pages with that layer's scales
-    (scale slot base 0).
+    (scale slot base 0). Quantized weights go through ``matmul``: the
+    dequant-GEMM's wrapper ``quant_matmul`` by default, or its plain version
+    ``quant_matmul_ref``.
     """
     forward = _make_ragged_forward(cfg, block_size, attention,
-                                   chunk_attention)
+                                   chunk_attention, matmul)
 
     def fn(params, ints5, rows3, grid_rows, block_tables, k_cache, v_cache,
            logits_out=None):
@@ -918,7 +996,8 @@ def make_ragged_step_fn(cfg: ModelConfig, block_size: int,
         x = forward(params, ints5, rows3, grid_rows, block_tables, k_cache,
                     v_cache)
         last = (rows3[:, 0] + rows3[:, 1] - 1).clamp(0, T - 1).long()
-        return lm_logits(cfg, params, x[last], logits_out), k_cache, v_cache
+        return (lm_logits(cfg, params, x[last], logits_out, matmul), k_cache,
+                v_cache)
 
     return fn
 
@@ -1072,7 +1151,7 @@ def make_draft_fn(cfg: ModelConfig, block_size: int, draft_layers: int,
     def fn(params, ints3, block_tables, k_cache, v_cache):
         R = ints3.shape[1]
         pd = dict(params)
-        pd["layers"] = {k: v[:draft_layers]
+        pd["layers"] = {k: slice_layers(v, draft_layers)
                         for k, v in params["layers"].items()}
         # greedy: the sampler reads no row operand but the key's step
         rows = torch.zeros((5, R), dtype=torch.int32, device=ints3.device)

@@ -90,6 +90,7 @@ PRESETS = {
     "tiny": ModelConfig.tiny,
     "llama3_1b": ModelConfig.llama3_1b,
     "llama3_8b": ModelConfig.llama3_8b,
+    "llama3_70b": ModelConfig.llama3_70b,
     "mistral_7b": mistral_7b,
     "qwen2_7b": qwen2_7b,
     "qwen3_8b": qwen3_8b,

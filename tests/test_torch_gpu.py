@@ -1146,3 +1146,152 @@ def test_direct_ipc_pull_by_another_process(tmp_path):
             proc.kill()
             proc.wait()
         mgr.close()
+
+
+# ------------------------------------------------ the dequant-GEMM (qmm.cu)
+
+#: (spec, zero point) of every format the kernel takes
+QMM_FORMATS = [("int8", False), ("int8-g128", False), ("int4-g32", False),
+               ("int4-g128", False), ("int8-g16", True), ("int4-g16", False)]
+
+
+def _qweight(spec, lead, I, O, z, seed):
+    from dynamo_tpu_torch.engine.quant import parse_spec, quantize
+
+    bits, group = parse_spec(spec)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = (torch.randn((*lead, I, O), generator=g, device="cuda")
+         / I ** 0.5).to(torch.bfloat16)
+    qt = quantize(w, bits, group)
+    if z:
+        qt["z"] = 0.01 * torch.rand(qt["s"].shape, generator=g,
+                                    device="cuda")
+    return qt
+
+
+def _qmm_close(got, want, rtol):
+    """Each row's largest error within ``rtol`` of the row's largest
+    |value| (``ops/qmm.py``'s ROW_RTOL)."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().amax(-1)
+    scale = want.abs().amax(-1)
+    assert bool((err <= rtol * scale).all()), (err / scale).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 37, 300])
+@pytest.mark.parametrize("I,O", [(512, 1000), (4096, 1024)])
+@pytest.mark.parametrize("spec,z", QMM_FORMATS)
+def test_quant_matmul_matches_plain_on_card(spec, z, I, O, M):
+    """Every format at decode and prefill M, an O that is no multiple of
+    128 (nor of 16: the 8-byte loads), and a split contraction."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dynamo_tpu_torch.ops.qmm import (
+        ROW_RTOL, quant_matmul, quant_matmul_ref,
+    )
+
+    qt = _qweight(spec, (), I, O, z, seed=M + O)
+    g = torch.Generator(device="cuda").manual_seed(M)
+    x = torch.randn((M, I), generator=g, device="cuda").to(torch.bfloat16)
+    n = quant_matmul.launches
+    got = quant_matmul(x, qt)
+    want = quant_matmul_ref(x, qt)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == n + 1
+    assert got.shape == (M, O) and got.dtype == torch.bfloat16
+    per_channel = spec == "int8" and not z
+    _qmm_close(got, want, ROW_RTOL["per_channel" if per_channel
+                                   else "grouped"])
+    # no atomics: the same call gives the same bits
+    assert torch.equal(quant_matmul(x, qt), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [3, 70])
+@pytest.mark.parametrize("spec,z", [("int8", False), ("int8-g16", True),
+                                    ("int4-g16", False), ("int8-g80", False)])
+def test_quant_matmul_partial_contraction_step_on_card(spec, z, M):
+    """I = 1040: the last 64-row step is a quarter full; g80 spans two
+    scale rows in some steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dynamo_tpu_torch.ops.qmm import (
+        ROW_RTOL, quant_matmul, quant_matmul_ref,
+    )
+
+    qt = _qweight(spec, (), 1040, 264, z, seed=M)
+    x = torch.randn((M, 1040), device="cuda").to(torch.bfloat16)
+    got = quant_matmul(x, qt)
+    want = quant_matmul_ref(x, qt)
+    _qmm_close(got, want, ROW_RTOL["per_channel" if spec == "int8"
+                                   else "grouped"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared_x", [True, False])
+@pytest.mark.parametrize("spec", ["int8", "int4-g32"])
+def test_quant_matmul_batched_on_card(spec, shared_x):
+    """The expert-stack form (DeepSeek-V2-Lite's [E, 2048, 1408] at 8
+    experts): x shared by every expert, or one x an expert."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dynamo_tpu_torch.ops.qmm import (
+        ROW_RTOL, quant_matmul, quant_matmul_ref,
+    )
+
+    E, I, O, M = 8, 2048, 1408, 24
+    qt = _qweight(spec, (E,), I, O, False, seed=3)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((M, I) if shared_x else (E, M, I), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    got = quant_matmul(x, qt)
+    want = quant_matmul_ref(x, qt)
+    assert got.shape == (E, M, O)
+    _qmm_close(got, want, ROW_RTOL["grouped"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["int8", "int8-g128", "int4-g32"])
+def test_quantize_on_card_bit_equal_to_cpu(spec):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dynamo_tpu_torch.engine.quant import parse_spec, quantize
+
+    bits, group = parse_spec(spec)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    w = (torch.randn((2, 1024, 768), generator=g, device="cuda")
+         * torch.rand((768,), generator=g, device="cuda")).to(torch.bfloat16)
+    got = quantize(w, bits, group)
+    want = quantize(w.cpu(), bits, group)
+    assert torch.equal(got["q"].cpu(), want["q"])
+    assert torch.equal(got["s"].cpu(), want["s"])
+
+
+@pytest.mark.gpu
+def test_quant_matmul_refuses_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dynamo_tpu_torch.ops.qmm import quant_matmul
+
+    qt = _qweight("int8-g16", (), 64, 40, False, seed=0)
+    x = torch.randn((4, 64), device="cuda")
+    with pytest.raises(ValueError, match="bf16"):
+        quant_matmul(x, qt)  # f32 activations
+    with pytest.raises(ValueError, match="bf16"):
+        quant_matmul(x.half(), qt)
+    xb = x.to(torch.bfloat16)
+    bad_i = {"q": torch.zeros((40, 16), dtype=torch.int8, device="cuda"),
+             "s": torch.ones((1, 16), device="cuda")}
+    with pytest.raises(ValueError, match="I % 16"):
+        quant_matmul(torch.zeros((2, 40), dtype=torch.bfloat16,
+                                 device="cuda"), bad_i)
+    bad_o = {"q": torch.zeros((64, 12), dtype=torch.int8, device="cuda"),
+             "s": torch.ones((1, 12), device="cuda")}
+    with pytest.raises(ValueError, match="O % 8"):
+        quant_matmul(xb, bad_o)
+    bad_g = {"q": torch.zeros((64, 16), dtype=torch.int8, device="cuda"),
+             "s": torch.ones((3, 16), device="cuda")}
+    with pytest.raises(ValueError, match="group count"):
+        quant_matmul(xb, bad_g)

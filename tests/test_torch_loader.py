@@ -217,7 +217,7 @@ def test_load_model_bf16_and_refusals(llama_ckpt, tmp_path):
     cfg, params = loader.load_model(llama_ckpt, "cpu")
     assert cfg.dtype == "bfloat16"
     assert params["layers"]["wq"].dtype == torch.bfloat16
-    # a quantized checkpoint names its ROADMAP item
+    # a pre-quantized checkpoint is refused (MXFP4 names its ROADMAP item)
     qdir = tmp_path / "q"
     qdir.mkdir()
     for f in os.listdir(llama_ckpt):
@@ -225,10 +225,38 @@ def test_load_model_bf16_and_refusals(llama_ckpt, tmp_path):
     raw = json.loads((qdir / "config.json").read_text())
     raw["quantization_config"] = {"quant_method": "fp8"}
     (qdir / "config.json").write_text(json.dumps(raw))
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError,
+                       match=r"quantized checkpoint \(fp8\).*quantization="):
+        loader.load_model(str(qdir), "cpu")
+    raw["quantization_config"] = {"quant_method": "mxfp4"}
+    (qdir / "config.json").write_text(json.dumps(raw))
+    with pytest.raises(NotImplementedError, match="A9"):
         loader.load_model(str(qdir), "cpu")
     with pytest.raises(FileNotFoundError):
         loader.load_hf_params(cfg, str(tmp_path), "cpu")
+
+
+@pytest.mark.parametrize("spec", ["int8", "int4-g32"])
+def test_load_quantized_equals_quantize_params(llama_ckpt, spec):
+    """``load_hf_params(quantization=...)`` quantizes each weight as it is
+    stacked; the tree equals ``quantize_params`` of the unquantized load,
+    bit for bit."""
+    from dynamo_tpu_torch.engine.quant import is_qtensor, quantize_params
+
+    cfg, plain = loader.load_model(llama_ckpt, "cpu")
+    got = loader.load_hf_params(cfg, llama_ckpt, "cpu", quantization=spec)
+    want = quantize_params(plain, spec)
+
+    def same(a, b, path):
+        if isinstance(b, dict):
+            assert set(a) == set(b), path
+            for k in b:
+                same(a[k], b[k], f"{path}.{k}")
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+    same(got, want, "")
+    assert is_qtensor(got["layers"]["w_down"])
+    assert is_qtensor(got["lm_head"]) and not is_qtensor(got["embed"])
 
 
 # ------------------------------------------------------------- greedy vs HF
