@@ -69,9 +69,12 @@ prints any result:
      (8192->8192, 8192->28672, 28672->8192) shapes, each row within
      ``ROW_RTOL`` of its largest |value|; int8 and int4-g32 timed beside
      the plain version, their bound and the yardstick (``torch.matmul`` of
-     x with the weight already in bf16, 2-4x the bytes); DeepSeek-V2-Lite's
-     expert stack (64 x 2048->1408, x shared and per expert); the edges
-     (M 1, 13, 37, 100; O 1000; g16).
+     x with the weight already in bf16, 2-4x the bytes); Llama-3-70B's
+     w_gate in int4-g32 timed at M 1, 8, 16, 64, 128, 512 and 2048, a
+     table of both bodies (decode up to ``qmm.DECODE_MAX_M`` rows, the
+     ``wgmma`` prefill body above); DeepSeek-V2-Lite's expert stack (64 x
+     2048->1408, x shared and per expert); the edges (M 1, 13, 37, 100; O
+     1000; g16).
 3. Serving: ``AsyncTorchEngine`` with the llama3_8b preset at full width
    and depth on random weights from a seeded generator, ``warmup()``
    first (every token bucket's steps and the greedy sampler captured, so
@@ -336,8 +339,7 @@ from dynamo_tpu_torch.ops.paged_attention import (
     paged_attention_decode, paged_attention_decode_ref,
 )
 from dynamo_tpu_torch.ops.qmm import (
-    ROW_RTOL, quant_matmul, quant_matmul_ref, resident_slots,
-    workspace_bytes,
+    ROW_RTOL, prepare_call, quant_matmul, quant_matmul_ref, workspace_bytes,
 )
 from dynamo_tpu_torch.ops.ragged_attention import (
     ragged_attention_ref, ragged_paged_attention,
@@ -4439,6 +4441,8 @@ QMM_FORMATS = [("int8", False), ("int8-g128", False), ("int4-g32", False),
                ("int4-g128", False), ("int8-g128", True)]
 #: the formats whose cases are timed (the rest are checked)
 QMM_TIMED = ("int8", "int4-g32")
+#: the M of the 70B w_gate int4-g32 sweep: both bodies and the crossover
+QMM_CROSSOVER_M = (1, 8, 16, 64, 128, 512, 2048)
 
 
 def qmm_weight(spec: str, lead, I: int, O: int, z: bool, seed: int):
@@ -4496,13 +4500,14 @@ def qmm_case(label, qt, x, timed: bool, iters: int = 20):
     return res
 
 
-def qmm_kernel_phase(seed: int) -> dict:
+def qmm_kernel_phase(seed: int, smi: str = "") -> dict:
     """The dequant-GEMM against its plain version on the card: every format
     at M 8 and 2048 on the Llama-3-8B and Llama-3-70B shapes (int8 and
-    int4-g32 timed), DeepSeek-V2-Lite's expert stack (64 x 2048 -> 1408,
-    x shared and per expert), and the edges (M not a multiple of the tile,
-    O not a multiple of 128 or 16, g16); ``quantize`` on the card bit-equal
-    to the CPU's."""
+    int4-g32 timed; Llama-3-70B's w_gate int4-g32 at every M of
+    ``QMM_CROSSOVER_M``, through both bodies), DeepSeek-V2-Lite's expert
+    stack (64 x 2048 -> 1408, x shared and per expert), and the edges (M
+    not a multiple of the tile, O not a multiple of 128 or 16, g16);
+    ``quantize`` on the card bit-equal to the CPU's."""
     log("kernel phase: quant_matmul vs quant_matmul_ref")
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     main = {}
@@ -4519,18 +4524,33 @@ def qmm_kernel_phase(seed: int) -> dict:
         "int8-g128 and int4-g32 ([4096, 1024] bf16)")
     xs = {M: torch.randn((M, 28672), generator=g, device="cuda").to(
         torch.bfloat16) for M in (8, 2048)}
+    crossover = {}
     for label, I, O in QMM_SHAPES:
         for spec, z in QMM_FORMATS:
             qt = qmm_weight(spec, (), I, O, z, seed + I + O)
-            for M in (8, 2048):
-                x = xs[M][:, :I].contiguous()
+            sweep = (label, spec, z) == ("llama3_70b w_gate/w_up",
+                                         "int4-g32", False)
+            for M in QMM_CROSSOVER_M if sweep else (8, 2048):
+                x = (xs[M] if M in xs else xs[2048][:M])[:, :I].contiguous()
                 timed = spec in QMM_TIMED and not z
-                name = f"{label} {I}->{O} M={M} {spec}{'+z' if z else ''}"
+                plan = prepare_call(x, qt).plan
+                name = (f"{label} {I}->{O} M={M} {spec}{'+z' if z else ''} "
+                        f"({plan.body}, {plan.splits} split"
+                        f"{'s' if plan.splits > 1 else ''})")
                 res = qmm_case(name, qt, x, timed)
-                if (label, M, spec) == ("llama3_70b w_gate/w_up", 8,
-                                        "int4-g32"):
+                if sweep:
+                    crossover[M] = (plan, res)
+                if sweep and M == 8:
                     main["quant_matmul"] = res
             del qt
+    log(f"  [{smi}] the dequant-GEMM across M, llama3_70b w_gate "
+        f"8192->28672 int4-g32 (ms: kernel / bound / bf16 torch.matmul; "
+        f"the kernel's share of its bound):")
+    for M, (plan, r) in crossover.items():
+        log(f"    M={M}: {plan.body} body, tile {plan.rows}x{plan.cols}, "
+            f"{plan.splits} split{'s' if plan.splits > 1 else ''}: "
+            f"{r['ms']:.4f} / {r['bound_ms']:.5f} ({r['bound_by']}) / "
+            f"{r['library_ms']:.4f}; {r['bound_ms'] / r['ms']:.1%}")
     # DeepSeek-V2-Lite's routed experts: x shared (the gate and up stacks)
     # and one x an expert (the down stack's input shape)
     for spec in ("int8", "int4-g32"):
@@ -4640,14 +4660,17 @@ def step_transient(engine, fn, tensors) -> int:
     return peak
 
 
-def step_workspace(cfg, M: int, R: int) -> int:
-    """The largest workspace one dequant-GEMM call of a step allocates: the
-    layers' projections at M tokens, the head at R rows."""
+def step_workspace(cfg, M: int, R: int, spec: str) -> int:
+    """The largest workspace one dequant-GEMM call of a step allocates in
+    format ``spec``: the layers' projections at M tokens, the head at R
+    rows."""
     D, F, hd = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    bits, group = parse_spec(spec)
     shapes = [(M, D, cfg.num_heads * hd), (M, D, cfg.num_kv_heads * hd),
               (M, cfg.num_heads * hd, D), (M, D, F), (M, F, D),
               (R, D, cfg.vocab_size)]
-    return max(workspace_bytes(m, i, o, 1, resident_slots(m))
+    return max(workspace_bytes(m, i, o, i // group if group else 1,
+                               int4=bits == 4, dequant=group is not None)
                for m, i, o in shapes)
 
 
@@ -4711,7 +4734,7 @@ def quant_llama_phase(seed: int, smi: str) -> dict:
             launches += n
             T = tensors[0].shape[1]
             R = tensors[1].shape[0]
-            ws = step_workspace(cfg, T, R)
+            ws = step_workspace(cfg, T, R, spec)
             bound = TRANSIENT_SLACK * bf16[kind] + ws
             ref = step_transient(engine, plain, tensors)
             for s in seqs:
@@ -4811,7 +4834,7 @@ def main() -> int:
     mark("phases 1 (device, kernel build) and 2 (attention kernels)")
     main_case.update(sample_kernel_phase(a.seed))
     mark("phase 2 (the draw kernel)")
-    main_case.update(qmm_kernel_phase(a.seed))
+    main_case.update(qmm_kernel_phase(a.seed, smi))
     mark("phase 2 (the dequant-GEMM)")
     gc.collect()
     torch.cuda.empty_cache()

@@ -22,6 +22,7 @@ from dynamo_tpu_torch.ops.mla_decode import (
 from dynamo_tpu_torch.ops.paged_attention import (
     paged_attention_decode, paged_attention_decode_ref,
 )
+from dynamo_tpu_torch.ops.qmm import DECODE_MAX_M
 from dynamo_tpu_torch.ops.ragged_attention import (
     ragged_attention_ref, ragged_paged_attention,
 )
@@ -1295,3 +1296,95 @@ def test_quant_matmul_refuses_what_it_cannot_take():
              "s": torch.ones((3, 16), device="cuda")}
     with pytest.raises(ValueError, match="group count"):
         quant_matmul(xb, bad_g)
+
+
+def _qmm_check(qt, x, body=None):
+    """The kernel (the plan's body, or ``body``) against the plain version
+    within ROW_RTOL, and the same call bit-equal on a second run."""
+    from dynamo_tpu_torch.ops.qmm import (
+        ROW_RTOL, quant_matmul, quant_matmul_ref,
+    )
+
+    n = quant_matmul.launches
+    got = quant_matmul(x, qt, body=body)
+    want = quant_matmul_ref(x, qt)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == n + 1
+    per_channel = (qt["q"].dim() == 2 and qt["s"].shape[-2] == 1
+                   and "z" not in qt)
+    _qmm_close(got, want, ROW_RTOL["per_channel" if per_channel
+                                   else "grouped"])
+    assert torch.equal(quant_matmul(x, qt, body=body), got)
+
+
+def _qx(M, I, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((M, I), generator=g, device="cuda").to(torch.bfloat16)
+
+
+#: M at each body and tile boundary: the decode body's row tiles (8, 16,
+#: 32), the crossover (DECODE_MAX_M) and one past it, the prefill tile (128)
+#: and its half
+QMM_EDGE_M = sorted({8, 9, 16, 17, 32, 33, 64, 65, 128, 129, DECODE_MAX_M,
+                     DECODE_MAX_M + 1})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", QMM_EDGE_M)
+@pytest.mark.parametrize("spec,z", [("int4-g32", False), ("int8", False),
+                                    ("int8-g128", True)])
+def test_quant_matmul_body_boundaries_on_card(spec, z, M):
+    """I 2048, O 1032: a partial column tile in both bodies (and no
+    multiple of 16: the 8-byte loads), split contractions at decode M."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    qt = _qweight(spec, (), 2048, 1032, z, seed=M)
+    _qmm_check(qt, _qx(M, 2048, M + 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [8, 2048])
+@pytest.mark.parametrize("spec", ["int4-g32", "int8"])
+def test_quant_matmul_small_n_split_on_card(spec, M):
+    """Llama-3-70B's wk/wv (8192 -> 1024): too few output tiles for a wave
+    in either body, so the contraction is split."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dynamo_tpu_torch.ops.qmm import prepare_call
+
+    qt = _qweight(spec, (), 8192, 1024, False, seed=5)
+    x = _qx(M, 8192, 6)
+    assert prepare_call(x, qt).plan.splits > 1
+    _qmm_check(qt, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", ["int4-g32", "int8"])
+def test_quant_matmul_prefill_without_split_on_card(spec):
+    """2048 rows at 4096 -> 4096: 256 output tiles, no split."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    from dynamo_tpu_torch.ops.qmm import prepare_call
+
+    qt = _qweight(spec, (), 4096, 4096, False, seed=7)
+    x = _qx(2048, 4096, 8)
+    plan = prepare_call(x, qt).plan
+    assert plan.body == "prefill" and plan.splits == 1
+    _qmm_check(qt, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("body", ["decode", "prefill"])
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("spec,z,I", [
+    ("int4-g8", False, 1024),    # scales read in place (too many a step)
+    ("int8-g4", True, 1024),
+    ("int4-g24", True, 1536),    # rows of a thread's step in two groups
+    ("int4-g1024", False, 1024),  # int4 per channel: the epilogue scales
+])
+def test_quant_matmul_each_body_every_window_on_card(spec, z, I, M, body):
+    """Each body forced at tiny M, over each way to reach the scales."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+    qt = _qweight(spec, (), I, 264, z, seed=I + M)
+    _qmm_check(qt, _qx(M, I, M), body=body)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the attention kernels' time goes, on one CUDA card.
+"""Where the attention kernels' and the dequant-GEMM's time goes, on one
+CUDA card.
 
-    python3 tune_attention.py [--family gqa|mla|all] [--variant NAME]...
+    python3 tune_attention.py [--family gqa|mla|qmm|all] [--variant NAME]...
                               [--seed N]
-    python3 tune_attention.py --compare DIR [DIR ...] [--family gqa|mla]
-                              [--seed N]
+    python3 tune_attention.py --compare DIR [DIR ...]
+                              [--family gqa|mla|qmm] [--seed N]
+    python3 tune_attention.py --crossover [--seed N]
 
 The first form builds the kernels of a family once for each variant below,
 from copies of ``dynamo_tpu_torch/ops/csrc`` in the ignored
@@ -19,7 +21,11 @@ times each build on the cases of ``chip_smoke.py``'s kernel phase:
 - ``mla`` (``mla_prefill.cu`` and ``mla_decode.cu`` over
   ``mla_core.cuh``): MLA flash prefill (B3m) on the DeepSeek-V2-Lite chunk
   grid (68 tiles x 32 tokens, bf16 and int8 pages) and a dense 2 x 1024
-  prefill, and MLA decode (B5, B5b) at eight rows of kv 73-2582.
+  prefill, and MLA decode (B5, B5b) at eight rows of kv 73-2582;
+- ``qmm`` (``qmm.cu``, the dequant-GEMM): Llama-3-70B's w_gate
+  (8192->28672), w_down (28672->8192) and wq (8192->8192) and
+  Llama-3-8B's head (4096->128256), each in int4-g32 and int8, at M 8
+  and 2048.
 
 Variants:
 
@@ -38,16 +44,32 @@ Variants:
   keeping fp16's range costs when nothing leaves it. Without key copies
   a bf16 tile is converted to fp16 again in place, which leaves values
   past fp16's range, so that variant's bf16 cases time the rescaling
-  walk.
+  walk;
+- (``qmm`` only, timed only) ``no dequant`` (the quantized bytes go to
+  the products as they are, reinterpreted as bf16), ``no q loads`` (no
+  weight bytes from device memory: the first kernel's copies
+  zero-filled, the redesign's TMA boxes all of the first k-step, from
+  L2), ``no scale loads`` and ``no x loads`` (the same for the scales and
+  zero points, and for x), ``no split reduce`` (the split contraction's
+  partial sums not added); ``no tensor-core products`` leaves out its
+  ``mma`` / ``wgmma`` too.
+  Each variant holds its edits for the first ``qmm.cu`` (a bf16 tile
+  dequantized in shared memory between two barriers) and for the
+  redesigned one; the first set whose every text is found applies.
 
 The default build is held against the plain versions with
 ``chip_smoke``'s tolerances before it is timed (with the SDPA yardstick
 beside it); the ablated ones are only timed. The card's name and power
 limit come first.
 
+``--crossover`` times both bodies of the dequant-GEMM, forced, on
+Llama-3-70B's w_gate (int4-g32 and int8) at M 1 to 64 (the decode body up
+to its 16 rows): where the plan's ``DECODE_MAX_M`` comes from.
+
 ``--compare`` times the main cases of a family in each checkout DIR in
-turn, each in its own process with that checkout's ``chip_smoke.py`` and
-kernels, and prints one line per run and a table: give a parent and a
+turn (``--family qmm``: the ``qmm`` cases above, kernel only), each in its
+own process with that checkout's ``chip_smoke.py`` and kernels, and
+prints one line per run and a table: give a parent and a
 change as ``parent change change parent`` to compare them on one card.
 The MLA cases (the default, or ``--family mla``): B3m grid and dense, B5,
 B5b; the GQA cases (``--family gqa``): the Llama-3-8B embeddings (B3), the
@@ -71,10 +93,19 @@ import torch
 import chip_smoke as cs
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.flash_prefill import flash_prefill
+from dynamo_tpu_torch.ops.qmm import quant_matmul
 from dynamo_tpu_torch.ops.ragged_attention import ragged_paged_attention
 
 NAMES = {"gqa": ("flash_prefill", "ragged_attention"),
-         "mla": ("mla_prefill", "mla_decode")}
+         "mla": ("mla_prefill", "mla_decode"), "qmm": ("qmm",)}
+
+
+class Alt(tuple):
+    """Alternative edit lists for one source file: the first whose every
+    text is found applies (the same variant on two versions of a kernel).
+    """
+
+
 #: variant: text replacements by source file (none: the default, checked
 #: against the plain versions)
 VARIANTS = {
@@ -84,6 +115,19 @@ VARIANTS = {
         "mla_core.cuh": [("          load((it + 1) & 1, slot);\n", "")],
     },
     "no tensor-core products": {
+        "qmm.cu": Alt((
+            [("mma_bf16(acc[i][j], a[i]", "if (0) mma_bf16(acc[i][j], a[i]"),
+             ("mma_bf16(acc[i][j + 1]", "if (0) mma_bf16(acc[i][j + 1]")],
+            # the decode body's products replaced by one add that keeps
+            # the dequantized registers live
+            [("            mma_bf16(acc[2 * c + jj][nt], fr, bx[nt][0], "
+              "bx[nt][1]);",
+              "            acc[2 * c + jj][nt][0] += __uint_as_float("
+              "(fr[0] ^ fr[1] ^ fr[2] ^ fr[3] ^ bx[nt][0]) & 0x3FFFFFFFu);"),
+             ("      mma_rs<N>(acc, cur[kk], desc(xa + kk * 32, 16, 1024));",
+              "      acc[kk] += __uint_as_float((cur[kk][0] ^ cur[kk][1] ^ "
+              "cur[kk][2] ^ cur[kk][3]) & 0x3FFFFFFFu);")],
+        )),
         "attention_core.cuh": [
             ("      mma_ss_n64(s,", "      if (0) mma_ss_n64(s,"),
             ("      mma_rs(o, pa[kk]", "      if (0) mma_rs(o, pa[kk]")],
@@ -117,20 +161,83 @@ VARIANTS = {
     "no Q row scales": {"mla_core.cuh": [
         ("        c2h[0] = c2 * QS[r0];\n        c2h[1] = c2 * QS[r0 + 8];\n",
          "        c2h[0] = c2h[1] = c2;\n")]},
+    # where the dequant-GEMM's time goes (outputs wrong: timed only)
+    "no dequant": {"qmm.cu": Alt((
+        [("    dequant(kt0 + t, st);\n", "")],
+        [("          pairs4<MODE>(word(lo[h], c), word(hi[h], c), MAGIC, sl, "
+          "sh, hz, zl,\n                       zh, a[h]);",
+          "          a[h][0] = word(lo[h], c); a[h][1] = word(hi[h], c);\n"
+          "          a[h][2] = word(lo[h], c ^ 1); "
+          "a[h][3] = word(hi[h], c ^ 1);"),
+         ("        pairs2<MODE>(lo, hi, magic, sl, sh, hz, zl, zh, a[kk][2 * h],\n"
+          "                     a[kk][2 * h + 1]);",
+          "        a[kk][2 * h] = lo; a[kk][2 * h + 1] = hi;")],
+    ))},
+    # the first kernel's copies zero-filled; the redesign's TMA boxes all
+    # taken from the first k-step (its bytes still land, from L2, not
+    # device memory)
+    "no q loads": {"qmm.cu": Alt((
+        [("const bool ok = col < p.O && row0 + r < qrows;",
+          "const bool ok = false;")],
+        [("&p.tq, n0 + 128 * w,\n                      row0, b, fb);",
+          "&p.tq, n0 + 128 * w,\n                      0, b, fb);"),
+         ("tma_load3(smem_addr(slot + L.q), &p.tq, n0, row0, b, fb);",
+          "tma_load3(smem_addr(slot + L.q), &p.tq, n0, 0, b, fb);")],
+    ))},
+    "no scale loads": {"qmm.cu": Alt((
+        [("        const bool ok = col < p.O;\n",
+          "        const bool ok = false;\n")],
+        [("                      n0 + 256 * h, g0, b, fb);",
+          "                      n0 + 256 * h, 0, b, fb);"),
+         ("&p.ts, n0, g0, b, fb);", "&p.ts, n0, 0, b, fb);")],
+    ))},
+    "no x loads": {"qmm.cu": Alt((
+        [("const bool ok = m < p.M && k < p.I;", "const bool ok = false;")],
+        [("&p.tx, k0, 0, p.x_bs ? b : 0, fb);",
+          "&p.tx, 0, 0, p.x_bs ? b : 0, fb);"),
+         ("&p.tx, k0, m0, p.x_bs ? b : 0, fb);",
+          "&p.tx, 0, m0, p.x_bs ? b : 0, fb);")],
+    ))},
+    # the splits' partial sums written, not added (the second kernel not
+    # launched)
+    "no split reduce": {"qmm.cu": Alt((
+        [("  qmm_reduce<<<", "  if (0) qmm_reduce<<<")],
+    ))},
 }
-#: the families a variant concerns (default: both)
-ONLY = {"decode chunks of 64+ keys": "mla",
-        "decode chunks of 256+ keys": "mla", "no split-K merge": "mla",
-        "no query loads": "mla", "no bf16 range check": "mla",
-        "no value-scale reference": "mla", "no Q row scales": "mla"}
+#: the families a variant concerns (default: gqa and mla)
+ONLY = {"default": ("gqa", "mla", "qmm"),
+        "no tensor-core products": ("gqa", "mla", "qmm"),
+        "decode chunks of 64+ keys": ("mla",),
+        "decode chunks of 256+ keys": ("mla",), "no split-K merge": ("mla",),
+        "no query loads": ("mla",), "no bf16 range check": ("mla",),
+        "no value-scale reference": ("mla",), "no Q row scales": ("mla",),
+        "no dequant": ("qmm",), "no q loads": ("qmm",),
+        "no x loads": ("qmm",),
+        "no scale loads": ("qmm",), "no split reduce": ("qmm",)}
 
 
 def variants(families, only=None) -> dict:
     """The variants of the families (``only``: those named, and the
     default)."""
     return {v: e for v, e in VARIANTS.items()
-            if ONLY.get(v, families[0]) in families
+            if set(ONLY.get(v, ("gqa", "mla"))) & set(families)
             and (not only or v == "default" or v in only)}
+
+
+def apply_edits(variant: str, name: str, text: str, edits) -> str:
+    """``text`` of source file ``name`` with the variant's edits."""
+    if isinstance(edits, Alt):
+        for alt in edits:
+            if all(old in text for old, _ in alt):
+                edits = alt
+                break
+        else:
+            raise RuntimeError(f"{variant}: no edit set of {name} fits")
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"{variant}: {old!r} not found")
+        text = text.replace(old, new)
+    return text
 
 
 def build_all(names, families, only=None) -> dict:
@@ -140,10 +247,8 @@ def build_all(names, families, only=None) -> dict:
         d.mkdir(parents=True, exist_ok=True)
         for f in _build.CSRC_DIR.iterdir():
             text = f.read_text()
-            for old, new in edits.get(f.name, []):
-                if old not in text:
-                    raise RuntimeError(f"{variant}: {old!r} not found")
-                text = text.replace(old, new)
+            if f.name in edits and (f.suffix == ".cuh" or f.stem in names):
+                text = apply_edits(variant, f.name, text, edits[f.name])
             (d / f.name).write_text(text)
         for name in names:
             lib = d / f"lib{name}.so"
@@ -208,9 +313,39 @@ def mla_cases(seed: int) -> list:
             ("B5b 8 decode rows int8 pages", "mla", cs.mla_int8(dec))]
 
 
+#: the qmm family's weights: (label, I, O)
+QMM_SHAPES = [("llama3_70b w_gate", 8192, 28672),
+              ("llama3_70b w_down", 28672, 8192),
+              ("llama3_70b wq", 8192, 8192),
+              ("llama3_8b lm_head", 4096, 128256)]
+
+
+def qmm_cases(seed: int) -> list:
+    """(label, kind, (weight, x)) of the qmm family, drawn on the card as
+    the kernel phase draws them."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 97)
+    xs = {M: torch.randn((M, 28672), generator=g, device="cuda").to(
+        torch.bfloat16) for M in (8, 2048)}
+    cases = []
+    for label, I, O in QMM_SHAPES:
+        for spec in ("int4-g32", "int8"):
+            qt = cs.qmm_weight(spec, (), I, O, False, seed + I + O)
+            for M in (8, 2048):
+                cases.append((f"{label} {spec} M={M}", "qmm",
+                              (qt, xs[M][:, :I].contiguous())))
+    return cases
+
+
 def run_case(kind: str, label: str, case, checked: bool, iters: int) -> str:
     """The case's kernel time (checked: against its plain version first,
     with the SDPA yardstick)."""
+    if kind == "qmm":
+        qt, x = case
+        if checked:
+            r = cs.qmm_case(label, qt, x, True, iters)
+            return f"{label} {r['ms']:.4f} (bf16 matmul {r['library_ms']:.4f})"
+        return (f"{label} "
+                f"{cs.time_ms(lambda: quant_matmul(x, qt), iters):.4f}")
     if checked:
         check = {"flash": cs.check_flash, "ragged": cs.check_ragged,
                  "mla_prefill": cs.check_mla_prefill,
@@ -305,10 +440,38 @@ print("COMPARE " + json.dumps({k: [v, float("nan")] for k, v in res.items()}),
 """
 
 
+#: the qmm family's cases, each kernel timed alone through that
+#: checkout's wrapper (the checks stay with chip_smoke's kernel phase)
+COMPARE_QMM = r"""
+import json, sys
+import torch
+import chip_smoke as cs
+from dynamo_tpu_torch.ops.qmm import quant_matmul
+seed, shapes = json.loads(sys.argv[1])
+cs.device_phase()
+g = torch.Generator(device="cuda").manual_seed(seed + 97)
+xs = {M: torch.randn((M, 28672), generator=g, device="cuda").to(
+    torch.bfloat16) for M in (8, 2048)}
+res = {}
+for label, I, O in shapes:
+    for spec in ("int4-g32", "int8"):
+        qt = cs.qmm_weight(spec, (), I, O, False, seed + I + O)
+        for M in (8, 2048):
+            x = xs[M][:, :I].contiguous()
+            res[f"{label} {spec} M={M}"] = cs.time_ms(
+                lambda: quant_matmul(x, qt), 20 if M == 8 else 10)
+        del qt
+print("COMPARE " + json.dumps({k: [v, float("nan")] for k, v in res.items()}),
+      flush=True)
+"""
+COMPARE = {"gqa": COMPARE_GQA, "mla": COMPARE_MLA, "qmm": COMPARE_QMM}
+
+
 def compare(dirs, seed: int, family: str = "mla") -> int:
     smi, _ = cs.device_phase()
-    arg = json.dumps([seed, cs.mla_decode_kvs(seed), MLA_CHUNKS])
-    script = COMPARE_GQA if family == "gqa" else COMPARE_MLA
+    arg = json.dumps([seed, QMM_SHAPES] if family == "qmm" else
+                     [seed, cs.mla_decode_kvs(seed), MLA_CHUNKS])
+    script = COMPARE[family]
     runs = []
     for d in dirs:
         d = os.path.abspath(d)
@@ -333,33 +496,66 @@ def compare(dirs, seed: int, family: str = "mla") -> int:
     return 0
 
 
+#: the M of ``--crossover`` (the decode body takes up to 16 rows)
+CROSSOVER_M = (1, 8, 16, 24, 32, 48, 64)
+
+
+def crossover(seed: int) -> int:
+    """Both dequant-GEMM bodies, forced, at each M of ``CROSSOVER_M`` on
+    Llama-3-70B's w_gate (int4-g32 and int8), kernel ms."""
+    smi, _ = cs.device_phase()
+    g = torch.Generator(device="cuda").manual_seed(seed + 97)
+    x = torch.randn((max(CROSSOVER_M), 8192), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    for spec in ("int4-g32", "int8"):
+        qt = cs.qmm_weight(spec, (), 8192, 28672, False, seed + 8192 + 28672)
+        out = []
+        for M in CROSSOVER_M:
+            xm = x[:M].contiguous()
+            times = []
+            for body in ("decode", "prefill")[0 if M <= 16 else 1:]:
+                ms = cs.time_ms(
+                    lambda: quant_matmul(xm, qt, body=body), 20)
+                times.append(f"{body} {ms:.4f}")
+            out.append(f"M={M}: " + ", ".join(times))
+        print(f"[{smi}] llama3_70b w_gate {spec}, ms by body: "
+              + "; ".join(out), flush=True)
+        del qt
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--family", choices=("gqa", "mla", "all"),
+    ap.add_argument("--family", choices=("gqa", "mla", "qmm", "all"),
                     default="all")
     ap.add_argument("--compare", nargs="+", metavar="DIR")
     ap.add_argument("--variant", action="append", choices=list(VARIANTS),
                     help="time only this variant beside the default "
                          "(repeatable)")
+    ap.add_argument("--crossover", action="store_true",
+                    help="time both dequant-GEMM bodies across M")
     a = ap.parse_args()
+    if a.crossover:
+        return crossover(a.seed)
     if a.compare:
         return compare(a.compare, a.seed,
-                       "gqa" if a.family == "gqa" else "mla")
-    families = ("gqa", "mla") if a.family == "all" else (a.family,)
+                       a.family if a.family != "all" else "mla")
+    families = ("gqa", "mla", "qmm") if a.family == "all" else (a.family,)
     smi, _ = cs.device_phase()
     libs = build_all([n for f in families for n in NAMES[f]], families,
                      a.variant)
     cases = []
     for f in families:
-        cases += gqa_cases(a.seed) if f == "gqa" else mla_cases(a.seed)
+        cases += {"gqa": gqa_cases, "mla": mla_cases,
+                  "qmm": qmm_cases}[f](a.seed)
     load = _build.load
     try:
         for variant, edits in variants(families, a.variant).items():
             _build.load = lambda n, v=variant: libs[(v, n)]
             out = [run_case(kind, label, case, not edits,
                             10 if kind == "flash" or "dense" in label
-                            else 20)
+                            or "M=2048" in label else 20)
                    for label, kind, case in cases]
             print(f"[{smi}] {variant}: " + "; ".join(out) + " ms",
                   flush=True)
