@@ -274,6 +274,19 @@ prints any result:
       80), the decode step wall beside its weight-read bound, a
       full-width step through the kernel against the plain version, the
       step profile.
+14. Preempt-to-swap and the KVBM tiers (ROADMAP A8e), Llama-3-8B at full
+   width and depth on the serving seed's weights, every engine warmed up,
+   steps captured, the pipelined loop on (``swap_phase``): 16 requests of
+   1024 + 256 tokens on a pool of half their working set, in bf16 and int8
+   KV: swap preemptions and no recompute, blocks out = in, no host byte or
+   swapped block left, each victim's block digest equal before its
+   swap-out and after its swap-in, streams equal to a never-preempting
+   pool's or parting first at a near tie, the ragged kernel once a layer a
+   step; the same requests with recompute preemption; tok/s, TTFT and ITL
+   of the three; swap-out and swap-in GB/s beside a plain pinned copy.
+   Then a 4096-token prompt onboarded from a 2 GiB host tier after
+   ``pool.clear()`` (both TTFTs), and a 1024-token prompt cascading from a
+   4-block host tier to disk, promoted back and onboarded.
 The full-width steps of phases 11-13 hold the argmax up to the bf16 tie
 rule of the S == 1 step (``check_logits``); the earlier ones strictly.
 No earlier path was cut for time: the GQA kernels' secondary cases no
@@ -318,8 +331,8 @@ from dynamo_tpu_torch.engine.config import EngineArgs, ModelConfig
 from dynamo_tpu_torch.engine.engine import AsyncTorchEngine
 from dynamo_tpu_torch.engine.loader import load_hf_params
 from dynamo_tpu_torch.engine.model import (
-    lm_logits, make_embed_fn, make_forward_fn, make_ragged_step_fn,
-    mla_attention_seg,
+    init_params, lm_logits, make_embed_fn, make_forward_fn,
+    make_ragged_step_fn, mla_attention_seg,
 )
 from dynamo_tpu_torch.engine.quant import (
     is_qtensor, materialize, parse_spec, quantize,
@@ -2212,25 +2225,29 @@ def repetitive_prompts(cfg, seed: int) -> list:
 
 
 def row_logit_scale(engine, tokens) -> float:
-    """The largest |logit| of the position after ``tokens``: one eager
-    ragged step over them as one prefill chunk, on fresh blocks."""
+    """The largest |logit| of the position after ``tokens``: eager ragged
+    steps over them as prefill chunks of at most the largest token bucket,
+    on fresh blocks."""
     bs = engine.args.block_size
+    cap = engine.args.ragged_token_buckets[-1]
     s = SeqState(request_id="scale", req=None, ctx=None, sink=None)
     s.tokens = list(tokens)
     s.block_table = engine.pool.allocate(-(-len(tokens) // bs))
     try:
-        ops, _ = engine.pack(StepPlan(prefill=[
-            PrefillWork(s, 0, len(tokens), True)]))
-        logits, _, _ = engine.step_fn(
-            engine.params, *(torch.from_numpy(x).to(engine.device)
-                             for x in ops), engine.k_cache, engine.v_cache)
+        for start in range(0, len(tokens), cap):
+            ops, _ = engine.pack(StepPlan(prefill=[PrefillWork(
+                s, start, min(cap, len(tokens) - start), True)]))
+            logits, _, _ = engine.step_fn(
+                engine.params, *(torch.from_numpy(x).to(engine.device)
+                                 for x in ops), engine.k_cache,
+                engine.v_cache)
         return float(logits[0].abs().max())
     finally:
         engine.pool.release(s.block_table)
 
 
 async def tie_rule(engine, model, label, prompts, want, got, n,
-                   opts=None, eos=()) -> list:
+                   opts=None, eos=(), names=("K = 1", "spec")) -> list:
     """Hold spec streams ``got`` against the K = 1 streams ``want`` of the
     same requests: a spec stream equals its K = 1 stream up to its first
     difference; there the spec stream's token must be a near tie of the
@@ -2242,11 +2259,13 @@ async def tie_rule(engine, model, label, prompts, want, got, n,
     the scale from :func:`row_logit_scale`. Past that position nothing is
     compared. Every such position is printed with the two best's gap and
     the spec token's; any other difference fails. Returns [(stream,
-    position, gap of the two best, gap of the spec token, allowed)]."""
+    position, gap of the two best, gap of the spec token, allowed)].
+    ``names`` name the reference and the tested streams in what it prints
+    (another path held by the same rule: preempt-to-swap, onboarding)."""
     diffs = [(i, first_diff(w, g)) for i, (w, g) in enumerate(zip(want, got))
              if w != g]
     if not diffs:
-        log(f"  {label}: all {len(got)} streams equal to K = 1's")
+        log(f"  {label}: all {len(got)} streams equal to {names[0]}'s")
         return []
     K = engine.args.speculative_tokens
     engine.args.speculative_tokens = 0
@@ -2266,10 +2285,12 @@ async def tie_rule(engine, model, label, prompts, want, got, n,
     for i, p in diffs:
         if rerun[i][2] != want[i]:
             raise AssertionError(f"{label} stream {i}: the logprobs re-run "
-                                 f"streamed {rerun[i][2]}, K = 1 {want[i]}")
+                                 f"streamed {rerun[i][2]}, {names[0]} "
+                                 f"{want[i]}")
         if p >= min(len(want[i]), len(got[i])):
             raise AssertionError(f"{label} stream {i}: ends at {p} where "
-                                 f"K = 1's does not: {got[i]} vs {want[i]}")
+                                 f"{names[0]}'s does not: {got[i]} vs "
+                                 f"{want[i]}")
         tops = [t for f in frames[i] for t in f.top_logprobs]
         (a, lp_a), (b, lp_b) = tops[p][:2]
         gap = lp_a - lp_b
@@ -2277,13 +2298,13 @@ async def tie_rule(engine, model, label, prompts, want, got, n,
         scale = row_logit_scale(engine, prompts[i] + want[i][:p])
         steps = SPEC_TIE_STEPS[model]
         allowed = steps * 2.0 ** (math.floor(math.log2(scale)) - 7)
-        log(f"  {label} stream {i}: first differs at token {p} (K = 1 "
-            f"{want[i][p]}, spec {got[i][p]}); the K = 1 run's two best "
-            f"{a}, {b} lie {gap:.5f} apart, {steps:.2f} bf16 steps at "
-            f"the row's logit scale {scale:.3f} are {allowed:.5f}; the spec "
-            f"token lies "
+        log(f"  {label} stream {i}: first differs at token {p} ({names[0]} "
+            f"{want[i][p]}, {names[1]} {got[i][p]}); the {names[0]} run's "
+            f"two best {a}, {b} lie {gap:.5f} apart, {steps:.2f} bf16 steps "
+            f"at the row's logit scale {scale:.3f} are {allowed:.5f}; the "
+            f"{names[1]} token lies "
             + (f"{spec_gap:.5f} below the best" if spec_gap is not None
-               else f"outside the K = 1 run's {TIE_TOPS} best"))
+               else f"outside the {names[0]} run's {TIE_TOPS} best"))
         if a != want[i][p] or spec_gap is None or spec_gap > allowed:
             raise AssertionError(f"{label} stream {i}: not a near tie at "
                                  f"token {p}: top {tops[p]}, spec "
@@ -4812,6 +4833,406 @@ def llama70b_phase(seed: int, smi: str) -> dict:
     return {"quant_matmul": launches["quant_matmul"]}
 
 
+# ---------------------------------------------------------------- phase 14
+
+#: the preempt-to-swap workload on Llama-3-8B: requests, prompt and output
+#: tokens (ignore_eos), on a pool of about half its working set
+SWAP_REQUESTS, SWAP_PROMPT, SWAP_OUTPUT = 16, 1024, 256
+#: host bytes for swapped KV: enough that no preemption recomputes
+SWAP_HOST_BYTES = 8 << 30
+#: the G2 onboarding prompt and host tier, and the G3 cascade's prompt,
+#: host tier (in blocks) and disk budget; the disk tier lives in
+#: TIER_DIR, inside the checkout, removed at the end
+TIER_PROMPT, TIER_HOST_BYTES = 4096, 2 << 30
+CASCADE_PROMPT, CASCADE_HOST_BLOCKS, CASCADE_DISK_BYTES = 1024, 4, 1 << 30
+TIER_DIR = pathlib.Path(__file__).resolve().parent / ".smoke_kvbm"
+#: blocks a swap bandwidth measurement moves (one victim of the workload)
+SWAP_COPY_BLOCKS = (SWAP_PROMPT + SWAP_OUTPUT) // 16
+
+
+class SwapSpy:
+    """Digests (``engine.blocks_digest``, enqueued in stream order) of each
+    victim's blocks just before its swap-out and just after its swap-in,
+    by wrapping the engine's swapper methods: a check of this script, not
+    a knob of the program."""
+
+    def __init__(self, engine):
+        self.pairs: list = []
+        self._open: dict = {}
+        swap_out, swap_in = engine.swap_out, engine.swap_in
+        bs = engine.args.block_size
+
+        def out(seq):
+            n = -(-seq.num_computed // bs)
+            before = (engine.blocks_digest(seq.block_table[:n])
+                      if 0 < n <= len(seq.block_table) else None)
+            ok = swap_out(seq)
+            if ok:
+                self._open[id(seq)] = pair = [before, None]
+                self.pairs.append(pair)
+            return ok
+
+        def back(seq):
+            n = seq.swap.n if seq.swap is not None else 0
+            ok = swap_in(seq)
+            if ok:
+                self._open.pop(id(seq))[1] = engine.blocks_digest(
+                    seq.block_table[:n])
+            return ok
+
+        engine.swap_out, engine.swap_in = out, back
+
+    def check(self, label: str) -> int:
+        """Every victim's digests equal across its round trip; returns the
+        round trips."""
+        done = [(int(a), int(b)) for a, b in self.pairs if b is not None]
+        bad = [d for d in done if d[0] != d[1]]
+        if not done or bad or len(done) != len(self.pairs):
+            raise AssertionError(f"{label}: {len(done)} of {len(self.pairs)} "
+                                 f"swaps came back; digests differ: {bad}")
+        return len(done)
+
+
+def swap_prompts(cfg, seed: int, n: int, length: int) -> list:
+    rng = np.random.default_rng(seed + 14)
+    return [list(map(int, rng.integers(0, cfg.vocab_size, length)))
+            for _ in range(n)]
+
+
+def _swap_engine(cfg, params, seed: int, kv, num_blocks: int, **kw):
+    return AsyncTorchEngine(cfg, EngineArgs(
+        block_size=16, num_blocks=num_blocks, max_num_seqs=SWAP_REQUESTS,
+        max_num_batched_tokens=2048, seed=seed, kv_cache_dtype=kv,
+        **{"max_model_len": 2048, **kw}), params=params)
+
+
+async def _idle(engine) -> None:
+    """Until the engine has no work and no copy, offload or promotion in
+    flight."""
+    while engine.scheduler.has_work or engine._offload_tasks:
+        await asyncio.sleep(0.001)
+
+
+async def _warm(engine, model: str) -> None:
+    """``warmup()`` and one short request (cuBLAS handles, allocator
+    growth): no measured run pays a first use."""
+    await engine.warmup()
+    await stream(engine, model, list(range(1, 17)), 2)
+    await _idle(engine)
+
+
+async def _measured(engine, model: str, prompts, n: int, label: str) -> dict:
+    """The prompts served concurrently on an emptied prefix cache, the
+    kernels' counts set to 0 just before and read just after: the ragged
+    kernel once a layer every forward step, nothing else. Returns the
+    streams, the serving stats and the steps."""
+    engine.pool.clear()
+    await _idle(engine)
+    steps0 = engine.forward_steps
+    reset_counts()
+    t0 = time.perf_counter()
+    res = await asyncio.gather(*(stream(engine, model, p, n)
+                                 for p in prompts))
+    st = serving_stats(res, time.perf_counter() - t0)
+    await _idle(engine)
+    steps = engine.forward_steps - steps0
+    want = engine.cfg.num_layers * steps
+    other = {k["name"]: k["wrapper"].launches for k in KERNELS
+             if k["wrapper"] is not ragged_paged_attention}
+    if (steps == 0 or ragged_paged_attention.launches != want
+            or any(other.values())):
+        raise AssertionError(f"{label}: ragged kernel "
+                             f"{ragged_paged_attention.launches} launches in "
+                             f"{steps} steps (want {want}), others {other}")
+    for i, r in enumerate(res):
+        if r[3] != "length" or len(r[2]) != n:
+            raise AssertionError(f"{label} stream {i}: {r[3]!r} after "
+                                 f"{len(r[2])} tokens")
+    return {"streams": [r[2] for r in res], "stats": st, "steps": steps,
+            "launches": ragged_paged_attention.launches, "res": res}
+
+
+def swap_bandwidth(engine, smi: str, label: str) -> dict:
+    """Swap-out (the gathers on the engine's stream, the copy to pinned
+    memory on the copy stream, ``engine._copy_out``) and swap-in (the
+    non-blocking copies to the card and the scatters, ``scatter_blocks``)
+    of SWAP_COPY_BLOCKS blocks, timed with CUDA events (the median of 5
+    after one warm-up), beside a plain pinned ``copy_`` of the same bytes
+    each way; the round trip must give the gathered bytes back."""
+    bs = engine.args.block_size
+    ids = engine.pool.allocate(SWAP_COPY_BLOCKS)
+    caches = (engine.k_cache, engine.v_cache)
+    nbytes = SWAP_COPY_BLOCKS * engine._swap_block_bytes()
+
+    def timed(fn, stream=None):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ret = fn()
+        end.record(stream)
+        end.synchronize()
+        return start.elapsed_time(end), ret
+
+    def out():
+        dev = [gather_blocks(c, ids, block_size=bs) for c in caches]
+        host, _ = engine._copy_out(dev, engine._gathered(), per_block=False)
+        return dev, host
+
+    try:
+        dev, host = timed(out, engine._copy_stream)[1]
+        for c, h in zip(caches, host):
+            scatter_blocks(c, ids, h, block_size=bs)
+        back = [gather_blocks(c, ids, block_size=bs) for c in caches]
+        if not all(torch.equal(a, b) for a, b in zip(dev, back)):
+            raise AssertionError(f"{label}: swap round trip not bit-exact")
+        t_out = statistics.median(timed(out, engine._copy_stream)[0]
+                                  for _ in range(5))
+        t_in = statistics.median(timed(lambda: [
+            scatter_blocks(c, ids, h, block_size=bs)
+            for c, h in zip(caches, host)])[0] for _ in range(5))
+        d = torch.empty(nbytes, dtype=torch.uint8, device=engine.device)
+        h = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        timed(lambda: h.copy_(d, non_blocking=True))
+        p_out = statistics.median(timed(lambda: h.copy_(
+            d, non_blocking=True))[0] for _ in range(5))
+        p_in = statistics.median(timed(lambda: d.copy_(
+            h, non_blocking=True))[0] for _ in range(5))
+    finally:
+        engine.pool.release(ids)
+    gbs = {k: nbytes / (ms * 1e-3) / 1e9 for k, ms in (
+        ("out", t_out), ("in", t_in), ("plain_out", p_out),
+        ("plain_in", p_in))}
+    log(f"  [{smi}] {label}: swap of {SWAP_COPY_BLOCKS} blocks "
+        f"({nbytes / 1e6:.1f} MB): out {t_out:.3f} ms "
+        f"({gbs['out']:.2f} GB/s) vs a plain pinned copy_ {p_out:.3f} ms "
+        f"({gbs['plain_out']:.2f} GB/s); in {t_in:.3f} ms "
+        f"({gbs['in']:.2f} GB/s) vs {p_in:.3f} ms ({gbs['plain_in']:.2f} "
+        f"GB/s); the round trip is bit-exact")
+    return gbs
+
+
+async def _swap_runs(cfg, params, seed: int, smi: str, kv) -> dict:
+    model = "llama3_8b"
+    label = f"llama3_8b, {kv or 'bf16'} KV"
+    working = SWAP_REQUESTS * -(-(SWAP_PROMPT + SWAP_OUTPUT) // 16)
+    prompts = swap_prompts(cfg, seed, SWAP_REQUESTS, SWAP_PROMPT)
+    big = _swap_engine(cfg, params, seed, kv, working + 64)
+    small = _swap_engine(cfg, params, seed, kv, working // 2 + 1,
+                         swap_host_bytes=SWAP_HOST_BYTES)
+    try:
+        await _warm(big, model)
+        ref = await _measured(big, model, prompts, SWAP_OUTPUT,
+                              f"{label}, big pool")
+        # the gate's reference on the serial loop, which tie_rule's re-run
+        # reproduces: where a request finishes before another, the
+        # pipelined loop's overshoot step adds its row to the batch, and
+        # a near tie can flip at another M (a tail token, call 2)
+        big.args.pipeline_decode = False
+        ref_serial = await _measured(big, model, prompts, SWAP_OUTPUT,
+                                     f"{label}, big pool, serial loop")
+        big.args.pipeline_decode = True
+        if big.scheduler.preempt_swap_total or \
+                big.scheduler.preempt_recompute_total:
+            raise AssertionError(f"{label}: the big pool preempted")
+        await _warm(small, model)
+        spy = SwapSpy(small)
+        swap = await _measured(small, model, prompts, SWAP_OUTPUT,
+                               f"{label}, swap")
+        st = small.swap_stats()  # the warm-ups preempt nothing
+        if (st["preempt_swap"] == 0 or st["preempt_recompute"]
+                or st["recomputed_tokens"]
+                or st["swap_out_blocks"] != st["swap_in_blocks"]
+                or st["swapped_blocks"] or st["swap_host_bytes"]):
+            raise AssertionError(f"{label}: swap stats {st}")
+        trips = spy.check(label)
+        # recompute on the same pool: the engine's swapper taken away, as
+        # EngineArgs.preempt_swap=False leaves it
+        small.scheduler.swapper = None
+        r0 = small.scheduler.preempt_recompute_total
+        rec = await _measured(small, model, prompts, SWAP_OUTPUT,
+                              f"{label}, recompute")
+        small.scheduler.swapper = small
+        n_rec = small.scheduler.preempt_recompute_total - r0
+        # equal to the big pool's, or parting first at a near tie
+        want = ref_serial["streams"]
+        same = sum(a == b for a, b in zip(want, swap["streams"]))
+        same_rec = sum(a == b for a, b in zip(want, rec["streams"]))
+        same_pipe = sum(a == b for a, b in zip(want, ref["streams"]))
+        await tie_rule(big, model, f"{label}, swap vs big pool", prompts,
+                       want, swap["streams"], SWAP_OUTPUT,
+                       names=("big pool", "swap"))
+    finally:
+        await small.close()
+        await big.close()
+    log(f"  [{smi}] {label}: {SWAP_REQUESTS} requests x {SWAP_PROMPT} + "
+        f"{SWAP_OUTPUT} tokens; pool {small.num_blocks} blocks against a "
+        f"working set of {working}: {st['preempt_swap']} swap preemptions "
+        f"({trips} round trips, every victim's digest equal), "
+        f"{st['swap_out_blocks']} blocks out = {st['swap_in_blocks']} in, "
+        f"{st['swap_in_blocked']} blocked swap-in passes, no recompute; "
+        f"host bytes and swapped blocks 0 at the end; {swap['steps']} steps "
+        f"(ragged kernel {swap['launches']} launches)")
+    log(f"  [{smi}] {label}, swap:      {stats_line(swap['stats'])}")
+    log(f"  [{smi}] {label}, recompute: {stats_line(rec['stats'])} "
+        f"({n_rec} recompute preemptions, {rec['steps']} steps)")
+    log(f"  [{smi}] {label}, no preemption ({big.num_blocks} blocks): "
+        f"{stats_line(ref['stats'])} ({ref['steps']} steps)")
+    log(f"  {label}: {same} of {SWAP_REQUESTS} swap streams, {same_rec} "
+        f"recompute streams and {same_pipe} of the big pool's pipelined "
+        f"streams equal to the big pool's serial streams outright")
+    return {"small": small, "big": big, "swap": swap, "rec": rec,
+            "ref": ref, "stats": st}
+
+
+async def _tier_runs(engine, seed: int, smi: str) -> dict:
+    """G2 onboarding, then the G3 cascade, on a bf16 engine with a host and
+    a disk tier (see :func:`swap_phase`)."""
+    model, cfg, bs = "llama3_8b", engine.cfg, engine.args.block_size
+    kv = engine.kvbm
+
+    def held(prompt):
+        probe = engine.restore_probe(PreprocessedRequest(model=model,
+                                                         token_ids=prompt))
+        return probe.sequence_hashes()
+
+    async def serve_one(prompt, label):
+        reset_counts()
+        f0, o0 = engine.forward_steps, kv.onboarded_blocks
+        r = await stream(engine, model, prompt, 32)
+        await _idle(engine)
+        steps = engine.forward_steps - f0
+        if (ragged_paged_attention.launches != cfg.num_layers * steps
+                or len(r[2]) != 32):
+            raise AssertionError(f"{label}: {len(r[2])} tokens, ragged "
+                                 f"kernel {ragged_paged_attention.launches} "
+                                 f"launches in {steps} steps")
+        return r, kv.onboarded_blocks - o0
+
+    async def gate(prompt, want, got, label):
+        if want != got:  # the re-run prefills cold, as the reference did
+            cb, engine.scheduler.onboard_cb = engine.scheduler.onboard_cb, None
+            try:
+                await tie_rule(engine, model, label, [prompt], [want],
+                               [got], 32, names=("cold", "onboarded"))
+            finally:
+                engine.scheduler.onboard_cb = cb
+        return want == got
+
+    await _warm(engine, model)
+    # G2: serve, drop the device prefix cache, serve again
+    prompt = swap_prompts(cfg, seed + 1, 1, TIER_PROMPT)[0]
+    hashes = held(prompt)
+    cold, _ = await serve_one(prompt, "G2 cold")
+    if kv.offloaded_blocks < len(hashes):
+        raise AssertionError(f"G2: {kv.offloaded_blocks} blocks offloaded")
+    d_cold = engine.blocks_digest([engine.pool.lookup(h) for h in hashes])
+    engine.pool.clear()
+    warm, onboarded = await serve_one(prompt, "G2 onboarded")
+    d_warm = engine.blocks_digest([engine.pool.lookup(h) for h in hashes])
+    if onboarded != len(hashes) or int(d_cold) != int(d_warm):
+        raise AssertionError(f"G2: {onboarded} of {len(hashes)} blocks "
+                             f"onboarded, digests {int(d_cold)} vs "
+                             f"{int(d_warm)}")
+    g2_same = await gate(prompt, cold[2], warm[2], "G2 onboarded stream")
+    ttft = [(r[1][0] - r[0]) * 1e3 for r in (cold, warm)]
+    log(f"  [{smi}] G2 onboarding, llama3_8b bf16, a {TIER_PROMPT}-token "
+        f"prompt on a {TIER_HOST_BYTES >> 30} GiB host tier: "
+        f"{kv.offloaded_blocks} blocks offloaded, {onboarded} of "
+        f"{len(hashes)} matchable onboarded after pool.clear() (digest "
+        f"equal to the cold run's blocks); TTFT cold {ttft[0]:.2f} ms, "
+        f"onboarded {ttft[1]:.2f} ms ({ttft[0] / ttft[1]:.2f}x); stream "
+        + ("equal" if g2_same else "parting at a near tie"))
+    # G3: a host tier of a few blocks over the disk tier
+    kv.clear()
+    kv.resize_host(CASCADE_HOST_BLOCKS * engine._swap_block_bytes())
+    prompt = swap_prompts(cfg, seed + 2, 1, CASCADE_PROMPT)[0]
+    hashes = held(prompt)
+    first, _ = await serve_one(prompt, "G3 cold")
+    cascaded = (len(kv.host), len(kv.disk))
+    if cascaded[0] > CASCADE_HOST_BLOCKS or cascaded[1] < len(hashes) - \
+            CASCADE_HOST_BLOCKS:
+        raise AssertionError(f"G3: host/disk blocks {cascaded}")
+    engine.pool.clear()
+    again, none = await serve_one(prompt, "G3 promoting")  # and recomputing
+    on_host = kv.host_resident(hashes)
+    promoted = next((i for i, h in enumerate(hashes) if h not in on_host),
+                    len(hashes))  # the leading run now on the host
+    engine.pool.clear()
+    last, got = await serve_one(prompt, "G3 onboarded")
+    if none or promoted != CASCADE_HOST_BLOCKS or got != promoted:
+        raise AssertionError(f"G3: onboarded {none} while promoting, "
+                             f"{promoted} promoted, {got} onboarded")
+    g3_same = [await gate(prompt, first[2], r[2], f"G3 stream {i}")
+               for i, r in enumerate((again, last))]
+    log(f"  [{smi}] G3 cascade, a {CASCADE_PROMPT}-token prompt on a "
+        f"{CASCADE_HOST_BLOCKS}-block host tier over a disk tier: "
+        f"{cascaded[0]} blocks on the host, {cascaded[1]} cascaded to disk; "
+        f"the next admission promoted {promoted} to the host (recomputing), "
+        f"the one after onboarded {got}; streams equal to the cold one: "
+        f"{g3_same}")
+    return {"ttft_cold": ttft[0], "ttft_onboarded": ttft[1],
+            "onboarded": onboarded}
+
+
+def swap_phase(seed: int, smi: str) -> None:
+    """Phase 14: preempt-to-swap and the KVBM tiers on Llama-3-8B at full
+    width and depth (random weights from the serving seed, every engine
+    warmed up, steps captured, the pipelined loop on):
+
+    - swap, in bf16 and int8 KV: SWAP_REQUESTS requests of SWAP_PROMPT
+      tokens x SWAP_OUTPUT (ignore_eos) on a pool of half their working
+      set plus one block, with SWAP_HOST_BYTES of host budget: swap
+      preemptions, none recomputed, blocks out = in, no host byte or
+      swapped block left; each victim's ``blocks_digest`` equal before
+      its swap-out and after its swap-in (:class:`SwapSpy`); the streams
+      equal to a never-preempting pool's, or parting first at a near tie
+      (``tie_rule``: the batch rows differ, and bf16 GEMMs round apart at
+      another M); the ragged kernel once a layer every step. The same
+      requests again on the small pool without its swapper (recompute
+      preemption) and the tok/s, TTFT and ITL of all three; swap-out and
+      swap-in GB/s beside a plain pinned copy (:func:`swap_bandwidth`).
+    - G2 onboarding: a TIER_PROMPT-token prompt on a TIER_HOST_BYTES host
+      tier, served, ``pool.clear()``, served again: every matchable block
+      onboarded (digest equal to the cold run's), both TTFTs, the stream
+      gated as above.
+    - G3: a host tier of CASCADE_HOST_BLOCKS blocks over a disk tier in
+      TIER_DIR (removed after): a CASCADE_PROMPT-token prompt cascades to
+      disk, the next admission promotes the prefix's first blocks to the
+      host while it recomputes, the one after onboards them."""
+    cfg = get_model_config("llama3_8b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), torch.device("cuda"))
+    log(f"swap and tier phase: llama3_8b weights drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for kv in (None, "int8"):
+        out = asyncio.run(_swap_runs(cfg, params, seed, smi, kv))
+        swap_bandwidth(out["small"], smi, f"llama3_8b {kv or 'bf16'} KV")
+        _release(out["small"])
+        _release(out["big"])
+        del out
+    shutil.rmtree(TIER_DIR, ignore_errors=True)
+    engine = _swap_engine(cfg, params, seed, None, 1024, max_model_len=8192,
+                          kvbm_host_bytes=TIER_HOST_BYTES,
+                          kvbm_disk_dir=str(TIER_DIR),
+                          kvbm_disk_bytes=CASCADE_DISK_BYTES)
+
+    async def tiers():
+        try:
+            return await _tier_runs(engine, seed, smi)
+        finally:
+            await engine.close()
+
+    try:
+        asyncio.run(tiers())
+    finally:
+        shutil.rmtree(TIER_DIR, ignore_errors=True)
+        _release(engine)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _release(engine) -> None:
     engine.drop_graphs()  # they hold the weights and caches
     engine.params = engine.k_cache = engine.v_cache = None
@@ -4892,6 +5313,8 @@ def main() -> int:
     mark("phase 13a")
     launches.update(llama70b_phase(a.seed, smi))
     mark("phase 13b")
+    swap_phase(a.seed, smi)
+    mark("phase 14")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for k in KERNELS:

@@ -13,12 +13,15 @@ interchange format, so pages move between the two engines unchanged.
 Host side: ``BlockPool`` refcounts blocks while sequences use them; on
 release, hash-identified full blocks park in an LRU prefix cache for
 reuse, and eviction emits the KV-removed events the router relies on.
+``SwapStore`` is the host-byte budget of preempt-to-swap, shared with the
+KVBM host tier when one is configured.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import threading
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -30,6 +33,65 @@ from dynamo_tpu_torch.tokens import SequenceHash
 logger = logging.getLogger("dynamo_torch.engine.cache")
 
 NULL_BLOCK = 0
+
+
+class SwapStore:
+    """Byte budget of the KV that preempt-to-swap keeps in host memory.
+
+    Only the arithmetic lives here: the bundles live on the engine's swap
+    entries. The scheduler's swap-out asks ``reserve()`` first and falls
+    back to recompute preemption when the answer is no.
+
+    ``external_used`` shares the budget with the KVBM host tier: swap may
+    reserve budget − swap-reserved − G2-resident bytes, and the tier's puts
+    evict down to budget − swap-reserved (``HostTier.external_used``, wired
+    by the engine). ``make_room(target_bytes)`` asks the tier to shrink to
+    ``target_bytes`` when a reservation does not fit: its entries are
+    copies, a victim's KV would otherwise be recomputed. Thread-safe: the
+    reserve runs on the event loop, a release may come from a copy's
+    completion.
+    """
+
+    def __init__(self, budget_bytes: int,
+                 external_used: Optional[Callable[[], int]] = None,
+                 make_room: Optional[Callable[[int], None]] = None):
+        self.budget = max(0, int(budget_bytes))
+        self.external_used = external_used
+        self.make_room = make_room
+        self.used = 0  # bytes reserved by live swap entries
+        self._lock = threading.Lock()
+
+    def _external(self) -> int:
+        # an attribute read on the host tier, never its lock: a race with a
+        # concurrent put is bounded by one block, because the tier enforces
+        # the shared budget from its side too
+        if self.external_used is None:
+            return 0
+        try:
+            return int(self.external_used())
+        except Exception:  # a broken probe must not wedge swap
+            logger.exception("swap external_used probe failed")
+            return 0
+
+    def reserve(self, nbytes: int) -> bool:
+        with self._lock:
+            ext = self._external()
+            avail = self.budget - self.used - ext
+            if avail < nbytes and self.make_room is not None and ext > 0:
+                # the tier takes its own lock and never ours: no cycle
+                try:
+                    self.make_room(max(0, ext - (nbytes - avail)))
+                except Exception:
+                    logger.exception("swap make_room failed")
+                avail = self.budget - self.used - self._external()
+            if avail < nbytes:
+                return False
+            self.used += nbytes
+            return True
+
+    def release(self, nbytes: int) -> None:
+        with self._lock:
+            self.used = max(0, self.used - nbytes)
 
 
 @dataclass
@@ -62,6 +124,16 @@ class BlockPool:
         self._by_hash: dict[SequenceHash, int] = {}
         #: inactive (refcount 0) cached blocks, LRU order (oldest first)
         self._lru: "OrderedDict[SequenceHash, int]" = OrderedDict()
+        #: blocks' worth of KV parked in host memory by preempt-to-swap:
+        #: not device-resident (their ids were released), but their
+        #: sequences are live and allocate again at swap-in
+        self.swapped_blocks = 0
+
+    def note_swapped_out(self, n: int) -> None:
+        self.swapped_blocks += n
+
+    def note_swapped_in(self, n: int) -> None:
+        self.swapped_blocks = max(0, self.swapped_blocks - n)
 
     @property
     def num_free_blocks(self) -> int:

@@ -294,11 +294,6 @@ UNPORTED_KNOBS = {
     "dp_size": (1, "A11"),
     "pp_size": (1, "A11"),
     "use_pallas_attention": (False, "B1: the port's kernel is always on"),
-    "kvbm_host_bytes": (0, "A8e"),
-    "kvbm_disk_dir": (None, "A8e"),
-    "kvbm_disk_bytes": (0, "A8e"),
-    "preempt_swap": (False, "A8e"),
-    "swap_host_bytes": (None, "A8e"),
 }
 
 
@@ -385,16 +380,25 @@ class EngineArgs:
     #: (engine/quant.py); the matmul weights stay quantized on the card and
     #: every product through them runs the dequant-GEMM (ops/qmm.py)
     quantization: Optional[str] = None
+    #: KVBM tiers (0 = off): G2 host bytes, and G3 as a directory and
+    #: its bytes (``kvbm/``)
+    kvbm_host_bytes: int = 0
+    kvbm_disk_dir: Optional[str] = None
+    kvbm_disk_bytes: int = 0
+    #: preempt-to-swap: under KV pressure a victim's device pages move to
+    #: host memory (the same value / packed int8 bundles the G2 tier
+    #: holds) and come back before its next step, instead of being
+    #: released and prefilled again. Recompute preemption stays the
+    #: fallback when the host budget is exhausted or a copy fails.
+    preempt_swap: bool = True
+    #: host bytes for swapped-out KV. None = share the G2 tier's budget
+    #: when kvbm_host_bytes > 0, else 1 GiB of its own
+    swap_host_bytes: Optional[int] = None
     # knobs of the JAX package not ported yet (UNPORTED_KNOBS)
     tp_size: int = 1
     dp_size: int = 1
     pp_size: int = 1
     use_pallas_attention: bool = False
-    kvbm_host_bytes: int = 0
-    kvbm_disk_dir: Optional[str] = None
-    kvbm_disk_bytes: int = 0
-    preempt_swap: bool = False
-    swap_host_bytes: Optional[int] = None
 
     def __post_init__(self):
         if self.speculative_method not in ("prompt_lookup", "draft_layers"):

@@ -70,7 +70,20 @@ later chunks compute and layer frames of the last chunk);
 ``alloc_inject``, ``scatter_chunk`` and ``generate_prefilled`` (or
 ``generate_injected`` for a whole bundle) decode a prompt whose KV was
 computed elsewhere; ``export_blocks`` serves a peer's pull from the device
-prefix cache and ``attach_restored`` registers pulled blocks in it.
+prefix cache and its host and disk tiers, and ``attach_restored``
+registers pulled blocks in the prefix cache.
+
+Preempt-to-swap (``EngineArgs.preempt_swap``, on by default as in the JAX
+package) and the KVBM tiers (``kvbm_host_bytes``, ``kvbm_disk_dir``,
+``kvbm_disk_bytes``): the engine is the scheduler's swapper and onboarding
+hook. A victim's pages are gathered on the engine's stream before its
+blocks are released, copied to pinned host memory on a copy stream of their
+own (the next step does not queue behind the PCIe transfer), and scattered
+back in place before the sequence's next step. Full blocks are offloaded to
+the host tier as they register, and a prompt prefix the device pool lost is
+written back from it at admission (from disk, after a background promotion
+to the host tier). Gathers and scatters are ``ops/block_copy.py``'s; they
+write the caches in place, so the graphs' addresses hold.
 
 The engine runs on the card: ``device=None`` means "cuda" and raises when
 CUDA is missing. Only an explicit ``device="cpu"`` runs on the CPU, where
@@ -99,8 +112,9 @@ import torch
 
 from dynamo_tpu_torch.engine import sampling
 from dynamo_tpu_torch.engine.cache import (
-    NULL_BLOCK, BlockPool, allocate_device_cache, cache_shape, is_quant_cache,
-    kv_block_bytes, memory_sized_num_blocks, packed_block_width,
+    NULL_BLOCK, BlockPool, SwapStore, allocate_device_cache, cache_shape,
+    is_quant_cache, kv_block_bytes, memory_sized_num_blocks,
+    packed_block_width,
 )
 from dynamo_tpu_torch.engine.config import (
     RAGGED_MAX_CHUNKS, EngineArgs, ModelConfig,
@@ -135,6 +149,31 @@ TOP_LOGPROBS = 20
 #: most page bytes (k and v) one disagg transfer frame carries, well under
 #: the response plane's 256 MiB frame cap (``runtime/codec.py``)
 FRAME_BYTES = 64 << 20
+
+#: preempt-to-swap's host budget of its own, when no G2 tier is configured
+DEFAULT_SWAP_HOST_BYTES = 1 << 30
+
+
+class _SwapEntry:
+    """One swapped-out sequence's host bundle and budget reservation.
+
+    Created when the gather is enqueued (budget reserved), ready when the
+    host copy has landed, freed when swap-in's copy to the card has landed
+    or at teardown. ``dropped`` marks a teardown that raced the copy: the
+    copy's task frees the reservation when it ends."""
+
+    __slots__ = ("n", "nbytes", "k", "v", "ready", "failed", "freed",
+                 "dropped")
+
+    def __init__(self, n: int, nbytes: int):
+        self.n = n              # device blocks captured
+        self.nbytes = nbytes    # reserved against the SwapStore budget
+        self.k = None           # host bundle [L, n, bs, KV, hd] or packed
+        self.v = None
+        self.ready = False
+        self.failed = False
+        self.freed = False
+        self.dropped = False
 
 
 def _has_penalties(s) -> bool:
@@ -231,9 +270,54 @@ class AsyncTorchEngine:
         self.num_blocks = nb
         self.k_cache, self.v_cache = allocate_device_cache(
             cfg, nb, args.block_size, self.device, self.dtype, kv_dtype)
+        #: the KVBM host and disk tiers (None = off; they need the prefix
+        #: cache, whose hashes key them)
+        self.kvbm = None
+        if args.kvbm_host_bytes > 0 and args.enable_prefix_caching:
+            from dynamo_tpu_torch.kvbm import KvbmManager
+            self.kvbm = KvbmManager(args.kvbm_host_bytes,
+                                    disk_dir=args.kvbm_disk_dir,
+                                    disk_bytes=args.kvbm_disk_bytes,
+                                    # the router hears of a removal only
+                                    # when the last local copy dies
+                                    on_change=self._on_kvbm_change)
+        #: the offloads', promotions' and swap copies' tasks: close()
+        #: waits for them
+        self._offload_tasks: set = set()
+        self._promoting: set = set()
+        self._loop_ref: Optional[asyncio.AbstractEventLoop] = None
+        #: device-to-host copies of swap-outs and offloads run here, off
+        #: the stream the steps run on
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
         self.pool = BlockPool(nb, args.enable_prefix_caching,
                               on_removed=self._on_removed)
-        self.scheduler = Scheduler(args, self.pool, on_stored=self._on_stored)
+        #: preempt-to-swap's host budget, shared with the G2 tier when one
+        #: is configured and swap_host_bytes is not given
+        self._swap: Optional[SwapStore] = None
+        if args.preempt_swap:
+            budget = args.swap_host_bytes
+            shared = room = None
+            if budget is None:
+                if self.kvbm is not None:
+                    budget = args.kvbm_host_bytes
+                    shared = lambda: self.kvbm.host.used  # noqa: E731
+                    # a full G2 LRU yields its bytes to swap reservations
+                    room = self.kvbm.make_host_room
+                else:
+                    budget = DEFAULT_SWAP_HOST_BYTES
+            self._swap = SwapStore(budget, external_used=shared,
+                                   make_room=room)
+            if shared is not None:
+                # the other direction: G2's puts evict down to the budget
+                # less the swap reservations
+                self.kvbm.host.external_used = lambda: self._swap.used
+        self.swap_out_blocks = 0
+        self.swap_in_blocks = 0
+        self.scheduler = Scheduler(
+            args, self.pool, on_stored=self._on_stored,
+            onboard_cb=self._onboard if self.kvbm is not None else None,
+            swapper=self if self._swap is not None else None)
         self.step_fn = make_ragged_step_fn(cfg, args.block_size)
         self._seq_counter = itertools.count()
         self._wake = asyncio.Event()
@@ -475,8 +559,9 @@ class AsyncTorchEngine:
         yield {"embeddings": vecs}
 
     def _ensure_loop(self) -> None:
+        self._loop_ref = asyncio.get_running_loop()
         if self._task is None or self._task.done():
-            self._task = asyncio.get_running_loop().create_task(self._run())
+            self._task = self._loop_ref.create_task(self._run())
 
     async def close(self) -> None:
         self._closed = True
@@ -486,6 +571,9 @@ class AsyncTorchEngine:
                 await self._task
             except asyncio.CancelledError:
                 pass
+        if self._offload_tasks:
+            await asyncio.gather(*list(self._offload_tasks),
+                                 return_exceptions=True)
         if self.direct_transfer is not None:
             self.direct_transfer.close()
 
@@ -957,7 +1045,9 @@ class AsyncTorchEngine:
         trip between its draw and its emission (logprob capture, logit
         edits, host-oracle guided rows; device FSM rows ride the loop,
         their mask and advance inside the sampling step)."""
+        # swapped sequences need plan() for their swap-in pass
         if (not self.args.pipeline_decode or self.scheduler.waiting
+                or self.scheduler.swapped
                 or self.args.multi_step_decode > 1
                 or self.args.speculative_tokens > 0):
             return False
@@ -1072,7 +1162,7 @@ class AsyncTorchEngine:
                 await self._commit_decode_step(committed)
             await asyncio.sleep(0)  # the streams take their tokens
             if (done >= self.PIPELINE_REPLAN_STEPS or self._closed
-                    or self.scheduler.waiting
+                    or self.scheduler.waiting or self.scheduler.swapped
                     or any(s.finished is not None for s in seqs)
                     or any(getattr(s.ctx, "cancelled", False)
                            or getattr(s.ctx, "expired", False)
@@ -1998,9 +2088,9 @@ class AsyncTorchEngine:
     # A migrated request's recoverable prefix is pulled from peers and
     # attached HERE through the prefix cache (registered, announced), so the
     # following generate() prefix-matches it and recomputes only the tail.
-    # The attach charges nothing to QoS: prefix hits never do. The port
-    # serves and attaches from the device prefix cache only (the KVBM host
-    # and disk tiers are ROADMAP A8e).
+    # The attach charges nothing to QoS: prefix hits never do. A pull is
+    # served from the device prefix cache, then the KVBM host and disk
+    # tiers.
 
     def restore_probe(self, req: PreprocessedRequest):
         """The hash chain over the request's matchable full blocks, which
@@ -2017,11 +2107,17 @@ class AsyncTorchEngine:
             list(req.token_ids[: matchable * bs]), bs, KV_HASH_SEED)
 
     def resident_prefix_blocks(self, probe) -> int:
-        """Leading blocks of ``probe`` held here without a pull: in the
-        device prefix cache (the port has no host tier yet)."""
+        """Leading blocks of ``probe`` recoverable here without a pull: in
+        the device prefix cache, or in the host tier that admission's
+        onboarding reads. The disk tier does not count: it only feeds a
+        background promotion, and counting it would skip pulls the stream
+        needs."""
+        hashes = probe.sequence_hashes()
+        in_host = (self.kvbm.host_resident(hashes)
+                   if self.kvbm is not None else frozenset())
         n = 0
-        for h in probe.sequence_hashes():
-            if self.pool.lookup(h) is None:
+        for h in hashes:
+            if self.pool.lookup(h) is None and h not in in_host:
                 break
             n += 1
         return n
@@ -2081,11 +2177,10 @@ class AsyncTorchEngine:
         if ids is None:
             return None
         try:
-            dev = self.device
-            scatter_blocks(self.k_cache, ids,
-                           torch.stack(ks, 1).to(dev), block_size=bs)
-            scatter_blocks(self.v_cache, ids,
-                           torch.stack(vs, 1).to(dev), block_size=bs)
+            scatter_blocks(self.k_cache, ids, self._stack_blocks(ks),
+                           block_size=bs)
+            scatter_blocks(self.v_cache, ids, self._stack_blocks(vs),
+                           block_size=bs)
         except Exception:
             self.pool.release(ids)
             logger.exception("block attach scatter failed")
@@ -2103,31 +2198,68 @@ class AsyncTorchEngine:
                                               stored))
         return ids
 
+    def _stack_blocks(self, blocks: list) -> torch.Tensor:
+        """Per-block host tensors as one [L, n, ...] bundle on the engine's
+        device: on the card each block is copied on its own (pinned ones
+        asynchronously, the host allocator keeping them until the copy has
+        landed) into a block-major device buffer, whose transposed view
+        the scatter takes; no host-side stack of the whole run."""
+        if self.device.type == "cpu":
+            return torch.stack(blocks, 1)
+        first = blocks[0]
+        out = torch.empty((len(blocks), *first.shape), dtype=first.dtype,
+                          device=self.device)
+        for dst, b in zip(out, blocks):
+            dst.copy_(b, non_blocking=True)
+        return out.transpose(0, 1)
+
     async def export_blocks(self, hashes: list[int],
                             max_blocks: Optional[int] = None):
         """Serve a peer's pull: yield (seq_hash, k, v) host tensors for the
-        longest LEADING run of ``hashes`` in the device prefix cache (at
-        most ``max_blocks``), pinned across the asynchronous gather."""
+        longest LEADING run of ``hashes`` recoverable here (at most
+        ``max_blocks``): from the device prefix cache (pinned across the
+        asynchronous gather), then from the host and disk tiers (read in a
+        worker thread). Stops at the first hash found nowhere: a restore
+        attaches contiguous prefixes only."""
         bs = self.args.block_size
         budget = max_blocks if max_blocks is not None else len(hashes)
-        run: list[tuple[int, int]] = []
-        for h in hashes[:max(0, budget)]:
-            bid = self.pool.lookup(h)
-            if bid is None:
+        run: list[tuple[int, int]] = []  # (hash, block id) on the device
+
+        async def flush_run():
+            if not run:
+                return
+            ids = [bid for _, bid in run]
+            self.pool.acquire(ids)
+            try:
+                kb, vb = await self._stage_host(
+                    gather_blocks(self.k_cache, ids, block_size=bs),
+                    gather_blocks(self.v_cache, ids, block_size=bs))
+            finally:
+                self.pool.release(ids)
+            for i, (h, _bid) in enumerate(run):
+                yield h, kb[:, i], vb[:, i]
+            run.clear()
+
+        served = 0
+        for h in hashes:
+            if served >= budget:
                 break
-            run.append((h, bid))
-        if not run:
-            return
-        ids = [bid for _, bid in run]
-        self.pool.acquire(ids)
-        try:
-            kb, vb = await self._stage_host(
-                gather_blocks(self.k_cache, ids, block_size=bs),
-                gather_blocks(self.v_cache, ids, block_size=bs))
-        finally:
-            self.pool.release(ids)
-        for i, (h, _bid) in enumerate(run):
-            yield h, kb[:, i], vb[:, i]
+            bid = self.pool.lookup(h)
+            if bid is not None:
+                run.append((h, bid))
+                served += 1
+                continue
+            async for item in flush_run():
+                yield item
+            e = None
+            if self.kvbm is not None:
+                e = await asyncio.to_thread(self.kvbm.get_local, h)
+            if e is None:
+                break  # contiguity ends here
+            served += 1
+            yield h, e[0], e[1]
+        async for item in flush_run():
+            yield item
 
     # ------------------------------------------------------------- events
 
@@ -2136,15 +2268,356 @@ class AsyncTorchEngine:
         if self.event_cb:
             self.event_cb(KvCacheEvent.stored(next(self._event_id),
                                               parent_hash, blocks))
+        if self.kvbm is not None and block_ids:
+            fresh = [(b.block_hash, bid) for b, bid in zip(blocks, block_ids)
+                     if b.block_hash not in self.kvbm]
+            if fresh:
+                self._spawn_offload([h for h, _ in fresh],
+                                    [bid for _, bid in fresh])
 
     def _on_removed(self, seq_hashes) -> None:
         if self.event_cb is None:
             return
         if seq_hashes is None:  # BlockPool.clear()
             self.event_cb(KvCacheEvent.clear(next(self._event_id)))
-        else:
+            return
+        # a block evicted from the device but still in the host or disk
+        # tier is not gone: admission onboards it and pulls serve it, so it
+        # stays in the router's index until its last local copy dies
+        # (_on_kvbm_change)
+        if self.kvbm is not None:
+            seq_hashes = self.kvbm.filter_not_local(seq_hashes)
+        if seq_hashes:
             self.event_cb(KvCacheEvent.removed(next(self._event_id),
                                                list(seq_hashes)))
+
+    def _on_kvbm_change(self, stored, removed) -> None:
+        """``KvbmManager.on_change``: a hash that left the last tier and is
+        not on the device either is announced removed, or the router would
+        keep sending pulls and requests for KV this worker cannot serve.
+        Stored hashes need no event (they came from the device, which
+        announced them). Called under the manager's lock, perhaps from a
+        worker thread: the event goes out on the engine's loop."""
+        if self.event_cb is None or not removed:
+            return
+
+        def emit():
+            gone = [h for h in removed if self.pool.lookup(h) is None]
+            if gone and self.event_cb is not None:
+                self.event_cb(KvCacheEvent.removed(next(self._event_id),
+                                                   gone))
+
+        try:
+            asyncio.get_running_loop()
+        except RuntimeError:
+            loop = self._loop_ref
+            if loop is not None and not loop.is_closed():
+                loop.call_soon_threadsafe(emit)
+            return
+        emit()
+
+    # ------------------------------------------------------- host copies
+
+    def _track(self, coro) -> None:
+        """Run ``coro`` as a task that close() waits for."""
+        task = asyncio.get_running_loop().create_task(coro)
+        self._offload_tasks.add(task)
+        task.add_done_callback(self._offload_tasks.discard)
+
+    def _gathered(self) -> Optional[torch.cuda.Event]:
+        """An event recorded on the engine's stream right after gathers
+        (None on the CPU): the copy stream waits for it."""
+        if self.device.type == "cpu":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def _copy_out(self, tensors, gathered, per_block: bool) -> tuple:
+        """Device-to-host copies of the gathers' outputs into pinned
+        memory, on the copy stream behind ``gathered``. ``per_block``: each
+        [L, n, ...] tensor comes back as n contiguous [L, ...] host tensors
+        (made block-major on the device first, on the copy stream). Returns
+        (host tensors or lists of them, the event that marks the copies
+        done); the device tensors are kept until then
+        (``record_stream``). On the CPU: copies made now, and no event."""
+        if self.device.type == "cpu":
+            if per_block:
+                return [[t[:, i].clone() for i in range(t.shape[1])]
+                        for t in tensors], None
+            return list(tensors), None
+        def pinned_copy(t):
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return h.copy_(t, non_blocking=True)
+
+        cs = self._copy_stream
+        out = []
+        with torch.cuda.stream(cs):
+            cs.wait_event(gathered)
+            for t in tensors:
+                t.record_stream(cs)
+                out.append([pinned_copy(b) for b in
+                            t.transpose(0, 1).contiguous()]
+                           if per_block else pinned_copy(t))
+            done = torch.cuda.Event()
+            done.record(cs)
+        return out, done
+
+    # ----------------------------------------------------- KVBM offload
+
+    def _spawn_offload(self, seq_hashes: list, block_ids: list[int]) -> None:
+        """G1 → G2: pin the blocks, enqueue their gathers now (behind the
+        step that filled them), and put their pages into the host tier once
+        the copy has landed."""
+        self.pool.acquire(block_ids)
+        try:
+            bs = self.args.block_size
+            kb = gather_blocks(self.k_cache, block_ids, block_size=bs)
+            vb = gather_blocks(self.v_cache, block_ids, block_size=bs)
+            gathered = self._gathered()
+        except Exception:
+            logger.exception("KVBM offload gather failed")
+            self.pool.release(block_ids)
+            return
+        self._track(self._offload(seq_hashes, block_ids, (kb, vb),
+                                  gathered))
+
+    async def _offload(self, seq_hashes: list, block_ids: list[int],
+                       pages: tuple, gathered) -> None:
+        def work():  # the copies, their wait and the tier writes
+            (ks, vs), done = self._copy_out(pages, gathered, per_block=True)
+            if done is not None:
+                done.synchronize()
+            for h, k, v in zip(seq_hashes, ks, vs):
+                self.kvbm.put(h, k, v)
+
+        try:
+            await asyncio.to_thread(work)
+        except Exception:
+            logger.exception("KVBM offload failed")
+        finally:
+            self.pool.release(block_ids)
+
+    def _spawn_promote(self, hashes: list) -> None:
+        """G3 → G2 in a worker thread (the file reads stay off the event
+        loop); the next admission of the prefix onboards from the host."""
+        todo = [h for h in hashes if h not in self._promoting]
+        if not todo:
+            return
+        self._promoting.update(todo)
+
+        async def run():
+            try:
+                # the earliest blocks last: if the host tier cannot hold the
+                # whole run it keeps those (a prefix is usable from its
+                # first block on)
+                for h in reversed(todo):
+                    await asyncio.to_thread(self.kvbm.get, h)
+            except Exception:
+                logger.exception("KVBM disk promotion failed")
+            finally:
+                self._promoting.difference_update(todo)
+
+        self._track(run())
+
+    def _onboard(self, probe, start: int, end: int) -> list[int]:
+        """G2 → G1 at admission: prefix blocks [start, end) found in the
+        host tier are written into fresh device blocks now (it replaces a
+        far dearer recompute). A block found only on disk is not read here
+        (a file read inside plan() would stall every decode): a background
+        promotion brings the rest of the run to the host tier."""
+        hashes = probe.sequence_hashes()[start:end]
+        ks, vs = [], []
+        for i, h in enumerate(hashes):
+            e = self.kvbm.get_host(h)
+            if e is None:
+                if self.kvbm.in_lower_tier(h):
+                    self._spawn_promote(hashes[i:])
+                break
+            ks.append(e[0])
+            vs.append(e[1])
+        if not ks:
+            return []
+        ids = self._scatter_register(probe, start, ks, vs)
+        if ids is None:
+            return []
+        self.kvbm.onboarded_blocks += len(ks)
+        return ids
+
+    # ---------------------------------------------------- preempt-to-swap
+    #
+    # The scheduler's swapper: under KV pressure a victim's pages move to
+    # host memory (swap_out) and come back before its next step (swap_in)
+    # instead of being recomputed. The bundles are the G2 tier's and the
+    # disagg wire's formats (values, or packed (q, s) uint8 for int8
+    # caches), so the round trip is bit-exact.
+
+    def _swap_block_bytes(self) -> int:
+        """Host bytes one swapped block costs (k and v, every layer)."""
+        kv_dtype = "int8" if is_quant_cache(self.k_cache) else None
+        return kv_block_bytes(self.cfg, self.args.block_size, self.dtype,
+                              kv_dtype)
+
+    def swap_out(self, seq: SeqState) -> bool:
+        """Stage ``seq``'s computed KV in host memory; True = the scheduler
+        may release its blocks and park it in the swapped queue.
+
+        The gathers are enqueued here on the engine's stream, before the
+        release: stream order makes them read the pages before any later
+        step reuses them. The copy to pinned memory runs on the copy stream
+        in a task, which marks the entry ready once it has landed."""
+        bs = self.args.block_size
+        n = (seq.num_computed + bs - 1) // bs  # blocks holding computed KV
+        if n <= 0 or n > len(seq.block_table):
+            return False
+        nbytes = n * self._swap_block_bytes()
+        if not self._swap.reserve(nbytes):
+            return False  # host budget exhausted: recompute
+        entry = _SwapEntry(n, nbytes)
+        try:
+            ids = seq.block_table[:n]
+            kb = gather_blocks(self.k_cache, ids, block_size=bs)
+            vb = gather_blocks(self.v_cache, ids, block_size=bs)
+            gathered = self._gathered()
+        except Exception:
+            logger.exception("swap-out gather failed for %s",
+                             seq.request_id)
+            self._swap.release(nbytes)
+            return False
+        seq.swap = entry
+        self.swap_out_blocks += n
+        self.pool.note_swapped_out(n)
+
+        async def copy():
+            def work():
+                (k, v), done = self._copy_out((kb, vb), gathered,
+                                              per_block=False)
+                if done is not None:
+                    done.synchronize()
+                return k, v
+
+            try:
+                entry.k, entry.v = await asyncio.to_thread(work)
+                entry.ready = True
+            except Exception:
+                logger.exception("swap-out host copy failed for %s",
+                                 seq.request_id)
+                entry.failed = True
+                self._swap_free(entry)
+            finally:
+                if entry.dropped:
+                    self._swap_free(entry)
+                self._wake.set()  # a ready bundle can unblock plan()
+
+        self._track(copy())
+        return True
+
+    def swap_status(self, seq: SeqState) -> str:
+        entry = seq.swap
+        if entry is None or entry.failed or entry.freed:
+            return "failed"
+        return "ready" if entry.ready else "pending"
+
+    def swap_in(self, seq: SeqState) -> bool:
+        """Write the host bundle into the freshly allocated blocks, in
+        place and on the engine's stream, before the next step is enqueued;
+        the bundle is freed once its copy to the card has landed. Returning
+        full blocks are registered again, and those the prefix cache no
+        longer held are announced again."""
+        entry: _SwapEntry = seq.swap
+        if (entry is None or not entry.ready or entry.failed or entry.freed
+                or len(seq.block_table) < entry.n):
+            return False
+        bs = self.args.block_size
+        ids = seq.block_table[:entry.n]
+        try:
+            scatter_blocks(self.k_cache, ids, entry.k, block_size=bs)
+            scatter_blocks(self.v_cache, ids, entry.v, block_size=bs)
+        except Exception:
+            logger.exception("swap-in scatter failed for %s", seq.request_id)
+            entry.failed = True
+            self.pool.note_swapped_in(entry.n)
+            self._swap_free(entry)
+            seq.swap = None
+            return False
+        self.swap_in_blocks += entry.n
+        self.pool.note_swapped_in(entry.n)
+        seq.swap = None
+        if self.device.type == "cpu":
+            self._swap_free(entry)
+        else:
+            landed = torch.cuda.Event()
+            landed.record()
+
+            async def free():
+                try:
+                    await asyncio.to_thread(landed.synchronize)
+                finally:
+                    self._swap_free(entry)
+
+            self._track(free())
+        stored: list[StoredBlock] = []
+        stored_ids: list[int] = []
+        parent = None
+        for i in range(min(seq.num_registered_blocks, entry.n)):
+            blk = seq.hashes.blocks[i]
+            if self.pool.register(seq.block_table[i], blk.sequence_hash):
+                if not stored:
+                    parent = blk.parent_sequence_hash
+                stored.append(StoredBlock(block_hash=blk.sequence_hash,
+                                          tokens_hash=blk.block_hash))
+                stored_ids.append(seq.block_table[i])
+        if stored:
+            self._on_stored(parent, stored, stored_ids)
+        return True
+
+    def swap_drop(self, seq: SeqState) -> None:
+        """Teardown: free the bundle and its budget, or mark the copy in
+        flight to free them when it ends."""
+        entry: _SwapEntry = seq.swap
+        if entry is None:
+            return
+        seq.swap = None
+        entry.dropped = True
+        self.pool.note_swapped_in(entry.n)
+        if entry.ready or entry.failed:
+            self._swap_free(entry)
+
+    def _swap_free(self, entry: _SwapEntry) -> None:
+        if entry.freed:
+            return
+        entry.freed = True
+        entry.k = entry.v = None
+        self._swap.release(entry.nbytes)
+
+    def swap_stats(self) -> dict:
+        """The swap counters and gauges, under the JAX engine's names."""
+        sched = self.scheduler
+        return {
+            "swap_out_blocks": self.swap_out_blocks,
+            "swap_in_blocks": self.swap_in_blocks,
+            "preempt_swap": sched.preempt_swap_total,
+            "preempt_recompute": sched.preempt_recompute_total,
+            "swap_in_seqs": sched.swap_in_total,
+            "recomputed_tokens": sched.recomputed_tokens_total,
+            "swapped_seqs": len(sched.swapped),
+            "swapped_blocks": self.pool.swapped_blocks,
+            "swap_host_bytes": self._swap.used if self._swap else 0,
+            "swap_host_budget": self._swap.budget if self._swap else 0,
+            "swap_in_blocked": sched.swap_in_blocked_total,
+        }
+
+    def kv_tier_occupancy(self) -> dict:
+        """{tier: {"blocks": n, "bytes": n}} for G1 (the device pool's
+        active blocks) to G4; tiers that are not configured report zeros
+        (G4 always, in the port)."""
+        g1 = self.pool.num_active_blocks
+        out = {"g1": {"blocks": g1, "bytes": g1 * self._swap_block_bytes()}}
+        st = self.kvbm.stats() if self.kvbm is not None else None
+        for tier, key in (("g2", "host"), ("g3", "disk"), ("g4", "remote")):
+            out[tier] = {"blocks": st[f"{key}_blocks"] if st else 0,
+                         "bytes": st[f"{key}_bytes"] if st else 0}
+        return out
 
     def _metrics(self) -> ForwardPassMetrics:
         sched = self.scheduler
@@ -2152,7 +2625,9 @@ class AsyncTorchEngine:
             worker_stats=WorkerStats(
                 request_active_slots=len(sched.running),
                 request_total_slots=self.args.max_num_seqs,
-                num_requests_waiting=sched.num_waiting(),
+                # swapped sequences are waiting load: they hold no blocks
+                # but take capacity back before new admissions
+                num_requests_waiting=sched.num_waiting() + len(sched.swapped),
                 # workers that never asked for warmup report None, as the
                 # JAX engine's do
                 warmed_up=(self.warmed_up if self.warmup_requested

@@ -29,6 +29,10 @@ What a graph may rely on:
 - **One pool.** Every capture of a cache shares one memory pool: graphs
   replay one at a time on one stream, so their temporaries may overlap,
   and outputs a graph keeps stay allocated.
+- **No collection during a capture.** The garbage collector runs before
+  each capture and is off during it: a dead engine reached by a
+  collection mid-capture frees its graphs' pool (a ``cudaFree``) and
+  invalidates the capture (ROADMAP C9).
 
 Kernel launch counts: a wrapper adds one to its ``launches`` when it
 launches, which under capture happens once. Each graph records the counts
@@ -41,6 +45,7 @@ runs every step eagerly.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable
 
@@ -118,9 +123,18 @@ class GraphCache:
     def _capture(self, fn: Callable) -> _Graph:
         before = [w.launches for w in COUNTED]
         torch.cuda.synchronize(self.device)
+        # Dead objects in reference cycles (an engine, with its graphs,
+        # their pool, its pinned buffers and events) free CUDA resources
+        # when the garbage collector reaches them; a collection inside a
+        # capture would cudaFree a pool mid-capture and invalidate it.
+        # Collect them now, and hold the collector off until the capture
+        # has ended.
+        gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: the serial loop captures in a worker thread
             # while the event loop's thread may query events or embed
@@ -128,6 +142,8 @@ class GraphCache:
                                   capture_error_mode="thread_local"):
                 out = fn()
         finally:
+            if collecting:
+                gc.enable()
             deltas = [(w, w.launches - n) for w, n in zip(COUNTED, before)
                       if w.launches != n]
             for w, n in zip(COUNTED, before):

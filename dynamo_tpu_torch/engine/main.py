@@ -21,11 +21,16 @@ Roles (``--role``):
   no ``embed``.
 
 Every role serves ``kv_pull`` (peers' restore and onboard pulls from the
-device prefix cache) and ``clear_kv_blocks``. It takes the JAX worker's
-command line. The flags of what the port does not serve yet (every
-``EngineArgs`` knob in ``UNPORTED_KNOBS``, the KVBM tiers, multimodal
-encode, multi-host, profiling) are refused with the ROADMAP id that ports
-them. The guided-decoding alphabet comes from the tokenizer's
+device prefix cache and the KVBM host and disk tiers) and
+``clear_kv_blocks`` (the prefix cache and every tier). It takes the JAX
+worker's command line. Preempt-to-swap is on unless ``--no-preempt-swap``
+(``--swap-host-gb`` its budget), and ``--kvbm-host-gb``,
+``--kvbm-disk-dir`` and ``--kvbm-disk-gb`` configure the G2 and G3 tiers;
+the swap counters and gauges go out under the JAX worker's names. The
+flags of what the port does not serve yet (every ``EngineArgs`` knob in
+``UNPORTED_KNOBS``, the G4 tier and the distributed block manager,
+multimodal encode, multi-host, profiling) are refused with the ROADMAP id
+that ports them. The guided-decoding alphabet comes from the tokenizer's
 ``tokenizer.json`` (``llm/tokenizer.py``). One flag is the port's own:
 ``--device`` (default "cuda"; "cpu" only when asked for). The model dtype
 is the checkpoint config's, as the JAX worker reads it.
@@ -172,10 +177,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--structured-table-mb", type=float, default=None,
                     help="byte budget (MiB) for the device FSM arena; "
                          "default DYN_STRUCTURED_TABLE_MB or 64")
-    # on by default in the JAX worker, not ported: the flag that turns it
-    # off is accepted, and it is off
     ap.add_argument("--no-preempt-swap", dest="preempt_swap",
-                    action="store_false", default=False)
+                    action="store_false", default=True,
+                    help="disable preempt-to-swap (KV of preempted "
+                         "sequences staged in host DRAM and swapped back "
+                         "instead of recomputed); preemption then always "
+                         "releases + re-prefills")
     ap.add_argument("--kv-layer-groups", type=int, default=4,
                     help="layer groups the last prefill chunk's KV ships "
                          "in (<= 1: one bundle)")
@@ -201,8 +208,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="permit the toy tokenizer + eos=[2] defaults when "
                          "no --model-path is given (tests only)")
     ap.add_argument("--migration-limit", type=int, default=None)
-    ap.add_argument("--swap-host-gb", type=float, default=None)
-    ap.add_argument("--kvbm-host-gb", type=float, default=0.0)
+    ap.add_argument("--swap-host-gb", type=float, default=None,
+                    help="host-byte budget for swapped-out KV (default: "
+                         "share the G2 tier budget when --kvbm-host-gb is "
+                         "set, else 1 GiB)")
+    ap.add_argument("--kvbm-host-gb", type=float, default=0.0,
+                    help="host-DRAM KV tier size (0 = off)")
     ap.add_argument("--kvbm-disk-dir", default=None)
     ap.add_argument("--kvbm-disk-gb", type=float, default=0.0)
     ap.add_argument("--kvbm-g4-gb", type=float, default=0.0)
@@ -376,6 +387,7 @@ async def serve(cli, engine, args: EngineArgs, eos: list[int],
             "times the engine auto-suspended losing speculative "
             "decode").add_callback(
             lambda: {None: engine.spec_disabled_total})
+        register_swap_metrics(runtime.metrics, engine)
 
         prefill = cli.role == "prefill"
         component = cli.component or ("prefill" if prefill else "backend")
@@ -423,8 +435,10 @@ async def serve(cli, engine, args: EngineArgs, eos: list[int],
                 engine.embed_handler, lease_id=lease))
 
         async def clear_kv_handler(request, ctx):
-            """Admin flush: the device prefix cache."""
+            """Admin flush: the device prefix cache and every KVBM tier."""
             engine.pool.clear()
+            if engine.kvbm is not None:
+                await asyncio.to_thread(engine.kvbm.clear)
             yield {"ok": True, "message": "KV cache cleared"}
 
         handles.append(await comp.endpoint("clear_kv_blocks").serve_endpoint(
@@ -490,6 +504,42 @@ async def serve(cli, engine, args: EngineArgs, eos: list[int],
     finally:
         await runtime.shutdown()
     return report
+
+
+def register_swap_metrics(metrics, engine) -> None:
+    """The preempt-to-swap counters and gauges, under the JAX worker's
+    names, read from ``engine.swap_stats()`` at each scrape."""
+    def field(name):
+        return lambda: {None: engine.swap_stats()[name]}
+
+    for name, fld, help_ in (
+            ("swap_out_blocks_total", "swap_out_blocks",
+             "KV blocks swapped out to the host tier by preemption"),
+            ("swap_in_blocks_total", "swap_in_blocks",
+             "KV blocks swapped back to device from the host tier"),
+            ("preempt_swap_total", "preempt_swap",
+             "preemptions resolved by swap-out (KV preserved)"),
+            ("swap_in_seqs_total", "swap_in_seqs",
+             "swapped-out sequences re-activated by swap-in"),
+            ("preempt_recompute_total", "preempt_recompute",
+             "preemptions resolved by release-and-recompute (including "
+             "swap-outs whose swap-in later fell back)"),
+            ("preempt_recomputed_tokens_total", "recomputed_tokens",
+             "tokens discarded by recompute preemptions (re-prefilled)")):
+        metrics.counter(name, help_).add_callback(field(fld))
+    metrics.gauge(
+        "swap_host_bytes",
+        "host bytes held by swapped-out KV bundles").add_callback(
+        field("swap_host_bytes"))
+    metrics.gauge(
+        "swapped_blocks",
+        "KV blocks currently host-resident via preempt-to-swap").add_callback(
+        field("swapped_blocks"))
+    metrics.counter(
+        "swap_in_blocked_total",
+        "swap-in head-of-line candidates re-parked by the starvation "
+        "guard (failed block reservations)").add_callback(
+        field("swap_in_blocked"))
 
 
 def device_bytes(engine) -> Optional[int]:

@@ -1,17 +1,22 @@
 """Continuous batching scheduler: admission, chunked prefill, decode batching.
 
 The port's copy of ``dynamo_tpu/engine/scheduler.py``. Pure host logic: it
-must make the same plans as the JAX package's scheduler, or the two
-engines' streams diverge. The parts the port does not serve yet are left
-out: preempt-to-swap and KVBM onboarding (ROADMAP A8e). Preemption is
-therefore always release-and-recompute, which is what the JAX scheduler
-does when it has no swap budget. Disaggregated serving is in: a prefill
-sequence can hold its blocks past its finish (``hold_blocks``) and report
-each committed chunk (``progress_cb``), and a decode engine admits a
-sequence whose prompt KV was computed elsewhere (``add_prefilled``).
+must make the same plans as the JAX package's scheduler whenever swap
+copies are ready at the same steps, or the two engines' streams diverge.
+Disaggregated serving is in: a prefill sequence can hold its blocks past
+its finish (``hold_blocks``) and report each committed chunk
+(``progress_cb``), and a decode engine admits a sequence whose prompt KV
+was computed elsewhere (``add_prefilled``).
 
 - A sequence's lifecycle: waiting → running (prefill chunks → decode
-  steps) → finished.
+  steps) → finished, with a ``swapped`` station between waiting and
+  running: a preempted victim whose KV the ``swapper`` (the engine) staged
+  in host memory parks there and re-enters ``running`` at its old progress
+  once blocks free up. Only when the host budget is exhausted, or a copy
+  failed, does a victim fall back to release-and-recompute.
+- KVBM onboarding: prompt blocks the device pool misses but the host tier
+  holds come back through ``onboard_cb`` as fresh device blocks that
+  extend the prefix hit.
 - ``num_computed`` counts tokens whose KV is in the paged cache;
   ``remaining == 1`` means the next step is a decode, ``remaining > 1`` a
   prefill chunk (which also samples iff it reaches the end).
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 import logging
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -39,6 +45,12 @@ from dynamo_tpu_torch.router.protocols import StoredBlock
 from dynamo_tpu_torch.tokens import KV_HASH_SEED, TokenBlockSequence
 
 logger = logging.getLogger("dynamo_torch.engine.scheduler")
+
+#: starvation guard of the swapped queue: a swap-in candidate whose block
+#: reservation fails this many consecutive passes is re-parked behind its
+#: peers (swap_in_blocked_total counts it), so a large head-of-line
+#: sequence cannot block smaller resumable ones forever
+SWAP_IN_SKIP_AFTER = 3
 
 
 @dataclass
@@ -96,6 +108,12 @@ class SeqState:
     #: ``ngram_indexed``
     ngram_pos: dict = field(default_factory=dict)
     ngram_indexed: int = 0
+    #: preempt-to-swap: the engine's swap entry while this sequence's KV
+    #: lives in host memory (None = not swapped)
+    swap: object = None
+    preemptions: int = 0
+    swap_in_attempts: int = 0  # consecutive failed swap-in reservations
+    parked_t: float = 0.0  # when the sequence entered the swapped queue
 
     @property
     def remaining(self) -> int:
@@ -133,19 +151,42 @@ class Scheduler:
     """Plans one engine iteration; owns admission/preemption/bookkeeping."""
 
     def __init__(self, args: EngineArgs, pool: BlockPool,
-                 on_stored: Optional[Callable] = None):
+                 on_stored: Optional[Callable] = None,
+                 onboard_cb: Optional[Callable] = None,
+                 swapper: Optional[object] = None):
         self.args = args
         self.pool = pool
         self.on_stored = on_stored  # fn(parent_hash, [StoredBlock], [block_id])
+        #: fn(probe: TokenBlockSequence, start_block, end_block) ->
+        #: [block_id]: the KVBM onboarding hook; device misses found in the
+        #: host tier come back as fresh device blocks extending the hit
+        self.onboard_cb = onboard_cb
+        #: the preempt-to-swap backend (the engine): swap_out(seq) -> bool,
+        #: swap_status(seq) -> "ready" | "pending" | "failed",
+        #: swap_in(seq) -> bool, swap_drop(seq). None = recompute only
+        self.swapper = swapper
         self.qos = QosBook(args.qos)
         self.waiting: ClassQueues = ClassQueues(
             self.qos, fifo=not args.qos_scheduling)
         self.running: list[SeqState] = []
+        #: swapped-out victims, between waiting and running: the swap-in
+        #: pass runs before admission, so a resumed sequence takes its old
+        #: place ahead of fresh prompts. Best class first (aged ones jump
+        #: the order), FIFO within a class; plain FIFO without QoS
+        self.swapped: deque[SeqState] = deque()
         self.prefix_hit_tokens = 0
         self.prefix_query_tokens = 0
         #: one KV stored event per REQUEST unless per-chunk publishing
         #: was explicitly requested
         self._batch_events = not args.kv_event_per_chunk
+        #: preemptions by kind, sequences swapped back in, the tokens
+        #: recompute preemptions threw away (each re-prefilled), and the
+        #: starvation guard's re-parks
+        self.preempt_swap_total = 0
+        self.preempt_recompute_total = 0
+        self.swap_in_total = 0
+        self.recomputed_tokens_total = 0
+        self.swap_in_blocked_total = 0
 
     # -- api ----------------------------------------------------------------
 
@@ -171,7 +212,7 @@ class Scheduler:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.waiting or self.running)
+        return bool(self.waiting or self.running or self.swapped)
 
     def num_waiting(self) -> int:
         return len(self.waiting)
@@ -180,6 +221,7 @@ class Scheduler:
         """Admission + prefill chunks + the decode batch, under one token
         budget (the step is ONE packed launch)."""
         self._reap_cancelled()
+        self._swap_in_pass()
         self._admit()
         plan = StepPlan()
 
@@ -339,6 +381,8 @@ class Scheduler:
         self._flush_stored(seq)
         if seq in self.running:
             self.running.remove(seq)
+        if seq.swap is not None and self.swapper is not None:
+            self.swapper.swap_drop(seq)
         if not seq.hold_blocks:
             self.pool.release(seq.block_table)
             seq.block_table = []
@@ -401,6 +445,113 @@ class Scheduler:
                     s.finished = FinishReason.DEADLINE
                     s.sink.put_nowait(LLMEngineOutput(
                         finish_reason=FinishReason.DEADLINE))
+        for s in list(self.swapped):
+            # a swapped sequence holds no device blocks, only a host
+            # bundle and its reservation: drop both
+            if dead(s) or expired(s):
+                self.swapped.remove(s)
+                self.qos.leave(s)
+                if self.swapper is not None:
+                    self.swapper.swap_drop(s)
+                if dead(s):
+                    s.finished = FinishReason.CANCELLED
+                    s.sink.put_nowait(None)
+                else:
+                    s.finished = FinishReason.DEADLINE
+                    s.sink.put_nowait(LLMEngineOutput(
+                        finish_reason=FinishReason.DEADLINE))
+
+    def _swap_in_candidate(self, exclude: frozenset = frozenset()
+                           ) -> SeqState:
+        """The next swapped sequence to resume: aged ones first (the
+        oldest parked), then the best class, then FIFO by park time; plain
+        FIFO without QoS scheduling. ``exclude`` holds the ids re-parked
+        this pass, so that a sole best-class candidate is not picked again
+        straight after its own skip-ahead."""
+        if not self.args.qos_scheduling:
+            return self.swapped[0]
+        pool = [s for s in self.swapped if id(s) not in exclude] \
+            or list(self.swapped)
+        now = time.monotonic()
+        aging = self.qos.cfg.aging_s
+        if aging > 0:
+            aged = [s for s in pool if now - s.parked_t >= aging]
+            if aged:
+                return min(aged, key=lambda s: s.parked_t)
+        return min(pool,
+                   key=lambda s: (CLASS_RANK.get(s.priority, 1), s.parked_t))
+
+    def _swap_in_fallback(self, seq: SeqState) -> None:
+        """A swap-in that cannot happen (a failed copy, a torn bundle) is
+        resolved by recompute, and counted as one: the swap-out was counted
+        as a swap."""
+        self.preempt_recompute_total += 1
+        self.recomputed_tokens_total += seq.num_computed
+        self._reset_for_recompute(seq)
+        seq.qos_enqueue_t = time.monotonic()
+        self.waiting.appendleft(seq)
+
+    def _swap_in_pass(self) -> None:
+        """Re-activate swapped-out sequences when capacity returns, before
+        admission: a resumed sequence reclaims its old place at its old
+        progress. A candidate needs blocks for its whole resident prefix
+        plus one token of headroom. One whose reservation fails
+        ``SWAP_IN_SKIP_AFTER`` passes in a row is re-parked behind its
+        peers so that smaller ones get their turn."""
+        if self.swapper is None:
+            return
+        rotations = 0
+        skipped: set = set()
+        while self.swapped and len(self.running) < self.args.max_num_seqs:
+            if rotations > len(self.swapped):
+                break  # a full cycle without progress: wait for memory
+            seq = self._swap_in_candidate(frozenset(skipped))
+            st = self.swapper.swap_status(seq)
+            if st == "pending":
+                break  # the host copy is in flight; order kept
+            if st != "ready":
+                self.swapped.remove(seq)
+                logger.warning("swap-in of %s unavailable (%s); falling "
+                               "back to recompute", seq.request_id, st)
+                self.swapper.swap_drop(seq)
+                self._swap_in_fallback(seq)
+                continue
+            bs = self.args.block_size
+            need = (seq.num_computed + bs) // bs  # ceil((computed + 1) / bs)
+            free_after = self.pool.num_free_blocks - need
+            watermarked = (self.running and self.pool.num_free_blocks - need
+                           < self.args.watermark * self.pool.num_blocks)
+            if free_after < 0 or watermarked:
+                seq.swap_in_attempts += 1
+                if (len(self.swapped) > 1
+                        and seq.swap_in_attempts >= SWAP_IN_SKIP_AFTER):
+                    seq.swap_in_attempts = 0
+                    seq.parked_t = time.monotonic()  # back of its class
+                    self.swapped.remove(seq)  # and of the FIFO order
+                    self.swapped.append(seq)
+                    skipped.add(id(seq))
+                    self.swap_in_blocked_total += 1
+                    rotations += 1
+                    logger.info("swap-in of %s blocked (needs %d blocks, "
+                                "%d free); skipping ahead", seq.request_id,
+                                need, self.pool.num_free_blocks)
+                    continue
+                break  # wait, don't thrash
+            self.swapped.remove(seq)
+            if not self._ensure_blocks(seq, seq.num_computed + 1):
+                seq.swap_in_attempts += 1
+                self.swapped.appendleft(seq)
+                break
+            seq.swap_in_attempts = 0
+            if not self.swapper.swap_in(seq):
+                self.pool.release(seq.block_table)
+                seq.block_table = []
+                self._swap_in_fallback(seq)
+                continue
+            self.swap_in_total += 1
+            # its old place: ahead of every later admission, and reached
+            # last by the newest-first victim order
+            self.running.insert(0, seq)
 
     def _make_room_for(self, seq: SeqState) -> bool:
         """Admission-time priority preemption: evict one running sequence
@@ -448,6 +599,9 @@ class Scheduler:
         probe = TokenBlockSequence.from_tokens(
             seq.tokens[: matchable * bs], bs, KV_HASH_SEED)
         hit_blocks = self.pool.match_prefix(probe.sequence_hashes())
+        if self.onboard_cb is not None and len(hit_blocks) < matchable:
+            hit_blocks = hit_blocks + self.onboard_cb(
+                probe, len(hit_blocks), matchable)
         if not hit_blocks:
             return
         n = len(hit_blocks)
@@ -493,17 +647,45 @@ class Scheduler:
             reverse=True)
 
     def _preempt(self, seq: SeqState) -> None:
-        """Evict a victim: release its blocks and requeue it for recompute."""
+        """Evict a victim to free its blocks: swap its pages to host memory
+        when the swapper accepts (budget left), else release and recompute.
+        Either way its device blocks return to the pool in this plan: the
+        swap's gather is enqueued before the release, so it reads the pages
+        before any later step reuses them."""
         self._flush_stored(seq)  # blocks are still resident
+        if (self.swapper is not None and seq.num_computed > 0
+                and seq.block_table and self.swapper.swap_out(seq)):
+            logger.info("preempting request %s (swap-out, %d tokens)",
+                        seq.request_id, seq.num_computed)
+            self.pool.release(seq.block_table)
+            seq.block_table = []
+            seq.preemptions += 1
+            self.preempt_swap_total += 1
+            if seq in self.running:
+                self.running.remove(seq)
+            seq.parked_t = time.monotonic()
+            seq.swap_in_attempts = 0
+            self.swapped.append(seq)
+            return
         if seq.num_computed > 0:
+            # a victim with nothing computed discards no KV: neither a swap
+            # nor a recompute preemption
             logger.warning("preempting request %s (recompute)",
                            seq.request_id)
+            self.preempt_recompute_total += 1
+            self.recomputed_tokens_total += seq.num_computed
         self.pool.release(seq.block_table)
         seq.block_table = []
-        seq.num_computed = 0
-        seq.num_registered_blocks = 0
-        seq.hashes = self._new_hashes()
+        self._reset_for_recompute(seq)
+        seq.preemptions += 1
         if seq in self.running:
             self.running.remove(seq)
         seq.qos_enqueue_t = time.monotonic()
         self.waiting.appendleft(seq)
+
+    def _reset_for_recompute(self, seq: SeqState) -> None:
+        """Zero a sequence's computed-KV bookkeeping, so that admission runs
+        its prefill again from the start."""
+        seq.num_computed = 0
+        seq.num_registered_blocks = 0
+        seq.hashes = self._new_hashes()

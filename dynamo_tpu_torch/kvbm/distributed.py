@@ -1,7 +1,8 @@
 """The block frame of the ``kv_pull`` endpoint, the port's copy of
 ``dynamo_tpu/kvbm/distributed.py``'s ``_pack_block`` / ``_unpack_block``
 and ``kvbm/tiers.py``'s ``resolve_dtype``. The distributed block manager
-itself (leader, ownership map, G2-G4 tiers) waits for ROADMAP A8e.
+itself (leader, ownership map, the G4 tier) waits for ROADMAP A8e part
+3; the local G2 and G3 tiers are ``tiers.py``.
 
 One frame is one full block: its chained sequence hash and its k and v
 pages, [L, bs, KV, hd] each (packed int8: uint8 [L, X]), as raw bytes with

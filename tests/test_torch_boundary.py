@@ -108,8 +108,9 @@ ABSENT_ON_CARD = ("jax", "jaxlib", "dynamo_tpu", "msgpack", "safetensors",
 
 def test_worker_imports_with_jax_and_wire_packages_blocked():
     """In a fresh interpreter where importing any of ABSENT_ON_CARD fails,
-    the worker entry point, its loader and engine, and chip_smoke.py
-    import, and the worker parses and checks a command line."""
+    the worker entry point, its loader and engine, the KVBM tiers and
+    chip_smoke.py import, the disk tier writes and reads a bf16 block, and
+    the worker parses and checks a command line."""
     import subprocess
     import sys
 
@@ -120,7 +121,14 @@ def test_worker_imports_with_jax_and_wire_packages_blocked():
         "import dynamo_tpu_torch.engine.main as m\n"
         "import dynamo_tpu_torch.engine.loader, dynamo_tpu_torch.engine.engine\n"
         "import dynamo_tpu_torch.disagg.transfer, dynamo_tpu_torch.kvbm.distributed\n"
-        "import chip_smoke\n"
+        "import dynamo_tpu_torch.kvbm.manager, dynamo_tpu_torch.kvbm.tiers as kt\n"
+        "import chip_smoke, shutil, tempfile, torch\n"
+        "d = tempfile.mkdtemp()\n"
+        "x = torch.arange(8, dtype=torch.bfloat16).reshape(2, 4)\n"
+        "t = kt.DiskTier(d, 1 << 20)\n"
+        "t.put(1, x, x)  # a bf16 file written and read without ml_dtypes\n"
+        "assert torch.equal(t.get(1)[0], x)\n"
+        "shutil.rmtree(d)\n"
         "cli = m.build_parser().parse_args(['--arch', 'tiny', '--device',\n"
         "    'cpu', '--allow-test-metadata'])\n"
         "cfg, args, eos, tk = m.configure(cli)\n"

@@ -931,10 +931,12 @@ async def test_mixed_prefill_decode_pairs_equal_jax_aggregated(direction, kv):
 
 
 def test_roles_flags_and_refusals():
-    """Both roles configure, ``--kv-layer-groups`` reaches EngineArgs, and
-    what stays unported is refused under its new id: the KVBM tiers and
-    swap (A8e). The direct transfer (A8d) is on unless
-    ``--no-kv-transfer-direct`` turns it off."""
+    """Both roles configure, ``--kv-layer-groups`` reaches EngineArgs, the
+    swap and local KVBM flags and knobs (A8e parts 1 and 2a) are accepted
+    and reach EngineArgs, and what stays unported is refused under its id:
+    the G4 tier and the distributed block manager (A8e). The direct
+    transfer (A8d) is on unless ``--no-kv-transfer-direct`` turns it
+    off."""
     from dynamo_tpu_torch.engine import main as worker_main
 
     def configure(*argv):
@@ -947,19 +949,26 @@ def test_roles_flags_and_refusals():
                                           "--kv-layer-groups", "2")
         assert args.kv_transfer_layer_groups == 2
     assert configure()[1].kv_transfer_layer_groups == 4
+    args = configure()[1]
+    assert args.preempt_swap and args.swap_host_bytes is None
+    assert args.kvbm_host_bytes == 0 and args.kvbm_disk_dir is None
+    args = configure("--no-preempt-swap", "--swap-host-gb", "0.5",
+                     "--kvbm-host-gb", "1", "--kvbm-disk-dir", "/kv",
+                     "--kvbm-disk-gb", "2")[1]
+    assert not args.preempt_swap and args.swap_host_bytes == 1 << 29
+    assert args.kvbm_host_bytes == 1 << 30
+    assert (args.kvbm_disk_dir, args.kvbm_disk_bytes) == ("/kv", 2 << 30)
     for argv, item in ((["--kvbm-g4-gb", "1"], "A8e"),
                        (["--kvbm-distributed"], "A8e"),
-                       (["--kvbm-host-gb", "1"], "A8e"),
-                       (["--swap-host-gb", "1"], "A8e"),
-                       (["--no-preempt-swap"], None)):
-        if item is None:
-            configure(*argv)  # swap is off in the port: accepted
-            continue
+                       (["--kvbm-leader-workers", "2"], "A8e")):
         with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
             configure(*argv)
-    for knob, item in (("preempt_swap", "A8e"), ("kvbm_host_bytes", "A8e")):
-        with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-            EngineArgs(**{knob: 1})
+    assert EngineArgs().preempt_swap  # the JAX package's default
+    EngineArgs(preempt_swap=True, kvbm_host_bytes=1 << 20,
+               kvbm_disk_dir="/kv", kvbm_disk_bytes=1 << 20,
+               swap_host_bytes=1 << 20)
+    with pytest.raises(ValueError, match="ROADMAP A11"):
+        EngineArgs(tp_size=2)
     # the direct transfer is ported: on by default, off by its flag
     assert EngineArgs().kv_transfer_direct
     assert not configure("--role", "decode",

@@ -723,10 +723,10 @@ def _graph_engine(kind: str, guided_vocab=None, **knobs):
             vocab_size=512, hidden_size=256, intermediate_size=512,
             num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
             max_position_embeddings=4096, dtype="bfloat16")
-    args = EngineArgs(block_size=16, num_blocks=512, max_num_seqs=8,
-                      max_num_batched_tokens=256, max_model_len=1024,
-                      kv_cache_dtype="int8" if kind == "gqa_int8" else None,
-                      **knobs)
+    args = EngineArgs(**{**dict(
+        block_size=16, num_blocks=512, max_num_seqs=8,
+        max_num_batched_tokens=256, max_model_len=1024,
+        kv_cache_dtype="int8" if kind == "gqa_int8" else None), **knobs})
     return AsyncTorchEngine(cfg, args, guided_vocab=guided_vocab)
 
 
@@ -803,6 +803,54 @@ def test_captured_steps_equal_eager_on_card(kind):
         assert torch.equal(got[0], want[name][0]), name
         assert all(torch.equal(g, w) for g, w in zip(got[1], want[name][1]))
         assert got[2] == want[name][2] and any(got[2]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["gqa_bf16", "gqa_int8", "mla_bf16"])
+def test_swap_round_trip_on_card(kind):
+    """Preempt-to-swap under graphs on the pipelined loop: eight requests
+    on a pool of half their working set swap victims out and back; each
+    victim's blocks (``blocks_digest``) are bit-equal before its swap-out
+    and after its swap-in, nothing recomputes, and after close() no host
+    byte stays reserved and no block stays counted swapped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import asyncio
+
+    from chip_smoke import SwapSpy  # the card phase's digest spy
+    from dynamo_tpu_torch.protocols import (
+        PreprocessedRequest, StopConditions,
+    )
+
+    n, isl, osl = 8, 200, 64
+    working = n * -(-(isl + osl) // 16)
+    engine = _graph_engine(kind, num_blocks=working // 2 + 1)
+    assert engine.use_graphs and engine.args.pipeline_decode
+    spy = SwapSpy(engine)
+    rng = np.random.default_rng(7)
+
+    async def run():
+        async def one(p):
+            toks = []
+            async for o in engine.generate(PreprocessedRequest(
+                    model="x", token_ids=p, stop_conditions=StopConditions(
+                        max_tokens=osl, ignore_eos=True))):
+                toks += o.token_ids
+            return toks
+
+        try:
+            return await asyncio.gather(*(one(list(map(int, rng.integers(
+                0, engine.cfg.vocab_size, isl)))) for _ in range(n)))
+        finally:
+            await engine.close()
+
+    streams = asyncio.run(run())
+    st = engine.swap_stats()
+    assert all(len(t) == osl for t in streams)
+    assert st["preempt_swap"] > 0 and st["preempt_recompute"] == 0
+    assert st["swap_out_blocks"] == st["swap_in_blocks"] > 0
+    assert st["swapped_blocks"] == 0 and st["swap_host_bytes"] == 0
+    assert spy.check(kind) == st["preempt_swap"]
 
 
 @pytest.mark.gpu
